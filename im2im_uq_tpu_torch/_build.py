@@ -1,0 +1,132 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds). The
+library goes to ``build/im2im_uq_tpu_torch/<hash>/`` at the repository root,
+keyed by a hash of the sources and the flags, so an edited source rebuilds
+and an unchanged one is loaded as it is. The wrappers in ``ops/`` pass
+tensor pointers and PyTorch's current stream as ``c_void_p``.
+
+Nothing here runs at import time: the first CUDA call of a kernel wrapper
+calls :func:`library`. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["BuildInfo", "build", "check", "library", "nvcc_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "im2im_uq_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB_NAME = "libim2im_uq_kernels.so"
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (x, y, wh, ww, planes, h, w, dtype, device, stream)
+    "im2im_upsample2x": (
+        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    # (pred, label, dl, du, lam, out, n, num_px, num_lam, device, stream)
+    "im2im_loss_table": (
+        [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    """Where the library is, whether this call compiled it, how long that
+    took, and nvcc's output (with ``-Xptxas -v``: registers and shared
+    memory per kernel)."""
+
+    path: Path
+    compiled: bool
+    seconds: float
+    log: str
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found on PATH or under /usr/local/cuda/bin: the CUDA kernels "
+        "of im2im_uq_tpu_torch cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return sources
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into the hash-keyed library unless it exists."""
+    sources = _sources()
+    out = BUILD_ROOT / _digest(sources) / _LIB_NAME
+    if out.exists():
+        return BuildInfo(out, False, 0.0, "")
+    nvcc = nvcc_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
+    return BuildInfo(out, True, seconds, log)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per process)."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        text = library().im2im_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({text})")

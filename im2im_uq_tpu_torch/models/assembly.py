@@ -1,0 +1,156 @@
+"""Model assembly: trunk + uncertainty head + calibrated λ̂.
+
+Counterpart of ``im2im_uq_tpu/models/assembly.py``. :class:`UQModel` is the
+network, with the reference's submodule names ``baseModel`` and
+``last_layer``; :class:`UQState` carries it with the config and λ̂ and holds
+the eval-mode apply paths. Tensors inside are NCHW; the head's output is
+(B, K, C, H, W).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from im2im_uq_tpu_torch.models.heads import build_head
+from im2im_uq_tpu_torch.models.unet import UNet
+from im2im_uq_tpu_torch.ops import sets as set_ops
+
+__all__ = ["UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc"]
+
+
+def nchw_from_nhwc(batch: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """(N, H, W, C) numpy batch → (N, C, H, W) tensor on ``device``.
+
+    ``copy()`` gives canonical strides. A C=1 transpose made contiguous with
+    ``np.ascontiguousarray`` keeps a channel stride of 1, which PyTorch also
+    reads as channels_last, and cuDNN would then run the network in that
+    layout.
+    """
+    return torch.from_numpy(batch.transpose(0, 3, 1, 2).copy()).to(device)
+
+
+class UQModel(nn.Module):
+    """forward = last_layer(baseModel(x)) (reference add_uncertainty.py:25-27)."""
+
+    def __init__(self, trunk: nn.Module, head: nn.Module):
+        super().__init__()
+        self.baseModel = trunk
+        self.last_layer = head
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.last_layer(self.baseModel(x))
+
+
+@dataclasses.dataclass
+class UQState:
+    """A UQModel with its config params and calibrated λ̂.
+
+    ``lhat is None`` until calibration; ``nested_sets`` then needs an
+    explicit λ. The apply paths run the model in eval mode without autograd.
+    """
+
+    model: UQModel
+    params: dict
+    lhat: Optional[float] = None
+
+    @property
+    def uncertainty_type(self) -> str:
+        return self.params["uncertainty_type"]
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval-mode head output (B, K, C, H, W) for an NCHW batch."""
+        self.model.eval()
+        with torch.inference_mode():
+            return self.model(x)
+
+    def interval_params(self, output: torch.Tensor) -> set_ops.IntervalParams:
+        return set_ops.interval_params(output, self.uncertainty_type)
+
+    def _resolve_lam(self, lam):
+        if lam is None:
+            if self.lhat is None:
+                raise ValueError(
+                    "You have to specify lambda unless your model is already calibrated."
+                )
+            lam = self.lhat
+        return lam
+
+    def nested_sets(self, x: torch.Tensor, lam=None):
+        """(lower, pred, upper), each (B, C, H, W), at λ (default λ̂)."""
+        lam = torch.tensor(self._resolve_lam(lam), dtype=torch.float32, device=x.device)
+        with torch.inference_mode():
+            return set_ops.nested_sets_from_output(
+                self.forward(x), lam, self.uncertainty_type
+            )
+
+    def set_lhat(self, lhat: float) -> "UQState":
+        return dataclasses.replace(self, lhat=float(lhat))
+
+    def replace(self, **kw) -> "UQState":
+        return dataclasses.replace(self, **kw)
+
+
+def build_trunk(params: dict) -> nn.Module:
+    """Trunk factory for the config's ``model``; its parameters are left on
+    the meta device until :func:`add_uncertainty` places and fills them."""
+    name = params.get("model", "UNet")
+    if params.get("compute_dtype") not in (None, "float32", "f32"):
+        raise NotImplementedError(
+            f"compute_dtype {params['compute_dtype']!r} is not yet ported"
+        )
+    if name != "UNet":
+        raise NotImplementedError(f"trunk {name!r} is not yet ported")
+    with torch.device("meta"):
+        return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1)
+
+
+def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:
+    """torch's default Conv2d init, U(±1/√fan_in) for kernels and biases
+    (the JAX package's conv_kernel_init, unet.py:118-135), drawn from
+    ``generator``; BatchNorm starts at weight 1, bias 0, mean 0, var 1."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                bound = 1.0 / math.sqrt(fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
+def add_uncertainty(
+    trunk: nn.Module,
+    params: dict,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device: torch.device | str = "cpu",
+) -> UQState:
+    """Wrap a trunk with the configured head and place it on ``device``.
+
+    With a ``generator`` the weights get torch's default init drawn from it
+    (on the generator's device, then moved). Without one they are left
+    uninitialised, for a caller that loads a state dict next.
+    """
+    with torch.device("meta"):
+        head = build_head(
+            params["uncertainty_type"], trunk.n_channels_middle, trunk.n_channels_out
+        )
+    model = UQModel(trunk, head)
+    if generator is not None:
+        model = model.to_empty(device=generator.device)
+        _torch_default_init(model, generator)
+        model = model.to(device)
+    else:
+        model = model.to_empty(device=device)
+    return UQState(model=model.eval(), params=dict(params), lhat=None)

@@ -1,0 +1,176 @@
+"""Batch inference / serving CLI: calibrated checkpoint → per-pixel intervals.
+
+Counterpart of ``im2im_uq_tpu/scripts/infer.py``: load a calibrated
+checkpoint (weights + λ̂), stream inputs through the model at a fixed batch
+shape (the tail is zero-padded; eval-mode BatchNorm uses running stats, so
+padding never touches real outputs), and write one ``{name}_intervals.npz``
+(lower / prediction / upper, plus lam) per input file and an
+``inference_summary.json``.
+
+Usage:
+    python -m im2im_uq_tpu_torch.scripts.infer \
+        --config experiments/synthetic_test/config.yml \
+        --checkpoint checkpoints/CP_calibrated_....pt \
+        --input inputs.npy --output out/ [--lam 2.5] [--batch-size 32] \
+        [--device cuda]
+
+Inputs: a ``.npy``/``.npz`` array of shape (N, H, W, C) or (H, W, C), or a
+directory of such files (sorted order), normalized as in training.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+from pathlib import Path
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from im2im_uq_tpu.utils.config import DEFAULTS, load_config
+
+from im2im_uq_tpu_torch.models.assembly import (
+    UQState,
+    add_uncertainty,
+    build_trunk,
+    nchw_from_nhwc,
+)
+from im2im_uq_tpu_torch.training.checkpoint import load_calibrated_checkpoint
+
+__all__ = ["load_uq_state_for_inference", "main", "predict_intervals"]
+
+
+def load_uq_state_for_inference(
+    config: dict, checkpoint: str, device: torch.device | str
+) -> UQState:
+    """Rebuild the model from config on ``device`` and load weights and λ̂."""
+    state = add_uncertainty(build_trunk(config), config, device=device)
+    lhat, _epoch = load_calibrated_checkpoint(checkpoint, state.model)
+    return state.replace(lhat=lhat)
+
+
+def _iter_input_arrays(path: str) -> Iterator[tuple[str, np.ndarray]]:
+    """Yield (name, (N,H,W,C) float32 array) from a file or directory."""
+    p = Path(os.path.expanduser(path))
+    files = (
+        sorted(q for q in p.iterdir() if q.suffix in (".npy", ".npz"))
+        if p.is_dir()
+        else [p]
+    )
+    if not files:
+        raise FileNotFoundError(f"no .npy/.npz inputs under {path}")
+    seen: set[str] = set()
+    for f in files:
+        if f.suffix == ".npz":
+            with np.load(f) as z:
+                arr = z[z.files[0]]
+        else:
+            arr = np.load(f)
+        arr = np.asarray(arr, np.float32)
+        if arr.ndim == 3:
+            arr = arr[None]
+        if arr.ndim != 4:
+            raise ValueError(f"{f}: expected (N,H,W,C) or (H,W,C), got {arr.shape}")
+        if arr.shape[0] == 0:
+            raise ValueError(f"{f}: contains no images (shape {arr.shape})")
+        # 'a.npy' and 'a.npz' in one directory must not collide on 'a'
+        name = f.stem if f.stem not in seen else f.stem + f.suffix.replace(".", "_")
+        seen.add(name)
+        yield name, arr
+
+
+def predict_intervals(
+    state: UQState,
+    inputs: np.ndarray,
+    batch_size: int = 32,
+    lam: Optional[float] = None,
+) -> dict[str, np.ndarray]:
+    """Calibrated nested sets over (N,H,W,C) inputs at a fixed batch shape.
+
+    Returns {"lower", "prediction", "upper"}, each (N,H,W,C) float32.
+    """
+    n = inputs.shape[0]
+    if n == 0:
+        empty = np.zeros(inputs.shape, np.float32)
+        return {"lower": empty, "prediction": empty.copy(), "upper": empty.copy()}
+    device = state.device
+    outs: dict[str, list[np.ndarray]] = {"lower": [], "prediction": [], "upper": []}
+    for start in range(0, n, batch_size):
+        chunk = inputs[start : start + batch_size]
+        real = chunk.shape[0]
+        if real < batch_size:
+            pad = np.zeros((batch_size - real, *chunk.shape[1:]), chunk.dtype)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        sets = state.nested_sets(nchw_from_nhwc(chunk, device), lam=lam)
+        for key, t in zip(("lower", "prediction", "upper"), sets):
+            outs[key].append(t[:real].permute(0, 2, 3, 1).cpu().numpy())
+    return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", help="experiment config YAML")
+    ap.add_argument("--checkpoint", help="calibrated checkpoint (.pt)")
+    ap.add_argument("--artifact", help="AOT serving artifact (not yet ported)")
+    ap.add_argument("--input", required=True, help=".npy/.npz file or directory")
+    ap.add_argument("--output", required=True, help="output directory for .npz results")
+    ap.add_argument("--batch-size", type=int, default=32, help="serving batch shape")
+    ap.add_argument(
+        "--lam", type=float, default=None,
+        help="interval scale λ override (default: the checkpoint's calibrated λ̂)",
+    )
+    ap.add_argument(
+        "--grid-index", type=int, default=0,
+        help="which grid point of a sweep config describes the checkpointed model",
+    )
+    ap.add_argument("--device", default="cuda", help="torch device to serve on")
+    ap.add_argument("--data-parallel", action="store_true", help="not yet ported")
+    ap.add_argument("--spatial", action="store_true", help="not yet ported")
+    args = ap.parse_args(argv)
+
+    for flag in ("artifact", "data_parallel", "spatial"):
+        if getattr(args, flag):
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} is not yet ported to im2im_uq_tpu_torch"
+            )
+    if not (args.config and args.checkpoint):
+        raise SystemExit("--config and --checkpoint are both required")
+
+    config = dict(DEFAULTS)
+    config.update(load_config(args.config, grid_index=args.grid_index)[0])
+    state = load_uq_state_for_inference(
+        config, os.path.expanduser(args.checkpoint), torch.device(args.device)
+    )
+    lam = args.lam if args.lam is not None else state.lhat
+    if lam is None:
+        raise SystemExit("checkpoint has no calibrated λ̂ — pass --lam or calibrate first")
+
+    out_dir = Path(os.path.expanduser(args.output))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total, t0 = 0, time.perf_counter()
+    for name, arr in _iter_input_arrays(args.input):
+        result = predict_intervals(state, arr, args.batch_size, lam=lam)
+        out = out_dir / f"{name}_intervals.npz"
+        np.savez(out, lam=np.float64(lam), **result)
+        total += arr.shape[0]
+        print(f"{out}  ({arr.shape[0]} images)")
+    dt = time.perf_counter() - t0
+    summary = {
+        "images": total,
+        "seconds": round(dt, 3),
+        "imgs_per_sec": round(total / dt, 2) if dt > 0 else math.inf,
+        "lam": lam,
+        "uncertainty_type": config["uncertainty_type"],
+    }
+    with open(out_dir / "inference_summary.json", "w") as fh:
+        json.dump(summary, fh)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,55 @@
+"""The port imports no JAX.
+
+The test process itself imports JAX (``tests/conftest.py``), so the check
+runs in a fresh interpreter: import every module of ``im2im_uq_tpu_torch``
+and ``chip_smoke``, then assert that neither ``jax`` nor ``flax`` was loaded.
+"""
+
+from __future__ import annotations
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import im2im_uq_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_CHECK = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in ("jax", "flax") if m in sys.modules)
+assert not leaked, leaked
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def _port_modules() -> list[str]:
+    names = [im2im_uq_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(im2im_uq_tpu_torch.__path__, prefix="im2im_uq_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    modules = _port_modules() + ["chip_smoke"]
+    assert len(modules) > 15
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECK, *modules], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"ok {len(modules)}"
+
+
+def test_port_sources_name_no_jax_import():
+    for path in Path(im2im_uq_tpu_torch.__file__).parent.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "flax"), (path, line)
