@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds). The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to ``build/im2im_uq_tpu_torch/<hash>/`` at the repository root,
 keyed by a hash of the sources and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is. The wrappers in ``ops/`` pass
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "im2im_uq_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libim2im_uq_kernels.so"
 
@@ -45,6 +46,18 @@ _SIGNATURES = {
     "im2im_loss_table": (
         [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    # (g, dx, ah, aw, planes, h, w, dtype, device, stream); h, w are dx's
+    "im2im_upsample2x_bwd": (
+        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
+    # (x, g, dx, planes, h, w, dtype, device, stream); h, w are x's
+    "im2im_maxpool2x2_bwd": (
+        [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
     "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -92,26 +105,44 @@ def _digest(sources: list[Path]) -> str:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` into the hash-keyed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hash-keyed library unless it exists.
+
+    One ``nvcc -c`` per source, all running at once, then one link. Every
+    process started here is waited for before this returns or raises.
+    """
     sources = _sources()
     out = BUILD_ROOT / _digest(sources) / _LIB_NAME
     if out.exists():
         return BuildInfo(out, False, 0.0, "")
     nvcc = nvcc_path()
-    out.parent.mkdir(parents=True, exist_ok=True)
+    work = out.parent / f"objects.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    jobs = []
+    for src in sources:
+        obj = work / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"exit code {proc.returncode}: {' '.join(cmd)}\n{text}")
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"exit code {proc.returncode}: {' '.join(link)}\n{logs[-1]}")
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
-    return BuildInfo(out, True, seconds, log)
+    return BuildInfo(out, True, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache

@@ -102,7 +102,13 @@ class UQState:
 
 def build_trunk(params: dict) -> nn.Module:
     """Trunk factory for the config's ``model``; its parameters are left on
-    the meta device until :func:`add_uncertainty` places and fills them."""
+    the meta device until :func:`add_uncertainty` places and fills them.
+
+    ``pool_backend`` takes the JAX package's values, "xla" and "pallas", so
+    that its configs carry over; both give the same pool (torch's forward,
+    K7 as its backward). ``conv_backend`` takes only its default, "auto"
+    (= "xla").
+    """
     name = params.get("model", "UNet")
     if params.get("compute_dtype") not in (None, "float32", "f32"):
         raise NotImplementedError(
@@ -110,6 +116,12 @@ def build_trunk(params: dict) -> nn.Module:
         )
     if name != "UNet":
         raise NotImplementedError(f"trunk {name!r} is not yet ported")
+    if params.get("conv_backend", "auto") not in ("auto", "xla"):
+        raise NotImplementedError(
+            f"conv_backend {params['conv_backend']!r} is not yet ported"
+        )
+    if params.get("pool_backend", "xla") not in ("xla", "pallas"):
+        raise ValueError(f"unknown pool_backend {params['pool_backend']!r}")
     with torch.device("meta"):
         return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1)
 

@@ -9,7 +9,8 @@ model's weights load with ``load_state_dict(strict=True)``.
 
 Convolutions and batch norm are PyTorch's own layers (cuDNN on the card,
 as the JAX package leaves them to XLA). The decoder's 2x upsample is K1
-(``ops/upsample.py``) on a CUDA tensor.
+(``ops/upsample.py``: K1f forward, K1b backward) on a CUDA tensor. ``Down``'s
+pool is ``ops/pool.MaxPool2x2``: torch's max-pool forward, K7 as its backward.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
 from im2im_uq_tpu_torch.ops.resize import upsample2x_align_corners
 
 __all__ = ["DoubleConv", "Down", "OutConv", "UNet", "Up"]
@@ -50,13 +52,15 @@ class DoubleConv(nn.Module):
 
 
 class Down(nn.Module):
-    """2×2 max pool (floor on odd sizes), then DoubleConv."""
+    """2×2 max pool (floor on odd sizes), then DoubleConv.
+
+    The pool has no parameters, so the state-dict keys stay
+    ``maxpool_conv.1.*``.
+    """
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.maxpool_conv = nn.Sequential(
-            nn.MaxPool2d(2), DoubleConv(in_channels, out_channels)
-        )
+        self.maxpool_conv = nn.Sequential(MaxPool2x2(), DoubleConv(in_channels, out_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.maxpool_conv(x)

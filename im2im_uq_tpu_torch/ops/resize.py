@@ -1,8 +1,9 @@
 """Bilinear resizes with align-corners semantics, NCHW.
 
 Counterpart of ``im2im_uq_tpu/ops/resize.py``. The decoder calls
-:func:`upsample2x_align_corners`, which is K1's wrapper (``ops/upsample.py``):
-the CUDA kernel on a CUDA tensor, the plain phase lerp on a CPU tensor.
+:func:`upsample2x_align_corners`, which is K1's autograd function
+(``ops/upsample.py``): the CUDA kernels K1f and K1b on a CUDA tensor, the
+plain phase lerp and its transpose on a CPU tensor.
 :func:`resize_bilinear_align_corners` is the general resize of the JAX
 package, kept for other scale factors.
 """
@@ -60,6 +61,6 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> t
     return x
 
 
-# The JAX package's name for the decoder upsample: K1 on CUDA, its plain
-# version on the CPU.
+# The JAX package's name for the decoder upsample: K1f/K1b on CUDA, their
+# plain versions on the CPU.
 upsample2x_align_corners = upsample2x

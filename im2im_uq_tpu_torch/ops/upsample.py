@@ -1,9 +1,14 @@
-"""K1: the 2x align-corners bilinear upsample of every decoder level.
+"""K1: the 2x align-corners bilinear upsample of every decoder level, and
+its backward.
 
-Counterpart of ``im2im_uq_tpu/ops/pallas_resize.py`` (forward). On a CUDA
-tensor :func:`upsample2x` launches the hand-written kernel in
-``csrc/upsample2x.cu``; on a CPU tensor it runs :func:`upsample2x_plain`,
-the same phase lerp in PyTorch ops. Nothing else picks between the two.
+Counterpart of ``im2im_uq_tpu/ops/pallas_resize.py`` (``upsample2x_pallas``
+and its custom VJP). :class:`Upsample2x` is the autograd function: its
+forward is :func:`upsample2x_fwd` (K1f) and its backward
+:func:`upsample2x_bwd` (K1b). On a CUDA tensor each of those launches its
+hand-written kernel (``csrc/upsample2x.cu``, ``csrc/upsample2x_bwd.cu``); on
+a CPU tensor it runs its plain version in PyTorch ops
+(:func:`upsample2x_plain`, :func:`upsample2x_bwd_plain`). Nothing else picks
+between the two.
 
 Layout is NCHW: the upsample works on the last two axes.
 """
@@ -17,7 +22,18 @@ import torch
 
 from im2im_uq_tpu_torch import _build
 
-__all__ = ["phase_weights", "upsample2x", "upsample2x_axis_plain", "upsample2x_plain"]
+__all__ = [
+    "Upsample2x",
+    "phase_weights",
+    "transpose_weights",
+    "upsample2x",
+    "upsample2x_axis_plain",
+    "upsample2x_bwd",
+    "upsample2x_bwd_axis_plain",
+    "upsample2x_bwd_plain",
+    "upsample2x_fwd",
+    "upsample2x_plain",
+]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -57,12 +73,57 @@ def upsample2x_axis_plain(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.stack([even, odd], dim + 1).reshape(out_shape)
 
 
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for the kernels' dtypes (f32, bf16); f64 stays f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: lerp along H, then W, in f32; one rounding at the end."""
-    y = x.float()
+    """K1's plain version: lerp along H, then W, in f32 (f64 for an f64
+    input); one rounding at the end."""
+    y = x.to(_compute_dtype(x.dtype))
     y = upsample2x_axis_plain(y, x.ndim - 2)
     y = upsample2x_axis_plain(y, x.ndim - 1)
     return y.to(x.dtype)
+
+
+def transpose_weights(n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Tap weights (a0, a1, a2, a3) of the upsample's transpose along an axis
+    of n inputs: dx[m] = a1·g[2m] + a3·g[2m+2] + a2·g[2m+1] + a0·g[2m−1]
+    (``pallas_resize._upsample2x_bwd_raw``, :281-287), f32."""
+    fe, fo = phase_weights(n)
+    one = np.float32(1.0)
+    a0 = np.concatenate([[0.0], fo[:-1]]).astype(np.float32)
+    a3 = np.concatenate([one - fe[1:], [0.0]]).astype(np.float32)
+    return a0, fe, one - fo, a3
+
+
+def upsample2x_bwd_axis_plain(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """Transpose of :func:`upsample2x_axis_plain` along ``dim`` (2n → n).
+
+    The taps outside the axis are clamped onto real elements, which their
+    weight of exactly 0 cancels, as in the forward.
+    """
+    n = g.shape[dim] // 2
+    pairs = g.unflatten(dim, (n, 2))
+    even, odd = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)  # g[2m], g[2m+1]
+    even_next = torch.cat([even.narrow(dim, 1, n - 1), even.narrow(dim, n - 1, 1)], dim)
+    odd_prev = torch.cat([odd.narrow(dim, 0, 1), odd.narrow(dim, 0, n - 1)], dim)
+    shape = [1] * even.ndim
+    shape[dim] = n
+    a0, a1, a2, a3 = (torch.from_numpy(a).to(g.device, g.dtype).reshape(shape)
+                      for a in transpose_weights(n))
+    return a1 * even + a3 * even_next + a2 * odd + a0 * odd_prev
+
+
+def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+    """K1b's plain version: (…, 2H, 2W) cotangent → (…, H, W), the W axis
+    first and then H, in f32 (f64 for an f64 cotangent) with one rounding at
+    the end."""
+    d = g.to(_compute_dtype(g.dtype))
+    d = upsample2x_bwd_axis_plain(d, g.ndim - 1)
+    d = upsample2x_bwd_axis_plain(d, g.ndim - 2)
+    return d.to(g.dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -72,13 +133,23 @@ def _weight_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([fe, fo])).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def _transpose_table(n: int, device: torch.device) -> torch.Tensor:
+    """(4n,) f32 table [a0 | a1 | a2 | a3] on ``device``, kept per size."""
+    return torch.from_numpy(np.concatenate(transpose_weights(n))).to(device)
+
+
+def _check(t: torch.Tensor, kernel: str) -> None:
+    if t.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {t.dtype}")
+    if t.ndim != 4:
+        raise ValueError(f"{kernel} kernel takes NCHW input, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel} kernel takes a contiguous NCHW tensor")
+
+
 def _launch(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"upsample2x kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4:
-        raise ValueError(f"upsample2x kernel takes NCHW input, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("upsample2x kernel takes a contiguous NCHW tensor")
+    _check(x, "upsample2x")
     b, c, h, w = x.shape
     y = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
@@ -94,12 +165,29 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) → (B, C, 2H, 2W), bilinear with align_corners=True.
+def _launch_bwd(g: torch.Tensor) -> torch.Tensor:
+    _check(g, "upsample2x_bwd")
+    b, c, h2, w2 = g.shape
+    if h2 % 2 or w2 % 2:
+        raise ValueError(f"upsample2x_bwd takes an even-sized cotangent, got {tuple(g.shape)}")
+    h, w = h2 // 2, w2 // 2
+    dx = torch.empty((b, c, h, w), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    ah, aw = _transpose_table(h, g.device), _transpose_table(w, g.device)
+    err = _build.library().im2im_upsample2x_bwd(
+        g.data_ptr(), dx.data_ptr(), ah.data_ptr(), aw.data_ptr(),
+        b * c, h, w, _KERNEL_DTYPES[g.dtype], g.device.index,
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    upsample2x_bwd.launches += 1
+    _build.check(err, "upsample2x_bwd")
+    return dx
 
-    A CUDA tensor goes through the kernel, a CPU tensor through the plain
-    version; any other device raises.
-    """
+
+def upsample2x_fwd(x: torch.Tensor) -> torch.Tensor:
+    """K1f's wrapper, without autograd: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor; any other device raises."""
     if x.device.type == "cuda":
         return _launch(x)
     if x.device.type == "cpu":
@@ -107,4 +195,38 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     raise RuntimeError(f"upsample2x runs on cuda or cpu tensors, not {x.device}")
 
 
-upsample2x.launches = 0  # kernel launches since the last reset
+def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
+    """K1b's wrapper: (B, C, 2H, 2W) cotangent → (B, C, H, W). The kernel on
+    a CUDA tensor, the plain version on a CPU tensor; any other device raises."""
+    if g.device.type == "cuda":
+        return _launch_bwd(g)
+    if g.device.type == "cpu":
+        return upsample2x_bwd_plain(g)
+    raise RuntimeError(f"upsample2x_bwd runs on cuda or cpu tensors, not {g.device}")
+
+
+class Upsample2x(torch.autograd.Function):
+    """The upsample as an autograd function: K1f forward, K1b backward.
+
+    The op is linear, so nothing is saved for the backward. The cotangent
+    is made contiguous first: after ``Up``'s centre pad it arrives as a
+    slice of the padded tensor's gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return upsample2x_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return upsample2x_bwd(g.contiguous())
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, 2H, 2W), bilinear with align_corners=True,
+    differentiable through :class:`Upsample2x` on every device."""
+    return Upsample2x.apply(x)
+
+
+upsample2x.launches = 0  # K1f kernel launches since the last reset
+upsample2x_bwd.launches = 0  # K1b kernel launches since the last reset

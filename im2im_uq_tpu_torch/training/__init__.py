@@ -1,1 +1,1 @@
-"""Checkpoints of calibrated models."""
+"""Training, evaluation and checkpoints."""

@@ -1,0 +1,346 @@
+"""Training engine: train step, epoch loop, checkpoint and resume, one device.
+
+Counterpart of ``im2im_uq_tpu/training/train.py``, with its control flow and
+its accounting:
+
+- the train step runs the model in train mode (BatchNorm on batch
+  statistics, updating its running statistics), takes the per-example loss
+  of the head, its masked mean over the real examples of the batch
+  (``Σ loss·mask / max(Σ mask, 1)``), and one ``torch.optim.Adam(lr)`` step
+  with optax's defaults: β = (0.9, 0.999), eps = 1e-8 outside the square
+  root;
+- epochs shuffle with ``np.random.RandomState(seed + 1000·epoch + 1)`` and
+  pad the last batch by wrapping real examples (``pad_mode="wrap"``);
+- the epoch's ``train_loss`` is the sum of the batch means over the number
+  of real examples, and ``eval_net`` reports the same quotient;
+- validation every ``validate_every`` epochs (then ``validation_hook``),
+  checkpoints every ``checkpoint_every``, the resume scan with its
+  short-circuit when the final checkpoint exists, and ``graceful_shutdown``
+  (SIGTERM/SIGINT → checkpoint at the end of the epoch →
+  :class:`PreemptionInterrupt`).
+
+Unlike the JAX engine, which returns new arrays, training updates the
+caller's model in place: the returned ``UQState`` holds the same module.
+Not ported, and refused when asked for: a device ``mesh``, ``preprocess`` /
+``preprocess_pair`` (on-device input transforms), ``input_pipeline: grain``
+(and its mid-epoch checkpoints), ``loader_procs``,
+``precompile_calibration`` and ``make_train_multistep``.
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from im2im_uq_tpu.data.core import iterate_batches
+from im2im_uq_tpu.utils.logging import MetricsLogger
+
+from im2im_uq_tpu_torch.models.assembly import UQModel, UQState, nchw_from_nhwc
+from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
+from im2im_uq_tpu_torch.training import checkpoint as ckpt
+
+__all__ = [
+    "PreemptionInterrupt",
+    "eval_net",
+    "make_eval_loss_step",
+    "make_train_step",
+    "put_batch",
+    "train_net",
+]
+
+# The JAX package's top-level parameter names, which the gradient-norm log
+# keys carry (grad_norm/trunk, grad_norm/head).
+_NORM_KEYS = {"baseModel": "trunk", "last_layer": "head"}
+
+
+class PreemptionInterrupt(RuntimeError):
+    """Raised after a graceful signal-triggered checkpoint save.
+
+    ``graceful_shutdown: true`` and a ``checkpoint_dir`` turn SIGTERM/SIGINT
+    into a save at the end of the current epoch and this exception; resume
+    with ``load_from_checkpoint: true``. The saved path is carried on
+    ``.checkpoint_path``.
+    """
+
+    def __init__(self, checkpoint_path: str):
+        super().__init__(
+            f"training interrupted by signal; state saved to {checkpoint_path} "
+            "(resume with load_from_checkpoint: true)"
+        )
+        self.checkpoint_path = checkpoint_path
+
+
+def _masked_mean(per_example: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return (per_example * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """√(Σ ‖g‖²) over tensors, as ``optax.global_norm``."""
+    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def put_batch(x: np.ndarray, y: np.ndarray, mask: np.ndarray, device: torch.device):
+    """NHWC numpy batch → NCHW tensors and the (B,) f32 mask on ``device``."""
+    return (nchw_from_nhwc(x, device), nchw_from_nhwc(y, device),
+            torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
+
+
+def make_train_step(
+    model: UQModel,
+    loss_pe_fn: Callable,
+    hyper: dict,
+    optimizer: torch.optim.Optimizer,
+):
+    """Build the train step: (x, y, mask) → loss, or (loss, grad norms) when
+    ``hyper["watch_gradients"]`` is set. It updates ``model`` and
+    ``optimizer`` in place; the loss is a detached device scalar and the
+    gradients of the step stay on the parameters' ``.grad``.
+
+    The step puts the model in train mode itself: ``UQState.forward`` (used
+    by validation and by validation hooks) leaves it in eval mode, and a
+    step in eval mode would normalise with the running statistics.
+    """
+    watch = bool(hyper.get("watch_gradients"))
+
+    def train_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = _masked_mean(loss_pe_fn(model(x), y, hyper), mask)
+        loss.backward()
+        norms = None
+        if watch:
+            # gradient observability (counterpart of wandb.watch): global
+            # and per-top-level-module L2 norms of this step's gradients
+            groups: dict[str, list[torch.Tensor]] = {}
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    groups.setdefault(_NORM_KEYS.get(name.split(".")[0], name), []).append(p.grad)
+            norms = {"grad_norm/global": _global_norm([g for v in groups.values() for g in v])}
+            for key, grads in groups.items():
+                norms[f"grad_norm/{key}"] = _global_norm(grads)
+        optimizer.step()
+        loss = loss.detach()
+        return (loss, norms) if watch else loss
+
+    return train_step
+
+
+def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict):
+    """Eval-mode loss: (x, y, mask) → (masked mean, number of real examples)."""
+
+    def eval_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+        model.eval()
+        with torch.inference_mode():
+            out = model(x)
+            return _masked_mean(loss_pe_fn(out, y, hyper), mask), mask.sum()
+
+    return eval_step
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (data-parallel training) is not yet ported")
+
+
+def eval_net(
+    uq_state: UQState, dataset, batch_size: int, mesh=None, step=None
+) -> float:
+    """Mean validation loss: sum(batch mean losses) / number of examples.
+
+    Pass a prebuilt ``step`` to reuse one across epochs.
+    """
+    _refuse_mesh(mesh)
+    if step is None:
+        loss_pe = head_loss_pe_fn(uq_state.uncertainty_type)
+        step = make_eval_loss_step(uq_state.model, loss_pe, uq_state.params)
+    device = uq_state.device
+    total, count = 0.0, 0
+    for x, y, mask in iterate_batches(dataset, batch_size, shuffle=False):
+        loss, n = step(*put_batch(x, y, mask, device))
+        total += float(loss)
+        count += int(n)
+    return total / count if count else 0.0
+
+
+def _refuse_unported(config: dict, mesh, preprocess, preprocess_pair) -> None:
+    _refuse_mesh(mesh)
+    if preprocess is not None or preprocess_pair is not None:
+        raise NotImplementedError("preprocess / preprocess_pair (on-device transforms) are not yet ported")
+    if config.get("input_pipeline", "threaded") != "threaded":
+        raise NotImplementedError(
+            f"input_pipeline {config['input_pipeline']!r} is not yet ported"
+        )
+    for key in ("loader_procs", "precompile_calibration"):
+        if config.get(key):
+            raise NotImplementedError(f"{key} is not yet ported")
+
+
+def _optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
+    """Steps taken so far, from Adam's per-parameter state (0 when fresh)."""
+    for state in optimizer.state.values():
+        if "step" in state:
+            return int(state["step"])
+    return 0
+
+
+def train_net(
+    uq_state: UQState,
+    train_dataset,
+    val_dataset,
+    mesh,
+    epochs: int,
+    batch_size: int,
+    lr: float,
+    load_from_checkpoint: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    validate_every: int = 10,
+    config: Optional[dict] = None,
+    logger: Optional[MetricsLogger] = None,
+    seed: int = 0,
+    validation_hook: Optional[Callable] = None,
+    preprocess: Optional[Callable] = None,
+    preprocess_pair: Optional[Callable] = None,
+) -> UQState:
+    """Train ``uq_state.model`` in place; returns the UQState with λ̂ as
+    restored (or as given). ``mesh`` must be None: one device."""
+    config = dict(config or uq_state.params)
+    _refuse_unported(config, mesh, preprocess, preprocess_pair)
+    logger = logger or MetricsLogger(None)
+    model = uq_state.model
+    loss_pe = head_loss_pe_fn(uq_state.uncertainty_type)
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    starting_epoch = 0
+    lhat = uq_state.lhat
+    if load_from_checkpoint and checkpoint_dir:
+        path, start = ckpt.find_resume_checkpoint(checkpoint_dir, epochs, config)
+        if path is not None:
+            lhat, _ = ckpt.restore_checkpoint(path, model, optimizer)
+            starting_epoch = start
+            print(f"Resumed from checkpoint {path} (epoch {start}).")
+            if start >= epochs:
+                return uq_state.replace(lhat=lhat)
+
+    train_step = make_train_step(model, loss_pe, config, optimizer)
+    eval_step = make_eval_loss_step(model, loss_pe, config)
+
+    # graceful_shutdown: SIGTERM/SIGINT request a checkpoint at the end of
+    # the current epoch instead of killing the run. The first signal
+    # restores the previous handlers, so a second one aborts at once.
+    stop_signal = {"signum": None}
+    restore_handlers: list = []
+    if config.get("graceful_shutdown") and checkpoint_dir:
+
+        def _on_signal(signum, frame):
+            stop_signal["signum"] = signum
+            for s, old in restore_handlers:
+                signal.signal(s, old)
+
+        try:
+            for s in (signal.SIGTERM, signal.SIGINT):
+                restore_handlers.append((s, signal.signal(s, _on_signal)))
+        except ValueError:
+            # signal handlers are main-thread-only; run unguarded elsewhere
+            restore_handlers = []
+
+    try:
+        lhat = _run_epochs(
+            uq_state, model, optimizer, lhat, train_dataset, val_dataset,
+            starting_epoch, epochs, batch_size, seed, checkpoint_dir,
+            checkpoint_every, validate_every, config, logger, validation_hook,
+            train_step, eval_step, stop_signal,
+        )
+    finally:
+        for s, old in restore_handlers:
+            signal.signal(s, old)
+    return uq_state.replace(lhat=lhat)
+
+
+def _run_epochs(
+    uq_state, model, optimizer, lhat, train_dataset, val_dataset,
+    starting_epoch, epochs, batch_size, seed, checkpoint_dir,
+    checkpoint_every, validate_every, config, logger, validation_hook,
+    train_step, eval_step, stop_signal,
+):
+    """The epoch loop of :func:`train_net`; returns λ̂."""
+    device = uq_state.device
+    global_step = _optimizer_steps(optimizer)
+    for epoch in range(starting_epoch, epochs):
+        batches = iterate_batches(
+            train_dataset, batch_size, shuffle=True,
+            rng=np.random.RandomState(seed + 1000 * epoch + 1), pad_mode="wrap",
+        )
+        losses, num_examples, grad_norms = [], 0, None
+        # where the epoch's wall time goes: the step call returns before the
+        # device finishes, so queued work drains at the epoch-end loss fetch
+        t_data = t_dispatch = 0.0
+        epoch_t0 = time.perf_counter()
+        batch_iter = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            item = next(batch_iter, None)
+            t_data += time.perf_counter() - t0
+            if item is None:
+                break
+            x, y, mask = item
+            t0 = time.perf_counter()
+            out = train_step(*put_batch(x, y, mask, device))
+            t_dispatch += time.perf_counter() - t0
+            if isinstance(out, tuple):
+                out, grad_norms = out  # the last step's norms are logged
+            losses.append(out)
+            num_examples += int(mask.sum())
+            global_step += 1
+        t0 = time.perf_counter()
+        epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        t_sync = time.perf_counter() - t0
+        logger.log(
+            {"epoch": epoch, "iter": global_step, "train_loss": epoch_loss / max(num_examples, 1)}
+        )
+        if grad_norms is not None:
+            logger.log(
+                {"epoch": epoch, "iter": global_step,
+                 **{k: float(v) for k, v in grad_norms.items()}}
+            )
+
+        current = uq_state.replace(lhat=lhat)
+        t_val = 0.0
+        if epoch % validate_every == 0:
+            t0 = time.perf_counter()
+            val_loss = eval_net(current, val_dataset, batch_size, step=eval_step)
+            t_val = time.perf_counter() - t0
+            logger.log({"epoch": epoch, "iter": global_step, "val_loss": val_loss})
+            print(f"Val loss: {val_loss}")
+            if validation_hook is not None:
+                validation_hook(current, epoch, global_step)
+
+        t0 = time.perf_counter()
+        if (epoch + 1) % checkpoint_every == 0 and checkpoint_dir:
+            path = ckpt.checkpoint_path(checkpoint_dir, epoch + 1, config)
+            ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1)
+            print(f"Checkpoint {epoch + 1} saved!")
+        t_ckpt = time.perf_counter() - t0
+
+        logger.log({
+            "epoch": epoch, "iter": global_step,
+            "time/epoch_s": round(time.perf_counter() - epoch_t0, 3),
+            "time/data_wait_s": round(t_data, 3),
+            "time/step_dispatch_s": round(t_dispatch, 3),
+            "time/device_drain_s": round(t_sync, 3),
+            "time/val_s": round(t_val, 3),
+            "time/checkpoint_s": round(t_ckpt, 3),
+        })
+
+        if stop_signal["signum"] is not None and checkpoint_dir:
+            # graceful preemption: the epoch is finished; persist it as a
+            # whole-epoch checkpoint if the periodic save did not, and stop
+            path = ckpt.checkpoint_path(checkpoint_dir, epoch + 1, config)
+            if (epoch + 1) % checkpoint_every != 0:
+                ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1)
+            raise PreemptionInterrupt(path)
+    return lhat

@@ -3,10 +3,13 @@
 The test process itself imports JAX (``tests/conftest.py``), so the check
 runs in a fresh interpreter: import every module of ``im2im_uq_tpu_torch``
 and ``chip_smoke``, then assert that neither ``jax`` nor ``flax`` was loaded.
+``chip_smoke.py`` also names no module of the JAX package: it reaches
+configs and datasets through the port.
 """
 
 from __future__ import annotations
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -53,3 +56,14 @@ def test_port_sources_name_no_jax_import():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 assert words[1].split(".")[0] not in ("jax", "flax"), (path, line)
+
+
+def test_chip_smoke_names_no_module_of_the_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    named = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names]
+    named += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert "im2im_uq_tpu_torch" in {n.split(".")[0] for n in named}
+    leaked = [n for n in named if n.split(".")[0] in ("im2im_uq_tpu", "jax", "flax")]
+    assert not leaked, leaked
