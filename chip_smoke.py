@@ -20,6 +20,12 @@ Phases, one JSON line each on stdout:
               against autograd of ``F.max_pool2d``, bit for bit, at the four
               pool inputs of the batch-32 320x320 UNet, odd shapes and tied
               windows, both dtypes, with both times.
+   k3..k6     the 3x3 conv kernels (K3 conv, K4 fused conv, K5 wgrad, K6
+              dgrad) against their plain versions at every conv shape of a
+              batch-32 320x320 UNet train step under ``pallas_fused`` and
+              ``pallas``, odd shapes and batch 1; each run twice, bit for
+              bit; kernel, plain, library and bound times at the main-path
+              shapes, summed per step.
 5. calibrate  the full-width UNet + quantile head (random weights from a
               seed) calibrated on 128 synthetic 320x320 images, L=1000.
 6. serve      save the calibrated checkpoint, run ``scripts/infer.main`` on
@@ -39,18 +45,29 @@ Phases, one JSON line each on stdout:
               64x64: on the card with the kernels against the card with
               their plain versions (bit for bit), and against the CPU in
               f32 and f64: gradients and BatchNorm running statistics.
+11. fused     the same model under ``conv_backend: pallas_fused`` at
+              320x320, batch 32: ``make_train_step`` (first gradients, the
+              step time), one step and the eval forward against the default
+              (cuDNN) config from the same weights, then calibrate and serve
+              as in phases 5-6 (fused_calibrate, fused_serve).
+12. pallas    ``conv_backend: pallas``: one train step and the eval forward
+              against the default config.
+13. router    the router again, on the synthetic experiment with
+              ``conv_backend: pallas_fused`` (router_fused).
 
 The kernel launch counters are set to 0 just before each path that a user
-runs (calibrate + serve, train, router) and read just after it; the
-``kernels`` line reports the sum over those paths. Any failure raises and
-the script exits non-zero. The line before the last is ``nvidia-smi``'s
-name and power limit; the last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or without the rest of the repository beside it,
-the script exits non-zero and prints no result.
+runs (calibrate + serve, train, router, and each of them under the fused
+config) and read just after it; the ``kernels`` line reports the sum over
+those paths. Any failure raises and the script exits non-zero. The line
+before the last is ``nvidia-smi``'s name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -77,7 +94,7 @@ from im2im_uq_tpu_torch.models.assembly import (
     nchw_from_nhwc,
 )
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
-from im2im_uq_tpu_torch.ops import loss_table, pool, upsample
+from im2im_uq_tpu_torch.ops import conv, conv_bwd, loss_table, pool, upsample
 from im2im_uq_tpu_torch.scripts import infer, router
 from im2im_uq_tpu_torch.training import train
 from im2im_uq_tpu_torch.training.checkpoint import (
@@ -122,7 +139,64 @@ KERNELS = {
     "upsample2x_bwd": upsample.upsample2x_bwd,
     "loss_table": loss_table.loss_table,
     "maxpool2x2_bwd": pool.max_pool2x2_bwd,
+    "conv3x3": conv.conv3x3,
+    "conv3x3_bn_act": conv.conv3x3_bn_act,
+    "wgrad3x3": conv_bwd.wgrad3x3,
+    "dgrad3x3": conv_bwd.dgrad3x3,
 }
+DEFAULT_PATH_KERNELS = ["upsample2x", "upsample2x_bwd", "loss_table", "maxpool2x2_bwd"]
+CONV_KERNELS = ["conv3x3", "conv3x3_bn_act", "wgrad3x3", "dgrad3x3"]
+CONV_PHASES = dict(zip(CONV_KERNELS, ["k3", "k4", "k5", "k6"]))
+# The DoubleConvs of the 320x320 UNet as (Cin, mid, Cout, side, in an Up):
+# an Up's conv0 reads the concatenation of two halves of Cin // 2 channels
+DOUBLE_CONVS = [
+    (1, 64, 64, 320, False), (64, 128, 128, 160, False), (128, 256, 256, 80, False),
+    (256, 512, 512, 40, False), (512, 512, 512, 20, False),
+    (1024, 512, 256, 40, True), (512, 256, 128, 80, True), (256, 128, 64, 160, True),
+    (128, 64, 64, 320, True),
+]
+# (B, Cin, H, W, Cout): Cin 1, 3 and 64, 1x1, 5x7 and 13x17, batch 1
+CONV_ODD_SHAPES = [(2, 1, 1, 1, 8), (1, 3, 5, 7, 16), (2, 64, 13, 17, 24), (1, 1, 13, 17, 64),
+                   (1, 64, 5, 7, 64), (1, 128, 160, 160, 128)]
+# Bars of a conv kernel against its plain version, on the relative L2
+# error and on max|error| / max|plain|: both sum in f32 in another order,
+# over 9*Cin terms (K3, K4's y, K6's dx: 3e-5) or over B*H*W terms (K5,
+# K4's stats, K6's reductions: 1e-4); a wrong tap or mask is off by order 1.
+CONV_TOL, SUM_TOL = 3e-5, 1e-4
+# the fused config's step against the default config's, same weights: the
+# running statistics come from the forward alone; the eval forward too
+FUSED_STAT_RTOL, FUSED_EVAL_RTOL, FUSED_LOSS_RTOL = 1e-4, 1e-4, 1e-4
+# H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+
+
+def conv_sites(conv_backend: str) -> dict:
+    """The 3x3 conv launches of one train step at batch 32, 320x320 →
+    {kernel: [((B, Cin, H, W, Cout), prologue), ...]}, one entry per launch.
+
+    Under ``pallas`` every conv is K3. Under ``pallas_fused`` conv0 is K4
+    without the prologue and conv1 K4 with bn0 as its prologue; K5 is the
+    backward of every K4 launch, K6 of every one but the stem's (its input
+    needs no gradient). Under both, an Up's conv0 is two K3 calls, one per
+    half of the concatenation."""
+    b = CONFIG["batch_size"]
+    sites: dict = {k: [] for k in CONV_KERNELS}
+    fused = conv_backend == "pallas_fused"
+    for cin, mid, cout, side, up in DOUBLE_CONVS:
+        def site(ci, co, prologue=False):
+            return (b, ci, side, side, co), prologue
+        if up:
+            sites["conv3x3"] += [site(cin // 2, mid)] * 2
+        else:
+            sites["conv3x3_bn_act" if fused else "conv3x3"].append(site(cin, mid))
+        if fused:
+            sites["conv3x3_bn_act"].append(site(mid, cout, True))
+        else:
+            sites["conv3x3"].append(site(mid, cout))
+    if fused:
+        sites["wgrad3x3"] = list(sites["conv3x3_bn_act"])
+        sites["dgrad3x3"] = sites["conv3x3_bn_act"][1:]
+    return sites
 
 
 def synthetic(num_examples: int, image_size: int, seed: int):
@@ -151,6 +225,30 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time in ms the card could take for work of ``flops`` f32
+    operations on ``nbytes`` bytes each moved once, and which of the two
+    bounds it."""
+    ops_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def add_bound(result: dict, flops: float, nbytes: float, times: int = 1) -> None:
+    """Add one shape's bound (``times`` launches of it) to a kernel's sums."""
+    ms, by = bound(flops, nbytes)
+    result["bound_ms"] = result.get("bound_ms", 0.0) + times * ms
+    shares = result.setdefault("_bound_shares", {})
+    shares[by] = shares.get(by, 0.0) + times * ms
+
+
+def close_bound(result: dict) -> dict:
+    """bound_by: the bound that holds for most of the summed bound time."""
+    shares = result.pop("_bound_shares")
+    result["bound_by"] = max(shares, key=shares.get)
+    return result
 
 
 def bf16_ulp(t):
@@ -205,7 +303,7 @@ def phase_k1() -> dict:
     """K1 vs plain: f32 within 1e-6·max|x|; bf16 within one bf16 ulp of the
     plain result computed in f32 from the same bf16 input and rounded once."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in DECODER_SHAPES + ODD_SHAPES:
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -230,12 +328,16 @@ def phase_k1() -> dict:
             if shape in DECODER_SHAPES:
                 fields["ms"] = cuda_ms(lambda: upsample.upsample2x(x), 20)
                 fields["plain_ms"] = cuda_ms(lambda: upsample.upsample2x_plain(x), 5)
+                fields["library_ms"] = cuda_ms(lambda: F.interpolate(
+                    x, scale_factor=2, mode="bilinear", align_corners=True), 20)
                 if dtype == torch.float32:  # the main path's dtype
                     result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    result["ms"] += fields["ms"]
-                    result["plain_ms"] += fields["plain_ms"]
+                    for k in ("ms", "plain_ms", "library_ms"):
+                        result[k] += fields[k]
+                    # 3 lerps of 2 operations per output; x read, y written
+                    add_bound(result, 6 * 4 * x.numel(), 4 * 5 * x.numel())
             emit("k1", **fields)
-    return result
+    return close_bound(result)
 
 
 def phase_k2(lam) -> dict:
@@ -257,9 +359,16 @@ def phase_k2(lam) -> dict:
         raise AssertionError(f"K2 disagrees with its plain version in {differ} cells")
     ms = cuda_ms(lambda: loss_table.loss_table(pred, label, dl, du, lam), 10)
     plain_ms = cuda_ms(lambda: loss_table.loss_table_plain(pred, label, dl, du, lam), 2)
-    emit("k2", shape=[n, p], num_lambdas=int(lam.shape[0]), cells_differ=differ,
-         cells=got.numel(), max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    num_lam = int(lam.shape[0])
+    # two multiplies and two compares per (pixel, λ); four maps read, the
+    # table written. No single PyTorch call computes the table: library_ms
+    # is null.
+    result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": None}
+    add_bound(result, 4 * n * p * num_lam, 4 * (4 * n * p + num_lam + n * num_lam))
+    emit("k2", shape=[n, p], num_lambdas=num_lam, cells_differ=differ,
+         cells=got.numel(), max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+         bound_ms=result["bound_ms"])
+    return close_bound(result)
 
 
 def phase_k1b() -> dict:
@@ -268,7 +377,7 @@ def phase_k1b() -> dict:
     within one bf16 ulp of the plain result computed in f32 and rounded
     once. Shapes are those of dx (the upsample's input)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for b, c, h, w in DECODER_SHAPES + ODD_SHAPES:
             g = torch.randn((b, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
@@ -293,12 +402,18 @@ def phase_k1b() -> dict:
             if (b, c, h, w) in DECODER_SHAPES:
                 fields["ms"] = cuda_ms(lambda: upsample.upsample2x_bwd(g), 20)
                 fields["plain_ms"] = cuda_ms(lambda: upsample.upsample2x_bwd_plain(g), 5)
+                # the backward of F.interpolate, which autograd would call
+                fields["library_ms"] = cuda_ms(
+                    lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                        g, [2 * h, 2 * w], [b, c, h, w], True), 20)
                 if dtype == torch.float32:  # the main path's dtype
                     result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    result["ms"] += fields["ms"]
-                    result["plain_ms"] += fields["plain_ms"]
+                    for k in ("ms", "plain_ms", "library_ms"):
+                        result[k] += fields[k]
+                    # each cotangent element feeds 4 inputs: 4 multiply-adds
+                    add_bound(result, 8 * g.numel(), 4 * (g.numel() + b * c * h * w))
             emit("k1b", **fields)
-    return result
+    return close_bound(result)
 
 
 def torch_pool_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -315,7 +430,7 @@ def phase_k7() -> dict:
     """K7 vs its plain version and vs torch's autograd of F.max_pool2d:
     bit-identical (it moves values and does no arithmetic)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     cases = [(s, "randn") for s in POOL_SHAPES + POOL_ODD_SHAPES]
     cases += [((2, 8, 6, 10), "constant"), ((2, 8, 6, 10), "zero_one")]
     for dtype in (torch.float32, torch.bfloat16):
@@ -345,16 +460,158 @@ def phase_k7() -> dict:
                 _, idx = F.max_pool2d(x, 2, return_indices=True)
                 fields["ms"] = cuda_ms(lambda: pool.max_pool2x2_bwd(x, g), 20)
                 fields["plain_ms"] = cuda_ms(lambda: pool.max_pool2x2_bwd_plain(x, g), 5)
-                # torch's own max-pool backward, for scale
-                fields["torch_bwd_ms"] = cuda_ms(
+                # torch's own max-pool backward (given its forward's indices)
+                fields["library_ms"] = cuda_ms(
                     lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                         g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx), 20)
                 if dtype == torch.float32:
                     result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    result["ms"] += fields["ms"]
-                    result["plain_ms"] += fields["plain_ms"]
+                    for k in ("ms", "plain_ms", "library_ms"):
+                        result[k] += fields[k]
+                    # three compares per window; x and g read, dx written
+                    add_bound(result, 3 * g.numel(), 4 * (2 * x.numel() + g.numel()))
             emit("k7", **fields)
-    return result
+    return close_bound(result)
+
+
+def _conv_case(b: int, cin: int, h: int, w: int, cout: int, gen: torch.Generator) -> dict:
+    """Inputs of one conv shape: weights at torch's init scale, scale > 0 and
+    shift > 0 for the prologue (a prologue leaking into the zero frame
+    shows), a random cotangent."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    return {"x": randn(b, cin, h, w), "w": randn(cout, cin, 3, 3) / (9 * cin) ** 0.5,
+            "bias": 0.1 * randn(cout), "scale": 0.5 + rand(cin), "shift": 0.05 + 0.3 * rand(cin),
+            "g": randn(b, cout, h, w)}
+
+
+def _conv_calls(kernel: str, c: dict, prologue: bool):
+    """(kernel call, plain call, library call, bars per output, bytes moved)
+    of one conv kernel on the inputs ``c``. The library call computes the
+    conv part alone: cuDNN has no fused prologue, stats or mask."""
+    x, w, bias, sc, sh, g = (c[k] for k in ("x", "w", "bias", "scale", "shift", "g"))
+    n = 4  # bytes per float
+    if kernel == "conv3x3":
+        return (lambda: (conv.conv3x3_fwd(x, w, bias),),
+                lambda: (conv.conv3x3_plain(x, w, bias),),
+                lambda: F.conv2d(x, w, bias, padding=1), [CONV_TOL],
+                n * (x.numel() + w.numel() + bias.numel() + g.numel()))
+    if kernel == "conv3x3_bn_act":
+        return (lambda: conv.conv3x3_bn_act_fwd(x, w, bias, sc, sh, prologue, True),
+                lambda: conv.conv3x3_bn_act_plain(x, w, bias, sc, sh, prologue, True),
+                lambda: F.conv2d(x, w, bias, padding=1), [CONV_TOL, SUM_TOL],
+                n * (x.numel() + w.numel() + bias.numel() + 2 * sc.numel() + g.numel()
+                     + 2 * g.shape[0] * g.shape[1]))
+    if kernel == "wgrad3x3":
+        a = conv_bwd.prologue_activation(x, sc, sh, prologue)
+        return (lambda: conv_bwd.wgrad3x3(x, g, sc, sh, prologue),
+                lambda: conv_bwd.wgrad3x3_plain(x, g, sc, sh, prologue),
+                lambda: torch.nn.grad.conv2d_weight(a, w.shape, g, padding=1),
+                [SUM_TOL, SUM_TOL],
+                n * (x.numel() + g.numel() + w.numel() + bias.numel() + 2 * sc.numel()))
+    return (lambda: conv_bwd.dgrad3x3(g, x, w, sc, sh, prologue),
+            lambda: conv_bwd.dgrad3x3_plain(g, x, w, sc, sh, prologue),
+            lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=1), [CONV_TOL, SUM_TOL],
+            n * (g.numel() + w.numel() + 2 * x.numel() + 4 * sc.numel()))
+
+
+def _conv_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max |error|, relative L2 error, max |error| / max |want|)."""
+    diff = (got.double() - want.double())
+    ref = want.double()
+    scale_l2, scale_max = ref.norm().item(), ref.abs().max().item()
+    max_abs = diff.abs().max().item() if diff.numel() else 0.0
+    rel_l2 = diff.norm().item() / scale_l2 if scale_l2 > 0 else diff.norm().item()
+    rel_max = max_abs / scale_max if scale_max > 0 else max_abs
+    return max_abs, rel_l2, rel_max
+
+
+def conv_bound(shape: tuple, nbytes: float) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, a direct conv's operations) of one 3x3
+    conv kernel at ``shape`` = (B, Cin, H, W, Cout).
+
+    A direct conv does 9 multiply-adds per (output, channel pair). The
+    bound counts 1, the limit of Winograd F(m×m, 3×3) ((m+2)² products per
+    m² outputs) as m grows, which no algorithm in use for the conv or its
+    gradients beats (F(4×4, 3×3) needs 2.25, an FFT more than 1), the
+    transforms not counted."""
+    b, cin, h, w, cout = shape
+    direct = 2.0 * b * h * w * cin * cout * 9
+    ms, by = bound(direct / 9, nbytes)
+    return ms, by, direct
+
+
+def phase_conv_kernels() -> dict:
+    """K3-K6 against their plain versions on the card, with TF32 off.
+
+    Every conv launch of the batch-32 320x320 train step under
+    ``pallas_fused`` and ``pallas`` (``conv_sites``) and the odd shapes,
+    prologue on and off where the kernel has one; each kernel run twice
+    must give the same bits (no atomics); K4 without the stats (its eval
+    form) must give the same y as with them. At the main-path shapes the
+    kernel, plain and library times (CUDA events) and the bound, summed over
+    each step's launches: the ``pallas_fused`` step's sums are the
+    ``kernels`` line's; K3's sums over the ``pallas`` step are the
+    ``k3_pallas_step`` line.
+    """
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    steps = {backend: conv_sites(backend) for backend in ("pallas_fused", "pallas")}
+    results = {}
+    for kernel in CONV_KERNELS:
+        counts = {backend: collections.Counter(sites[kernel])
+                  for backend, sites in steps.items() if sites[kernel]}
+        main = list(dict.fromkeys(case for c in counts.values() for case in c))
+        prologues = [False] if kernel == "conv3x3" else [True, False]
+        cases = main + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
+        sums = {backend: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+                for backend in counts}
+        for (shape, prologue) in cases:
+            b, cin, h, w, cout = shape
+            c = _conv_case(b, cin, h, w, cout, gen)
+            run, plain, library, bars, nbytes = _conv_calls(kernel, c, prologue)
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{kernel} {shape} prologue={prologue}: two runs differ")
+            errs = [_conv_errors(a, b_) for a, b_ in zip(got, want)]
+            fields = {"shape": list(shape), "prologue": prologue,
+                      "max_abs_err": [e[0] for e in errs], "rel_l2_err": [e[1] for e in errs],
+                      "rel_max_err": [e[2] for e in errs], "bars": bars, "bit_identical": True}
+            if kernel == "conv3x3_bn_act":
+                y_eval, _ = conv.conv3x3_bn_act_fwd(c["x"], c["w"], c["bias"], c["scale"],
+                                                    c["shift"], prologue, False)
+                if not torch.equal(y_eval, got[0]):
+                    raise AssertionError(f"K4 {shape}: y without the stats differs")
+            bad = [i for i, (e, bar) in enumerate(zip(errs, bars)) if max(e[1], e[2]) > bar]
+            if bad:
+                raise AssertionError(f"{kernel} {shape} prologue={prologue} disagrees with its "
+                                     f"plain version in outputs {bad}: {fields}")
+            if (shape, prologue) in main:
+                fields["launches_per_step"] = {k: n[(shape, prologue)] for k, n in counts.items()
+                                               if n[(shape, prologue)]}
+                fields["ms"] = cuda_ms(run, 5)
+                fields["plain_ms"] = cuda_ms(plain, 2)
+                fields["library_ms"] = cuda_ms(library, 5)
+                fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
+                fields["direct_flop_ms"] = 1e3 * direct / PEAK_FP32_FLOPS
+                fields["direct_tflops"] = direct / fields["ms"] / 1e9
+                for backend, n in fields["launches_per_step"].items():
+                    result = sums[backend]
+                    result["max_abs_err"] = max(result["max_abs_err"], *fields["max_abs_err"])
+                    for k in ("ms", "plain_ms", "library_ms"):
+                        result[k] += n * fields[k]
+                    add_bound(result, direct / 9, nbytes, n)
+            emit(CONV_PHASES[kernel], **fields)
+            del c, got, again, want
+        results[kernel] = close_bound(sums["pallas_fused"])
+        if "pallas" in sums:
+            emit("k3_pallas_step", launches_per_step=sum(counts["pallas"].values()),
+                 **close_bound(sums["pallas"]))
+    return results
 
 
 class RecordLog:
@@ -549,11 +806,16 @@ def phase_gradcheck(init: dict, cfg: dict) -> None:
         )
 
 
-def phase_router() -> dict:
-    """``scripts/router.main`` on the synthetic experiment, on the card."""
+def phase_router(phase: str = "router", overrides: dict | None = None,
+                 kernels: list | None = None) -> dict:
+    """``scripts/router.main`` on the synthetic experiment, on the card,
+    with the config's parameters set to ``overrides``; ``kernels`` must be
+    launched on the way."""
     with tempfile.TemporaryDirectory() as tmp:
         with open(ROUTER_CONFIG) as fh:
             sweep = yaml.safe_load(fh)
+        for key, value in (overrides or {}).items():
+            sweep["parameters"][key] = {"value": value}
         sweep["parameters"]["output_dir"] = {"value": os.path.join(tmp, "outputs")}
         sweep["parameters"]["checkpoint_dir"] = {"value": os.path.join(tmp, "checkpoints")}
         cfg_path = os.path.join(tmp, "config.yml")
@@ -587,55 +849,38 @@ def phase_router() -> dict:
         raise AssertionError(f"λ̂ {results['lhat']} is not a point of the λ grid")
     if table.ndim != 2 or table.shape[1] != cfg["num_lambdas"] or not np.isfinite(table).all():
         raise AssertionError(f"bad loss table: shape {table.shape}")
-    require_launches("router", counts, list(KERNELS))
-    emit("router", seconds=wall, epochs=cfg["epochs"], images=cfg["num_examples"],
+    require_launches(phase, counts, kernels or DEFAULT_PATH_KERNELS)
+    emit(phase, conv_backend=cfg.get("conv_backend", "auto"), seconds=wall, epochs=cfg["epochs"], images=cfg["num_examples"],
          image=cfg["image_size"], lhat=float(results["lhat"]), risk=float(results["risk"]),
          table_shape=list(table.shape), artifacts=names, launches=counts)
     return counts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    smi = phase_env()
-    phase_build()
-    config = dict(infer.DEFAULTS, **CONFIG)
-    grid = lambda_grid(config)
-    lam = torch.from_numpy((grid - (grid[1] - grid[0])).astype(np.float32)).cuda()
-    k1 = phase_k1()
-    k1b = phase_k1b()
-    k2 = phase_k2(lam)
-    k7 = phase_k7()
-
-    # 5. calibrate
-    t0 = time.perf_counter()
-    calib = synthetic(CALIB_N, IMAGE, seed=0)
-    serve = synthetic(SERVE_N, IMAGE, seed=1)
-    data_s = time.perf_counter() - t0
-    state = add_uncertainty(
-        build_trunk(config), config,
-        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
-    )
+def calibrate_and_serve(tag: str, state: UQState, config: dict, calib, serve,
+                        kernels: list) -> tuple[UQState, np.ndarray, dict]:
+    """``calibrate_model`` on ``calib``, then ``infer.main`` on ``serve``
+    from the saved checkpoint and a config file of ``config`` → (the
+    calibrated state, the served inputs, the launches). Phases
+    ``{tag}calibrate`` and ``{tag}serve``; ``kernels`` must be launched on
+    each of the two paths."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, table = calibrate_model(state, calib, config)
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
-    if table.shape != (CALIB_N, config["num_lambdas"]) or not np.isfinite(table).all():
+    calib_counts = read_counts()
+    if table.shape != (len(calib), config["num_lambdas"]) or not np.isfinite(table).all():
         raise AssertionError(f"bad calibration table: shape {table.shape}")
     if not (0.0 <= table.min() and table.max() <= 1.0):
         raise AssertionError("calibration table outside [0, 1]")
-    k1_calib, k2_calib = upsample.upsample2x.launches, loss_table.loss_table.launches
-    if k1_calib == 0 or k2_calib == 0:
-        raise AssertionError(f"kernels not on the calibration path: K1 {k1_calib}, K2 {k2_calib}")
-    emit("calibrate", images=CALIB_N, num_lambdas=config["num_lambdas"], lhat=state.lhat,
-         seconds=calib_s, data_seconds=data_s, k1_launches=k1_calib, k2_launches=k2_calib)
+    require_launches(f"{tag}calibrate", calib_counts, ["loss_table"] + kernels)
+    emit(f"{tag}calibrate", conv_backend=config.get("conv_backend", "auto"), images=len(calib),
+         num_lambdas=config["num_lambdas"], lhat=state.lhat, seconds=calib_s,
+         launches=calib_counts)
 
-    # 6. serve
-    xs = np.stack([serve[i][0] for i in range(SERVE_N)])
-    ys = np.stack([serve[i][1] for i in range(SERVE_N)])
+    xs = np.stack([serve[i][0] for i in range(len(serve))])
+    ys = np.stack([serve[i][1] for i in range(len(serve))])
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = save_calibrated_checkpoint(state, config, tmp)
         cfg_path = os.path.join(tmp, "config.yml")
@@ -643,11 +888,14 @@ def main() -> int:
             yaml.safe_dump(config, fh)
         np.save(os.path.join(tmp, "serve.npy"), xs)
         out_dir = os.path.join(tmp, "out")
+        reset_counts()
         rc = infer.main([
             "--config", cfg_path, "--checkpoint", ckpt, "--input",
             os.path.join(tmp, "serve.npy"), "--output", out_dir,
             "--batch-size", "32", "--device", "cuda",
         ])
+        torch.cuda.synchronize()
+        serve_counts = read_counts()
         if rc != 0:
             raise AssertionError(f"infer.main returned {rc}")
         with np.load(os.path.join(out_dir, "serve_intervals.npz")) as z:
@@ -664,14 +912,155 @@ def main() -> int:
         raise AssertionError("intervals not ordered lower <= prediction <= upper")
     if float(out["lam"]) != state.lhat:
         raise AssertionError(f"served λ {float(out['lam'])} != calibrated λ̂ {state.lhat}")
-    miscoverage = float(((ys < lo) | (ys > hi)).mean())
-    k1_serve = upsample.upsample2x.launches - k1_calib
-    if k1_serve <= 0:
-        raise AssertionError("K1 not on the serving path")
-    emit("serve", images=SERVE_N, imgs_per_sec=summary["imgs_per_sec"],
-         seconds=summary["seconds"], lam=summary["lam"], miscoverage=miscoverage,
-         k1_launches=k1_serve)
-    launches = read_counts()
+    require_launches(f"{tag}serve", serve_counts, ["upsample2x"] + kernels)
+    emit(f"{tag}serve", conv_backend=config.get("conv_backend", "auto"), images=len(serve),
+         imgs_per_sec=summary["imgs_per_sec"], seconds=summary["seconds"], lam=summary["lam"],
+         miscoverage=float(((ys < lo) | (ys > hi)).mean()), launches=serve_counts)
+    launches = {k: calib_counts[k] + serve_counts[k] for k in KERNELS}
+    return state, xs, launches
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def _against_default(phase: str, cfg: dict, config: dict, init: dict, batch,
+                     default_step: tuple, trained: dict, x: torch.Tensor) -> None:
+    """One train step of ``init`` under ``cfg`` against the same step
+    under the default config ``config`` (``default_step``), and the eval
+    forward of ``trained`` under both: loss within FUSED_LOSS_RTOL, every
+    gradient within GRAD_RTOL (a tripwire: see phase_gradcheck), every
+    running statistic within FUSED_STAT_RTOL, the eval output within
+    FUSED_EVAL_RTOL, relative L2."""
+    step = _train_step_once(init, cfg, DEVICE, torch.float32, batch)
+    grad_err, stat_err = _rel_errors(step[1], default_step[1]), _rel_errors(step[2], default_step[2])
+    loss_err = abs(step[0] - default_step[0]) / abs(default_step[0])
+    outs = []
+    for c in (cfg, config):
+        st = add_uncertainty(build_trunk(c), c, device=DEVICE)
+        st.model.load_state_dict(trained)
+        outs.append(st.forward(x))
+        del st
+    eval_err = _rel_l2(outs[0], outs[1])
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_s = max(stat_err, key=stat_err.get)
+    emit(phase, conv_backend=cfg["conv_backend"], batch=len(batch[0]), loss=step[0],
+         loss_default=default_step[0], loss_rel_err=loss_err, max_grad_err=grad_err[worst_g],
+         worst_grad=worst_g, grad_rtol=GRAD_RTOL, max_stat_err=stat_err[worst_s],
+         worst_stat=worst_s, stat_rtol=FUSED_STAT_RTOL, eval_rel_err=eval_err,
+         eval_rtol=FUSED_EVAL_RTOL, grad_err=grad_err)
+    if (loss_err > FUSED_LOSS_RTOL or grad_err[worst_g] > GRAD_RTOL
+            or stat_err[worst_s] > FUSED_STAT_RTOL or eval_err > FUSED_EVAL_RTOL):
+        raise AssertionError(f"{phase}: {cfg['conv_backend']} is off the default config: loss "
+                             f"{loss_err}, {worst_g} {grad_err[worst_g]}, {worst_s} "
+                             f"{stat_err[worst_s]}, eval {eval_err}")
+
+
+def phase_fused(config: dict, calib, serve) -> dict:
+    """The model under ``conv_backend: pallas_fused`` at 320x320, batch 32:
+    ``make_train_step`` from seed-5 weights (every first gradient finite
+    and nonzero; the median of TIMED_STEPS steps after WARMUP_STEPS), one
+    step and the eval forward against the default config, and the same
+    for ``conv_backend: pallas``; then calibrate and serve the seed-0
+    weights of phases 5-6. → launches."""
+    cfg = dict(config, conv_backend="pallas_fused")
+    bs = cfg["batch_size"]
+    ds = synthetic(bs, IMAGE, seed=2)
+    batch = (np.stack([ds[i][0] for i in range(bs)]), np.stack([ds[i][1] for i in range(bs)]),
+             np.ones((bs,), np.float32))
+    state = add_uncertainty(
+        build_trunk(cfg), cfg,
+        generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
+    )
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt)
+    tensors = train.put_batch(*batch, torch.device(DEVICE))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(*tensors))]
+    first_s = time.perf_counter() - t0
+    bad = [n for n, p in state.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+    if bad:
+        raise AssertionError(f"fused: after step 1, gradients missing, not finite or zero: {bad}")
+    for _ in range(WARMUP_STEPS - 1):
+        losses.append(float(step(*tensors)))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    events[0].record()
+    for e in events[1:]:
+        step(*tensors)
+        e.record()
+    events[-1].synchronize()
+    train_counts = read_counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"fused train losses not finite: {losses}")
+    require_launches("fused_train", train_counts,
+                     ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + CONV_KERNELS)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    median_ms = float(np.median(step_ms))
+    emit("fused_train", conv_backend="pallas_fused", batch=bs, image=IMAGE, steps=steps,
+         median_step_ms=median_ms, imgs_per_sec=1e3 * bs / median_ms, step_ms=step_ms,
+         first_step_s=first_s, step_losses=losses,
+         launches_per_step={k: v / steps for k, v in train_counts.items()},
+         launches=train_counts)
+    trained = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del opt, step, tensors
+
+    x = nchw_from_nhwc(batch[0], DEVICE)
+    default_step = _train_step_once(init, config, DEVICE, torch.float32, batch)
+    _against_default("fused_vs_default", cfg, config, init, batch, default_step, trained, x)
+    pallas_cfg = dict(config, conv_backend="pallas")
+    reset_counts()
+    _against_default("pallas_vs_default", pallas_cfg, config, init, batch, default_step,
+                     trained, x)
+    pallas_counts = read_counts()
+    require_launches("pallas_vs_default", pallas_counts, ["conv3x3"])
+    del default_step, x
+
+    # calibrate and serve the default path's seed-0 weights, so that the
+    # two configs' times and λ̂ compare (λ̂ moves the host's bound work)
+    del state
+    state = add_uncertainty(
+        build_trunk(cfg), cfg,
+        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
+    )
+    _, _, launches = calibrate_and_serve("fused_", state, cfg, calib, serve,
+                                         ["conv3x3", "conv3x3_bn_act"])
+    for name in KERNELS:
+        launches[name] += train_counts[name] + pallas_counts[name]
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    smi = phase_env()
+    phase_build()
+    config = dict(infer.DEFAULTS, **CONFIG)
+    grid = lambda_grid(config)
+    lam = torch.from_numpy((grid - (grid[1] - grid[0])).astype(np.float32)).cuda()
+    measured = {
+        "upsample2x": phase_k1(),
+        "upsample2x_bwd": phase_k1b(),
+        "loss_table": phase_k2(lam),
+        "maxpool2x2_bwd": phase_k7(),
+        **phase_conv_kernels(),
+    }
+
+    # 5-6. calibrate and serve
+    t0 = time.perf_counter()
+    calib = synthetic(CALIB_N, IMAGE, seed=0)
+    serve = synthetic(SERVE_N, IMAGE, seed=1)
+    emit("data", images=CALIB_N + SERVE_N, image=IMAGE, seconds=time.perf_counter() - t0)
+    state = add_uncertainty(
+        build_trunk(config), config,
+        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
+    )
+    state, xs, launches = calibrate_and_serve("", state, config, calib, serve, [])
 
     # 7. crosscheck: CPU (plain versions) vs the card, fp32, TF32 off
     x2 = nchw_from_nhwc(xs[:2], "cpu")
@@ -693,27 +1082,29 @@ def main() -> int:
     train_counts, init, train_cfg = phase_train(config)
     router_counts = phase_router()
     phase_gradcheck(init, train_cfg)
-    for counts in (train_counts, router_counts):
+    # 11-13. the fused-conv configs: train, compare, calibrate, serve, router
+    fused_counts = phase_fused(config, calib, serve)
+    router_fused_counts = phase_router(
+        "router_fused", {"conv_backend": "pallas_fused"},
+        DEFAULT_PATH_KERNELS + ["conv3x3_bn_act", "conv3x3", "wgrad3x3", "dgrad3x3"])
+    for counts in (train_counts, router_counts, fused_counts, router_fused_counts):
         for name, n in counts.items():
             launches[name] += n
 
+    sources = {
+        "upsample2x": ("upsample2x.cu", "im2im_uq_tpu/ops/pallas_resize.py:185"),
+        "upsample2x_bwd": ("upsample2x_bwd.cu", "im2im_uq_tpu/ops/pallas_resize.py:273"),
+        "loss_table": ("loss_table.cu", "im2im_uq_tpu/ops/pallas_kernels.py:89"),
+        "maxpool2x2_bwd": ("maxpool2x2_bwd.cu", "im2im_uq_tpu/ops/pallas_pool.py:114"),
+        "conv3x3": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
+        "conv3x3_bn_act": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
+        "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
+        "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+    }
     kernels = [
-        {"name": "upsample2x", "route": "cuda",
-         "source": "im2im_uq_tpu_torch/csrc/upsample2x.cu",
-         "replaces": "im2im_uq_tpu/ops/pallas_resize.py:185",
-         "launches": launches["upsample2x"], **k1},
-        {"name": "upsample2x_bwd", "route": "cuda",
-         "source": "im2im_uq_tpu_torch/csrc/upsample2x_bwd.cu",
-         "replaces": "im2im_uq_tpu/ops/pallas_resize.py:273",
-         "launches": launches["upsample2x_bwd"], **k1b},
-        {"name": "loss_table", "route": "cuda",
-         "source": "im2im_uq_tpu_torch/csrc/loss_table.cu",
-         "replaces": "im2im_uq_tpu/ops/pallas_kernels.py:89",
-         "launches": launches["loss_table"], **k2},
-        {"name": "maxpool2x2_bwd", "route": "cuda",
-         "source": "im2im_uq_tpu_torch/csrc/maxpool2x2_bwd.cu",
-         "replaces": "im2im_uq_tpu/ops/pallas_pool.py:114",
-         "launches": launches["maxpool2x2_bwd"], **k7},
+        {"name": name, "route": "cuda", "source": f"im2im_uq_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[name], **measured[name]}
+        for name, (src, replaces) in sources.items()
     ]
     require_launches("main path", launches, KERNELS)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ by ``_build.py``), and the rest is PyTorch. Module paths mirror the JAX
 package. The public entry points take and return the JAX package's layouts
 (NHWC numpy images, (N, L) loss tables); tensors inside are NCHW.
 
-This package imports no JAX. Of the JAX package it imports only the host
-modules that import no JAX either: ``calibration.bounds``, ``data.core``,
-``data.synthetic``, ``utils.config`` and ``interop.torch_export``.
+This package imports no JAX and nothing of the JAX package: the host
+modules it shares with it (``calibration.bounds``, ``data/``,
+``utils.config``, ``utils.logging`` and the weight layout of
+``interop.torch_export``) are copies kept here.
 """
 
 __version__ = "0.1.0"

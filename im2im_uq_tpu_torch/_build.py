@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
 them started together, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to ``build/im2im_uq_tpu_torch/<hash>/`` at the repository root,
-keyed by a hash of the sources and the flags, so an edited source rebuilds
-and an unchanged one is loaded as it is. The wrappers in ``ops/`` pass
+keyed by a hash of the sources, the ``csrc/*.cuh`` headers they include and
+the flags, so an edited source rebuilds and an unchanged one is loaded as it
+is. The wrappers in ``ops/`` pass
 tensor pointers and PyTorch's current stream as ``c_void_p``.
 
 Nothing here runs at import time: the first CUDA call of a kernel wrapper
@@ -60,6 +61,21 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
+    # K3 and K4: (x, weight, bias, scale, shift, y, part, stats, b, cin, cout, h, w,
+    #      prologue, with_stats, device, stream)
+    "im2im_conv3x3_fused": ([_P] * 8 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    # floats of K4's stats scratch: (b, cout, h, w)
+    "im2im_conv3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # K5: (x, g, scale, shift, scratch, dw, db, b, cin, cout, h, w, prologue,
+    #      device, stream)
+    "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    # floats of K5's split-K scratch: (b, cin, cout, h, w)
+    "im2im_wgrad3x3_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # K6: (g, weight, x, scale, shift, dx, part, red, b, cin, cout, h, w,
+    #      prologue, device, stream)
+    "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    # floats of K6's reduction scratch: (b, cin, h, w)
+    "im2im_dgrad3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
     "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -98,7 +114,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):  # the headers they include too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -25,9 +25,8 @@ import numpy as np
 import torch
 from scipy.stats import spearmanr
 
-from im2im_uq_tpu.data.core import iterate_batches
-
 from im2im_uq_tpu_torch.calibration.rcps import compute_loss_table
+from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.ops import sets as set_ops
 

@@ -10,7 +10,8 @@ reference semantics, which are kept exactly:
 - ``evaluate_from_loss_table`` accepts the first λ with HB⁺ ≤ δ, and
   HB(0) = 1 rejects an R̂ of exactly 0.
 
-The bounds are the JAX package's own host code (``calibration/bounds.py``).
+The bounds are the port's copy of the JAX package's host code
+(``calibration/bounds.py``).
 Images arrive NHWC from the dataset and are transposed to NCHW here.
 """
 
@@ -22,9 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from im2im_uq_tpu.calibration.bounds import HB_mu_plus, WSR_mu_plus
-from im2im_uq_tpu.data.core import iterate_batches
-
+from im2im_uq_tpu_torch.calibration.bounds import HB_mu_plus, WSR_mu_plus
+from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.ops import sets as set_ops
 

@@ -1,0 +1,147 @@
+"""TEMCA electron-microscopy tile dataset: buffered streaming patch pipeline.
+
+Counterpart of the reference TEMCA loader (reference: core/datasets/temca/
+TEMCADataset.py:19-92): glob PNG tiles, stream ``buffer_size`` images at a
+time, grid-slice each into ``patch_size`` patches rejecting patches that are
+≥85% zeros (the condition as written keeps patches whose zero-count is
+< 0.85·area — preserved), shuffle the patch buffer, then yield
+(low-res input, high-res target) pairs where the input is a strided
+downsample nearest-upsampled back to the patch size (the reference's
+nn.Upsample default mode). ``reset()`` rewinds the stream; the router splits
+by partitioning ``img_paths`` across copies (reference router.py:90-100),
+exposed here as ``split_by_paths``.
+
+Emits NHWC (H, W, 1) float32 pairs (the reference yields (1, H, W) CHW).
+
+The port's copy of ``im2im_uq_tpu/data/temca.py``: the numpy path only,
+which gives the same pairs as the JAX package's optional C++ patch ops,
+and without ``device_preprocess_pair`` (a JAX closure) and the raw-uint8
+feed that serves it. The port imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import copy
+import random
+from glob import glob
+from typing import Iterator, Sequence
+
+import numpy as np
+
+__all__ = ["TEMCADataset", "nearest_upsample"]
+
+
+def nearest_upsample(x: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbor resize of a 2-D array to ``out_hw``.
+
+    Matches torch nn.Upsample(mode='nearest'): src = floor(dst * in/out).
+    """
+    h, w = x.shape
+    rows = (np.arange(out_hw[0]) * h // out_hw[0]).astype(np.int64)
+    cols = (np.arange(out_hw[1]) * w // out_hw[1]).astype(np.int64)
+    return x[rows][:, cols]
+
+
+class TEMCADataset:
+    """Iterable dataset of super-resolution patch pairs from giant EM tiles."""
+
+    def __init__(
+        self,
+        path: str,
+        patch_size: Sequence[int],
+        downsampling: Sequence[int],
+        num_imgs="all",
+        buffer_size: int = 10,
+        normalize: str | None = "01",
+    ):
+        print(f"loading dataset from : {path}...")
+        self.path = path
+        self.output_size = tuple(patch_size)
+        self.downsampling = tuple(downsampling)
+        self.buffer_size = buffer_size
+        self.normalize = normalize
+        self.img_index = 0
+        self.patch_buffer: list[np.ndarray] = []
+        self.norm_params: dict = {}
+        self.cache_path = None
+
+        self.img_paths = sorted(glob(path + "**/*.png", recursive=True))
+        random.shuffle(self.img_paths)
+        if num_imgs != "all":
+            self.img_paths = self.img_paths[: int(num_imgs)]
+        print(f"using {len(self.img_paths)} full images")
+
+    # -- streaming machinery -------------------------------------------------
+
+    def reset(self) -> None:
+        self.img_index = 0
+        self.patch_buffer = []
+
+    def _read_image(self, path: str) -> np.ndarray:
+        import imageio
+
+        return np.asarray(imageio.imread(path))
+
+    def _extract_patches(self, img: np.ndarray) -> None:
+        ph, pw = self.output_size
+        for r in range(img.shape[0] // ph):
+            for c in range(img.shape[1] // pw):
+                patch = img[r * ph : (r + 1) * ph, c * pw : (c + 1) * pw]
+                # keep unless ≥85% of pixels are zero (reference TEMCADataset.py:74)
+                if np.count_nonzero(patch == 0) < 0.85 * (ph * pw):
+                    self.patch_buffer.append(patch)
+
+    def _fill_buffer(self) -> None:
+        # Tail-wrap quirk preserved from the reference (TEMCADataset.py:48-51):
+        # when buffer_size does not divide the path count, the final fill sets
+        # end = len - img_index (not len), so the slice is empty, the cursor
+        # wraps, and one "epoch" re-extracts most tiles a second time before
+        # terminating. Kept bit-for-bit for epoch-accounting parity.
+        if self.img_index + self.buffer_size > len(self.img_paths):
+            if len(self.img_paths) - self.img_index > 0:
+                end = len(self.img_paths) - self.img_index
+            else:
+                self.img_index = -1
+                return
+        else:
+            end = self.img_index + self.buffer_size
+        for p in self.img_paths[self.img_index : end]:
+            self._extract_patches(self._read_image(p))
+        random.shuffle(self.patch_buffer)
+        self.img_index = end
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        while self.img_index != -1:
+            if not self.patch_buffer:
+                self._fill_buffer()
+            if self.patch_buffer:
+                patch = self.patch_buffer.pop()
+                gt = patch.astype(np.float32)
+                if self.normalize == "01":
+                    gt = gt / 255.0
+                elif self.normalize == "-11":
+                    gt = 2.0 * (gt / 255.0 - 0.5)
+                low = gt[:: self.downsampling[0], :: self.downsampling[1]]
+                low = nearest_upsample(low, self.output_size)
+                yield low[..., None], gt[..., None]
+        self.img_index = 0
+
+    # -- router integration --------------------------------------------------
+
+    def split_by_paths(self, percentages: Sequence[float], rng=None):
+        """(train, calib, val) copies with partitioned tile paths
+        (reference router.py:90-100: rounded lengths, shuffled paths,
+        deep copies with path slices)."""
+        paths = list(self.img_paths)
+        lengths = np.round(len(paths) * np.asarray(percentages)).astype(int)
+        lengths[-1] = len(paths) - (lengths.sum() - lengths[-1])
+        random.shuffle(paths)
+        out = []
+        ofs = 0
+        for ln in lengths[:3]:
+            part = copy.deepcopy(self)
+            part.img_paths = paths[ofs : ofs + ln]
+            part.reset()
+            out.append(part)
+            ofs += ln
+        return tuple(out)

@@ -1,25 +1,90 @@
 """Load a JAX model's variables into the port's UQModel.
 
-``im2im_uq_tpu.interop.torch_export.export_state_dict`` turns the JAX
-package's ``{params, batch_stats}`` into a state dict in the reference's
+:func:`state_dict_from_jax` is the port's copy of the layout mapping of
+``im2im_uq_tpu/interop/torch_export.py`` (``export_state_dict``) for the
+trunks and heads the port has: it turns the JAX package's
+``{params, batch_stats}`` (as numpy) into a state dict in the reference's
 layout (``baseModel.*`` / ``last_layer.*``, OIHW conv weights, BatchNorm
-running stats); the port's module names are exactly those keys, so the
-load is strict.
+running stats). The port's module names are exactly those keys, so the load
+is strict. The JAX package's parameter tree is the same under every
+``conv_backend``, so one mapping serves them all.
 """
 
 from __future__ import annotations
 
-from im2im_uq_tpu.interop.torch_export import export_state_dict
+import numpy as np
+import torch
 
 from im2im_uq_tpu_torch.models.assembly import UQModel
 
-__all__ = ["load_jax_variables"]
+__all__ = ["load_jax_variables", "state_dict_from_jax"]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a))
+
+
+def _conv(out: dict, prefix: str, tree: dict) -> None:
+    """flax (kh, kw, in, out) kernel → torch Conv2d (out, in, kh, kw) weight."""
+    out[prefix + "weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+    out[prefix + "bias"] = _t(tree["bias"])
+
+
+def _bn(out: dict, prefix: str, params: dict, stats: dict) -> None:
+    out[prefix + "weight"] = _t(params["scale"])
+    out[prefix + "bias"] = _t(params["bias"])
+    out[prefix + "running_mean"] = _t(stats["mean"])
+    out[prefix + "running_var"] = _t(stats["var"])
+    # the JAX package keeps no update counter; its value does not enter eval
+    out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _double_conv(out: dict, prefix: str, params: dict, stats: dict) -> None:
+    """JAX conv{i}/bn{i} → the reference's Sequential indices 0/1 and 3/4."""
+    for i, (c, b) in enumerate(((0, 1), (3, 4))):
+        _conv(out, f"{prefix}{c}.", params[f"conv{i}"])
+        _bn(out, f"{prefix}{b}.", params[f"bn{i}"], stats[f"bn{i}"])
+
+
+def _unet(out: dict, params: dict, stats: dict, prefix: str = "baseModel.") -> None:
+    _double_conv(out, f"{prefix}inc.double_conv.", params["inc"], stats["inc"])
+    for i in (1, 2, 3, 4):
+        _double_conv(
+            out, f"{prefix}down{i}.maxpool_conv.1.double_conv.",
+            params[f"down{i}"]["conv"], stats[f"down{i}"]["conv"],
+        )
+    for i in (1, 2, 3, 4):
+        _double_conv(
+            out, f"{prefix}up{i}.conv.double_conv.",
+            params[f"up{i}"]["conv"], stats[f"up{i}"]["conv"],
+        )
+    _conv(out, f"{prefix}out.conv.", params["out"])
+
+
+def _head(out: dict, head: dict, prefix: str = "last_layer.") -> None:
+    # the port's heads name their convs as the JAX heads do (lower,
+    # prediction, upper, ...); the softmax head's layout comes with its port
+    for name, tree in head.items():
+        _conv(out, f"{prefix}{name}.", tree)
+
+
+def state_dict_from_jax(variables_np: dict, model: str, uncertainty_type: str) -> dict:
+    """JAX ``{params, batch_stats}`` (numpy) → the port's state dict."""
+    if model != "UNet":
+        raise NotImplementedError(f"trunk {model!r} is not yet ported")
+    if uncertainty_type == "softmax":
+        raise NotImplementedError("the softmax head is not yet ported")
+    params, stats = variables_np["params"], variables_np.get("batch_stats", {})
+    out: dict = {}
+    _unet(out, params["trunk"], stats["trunk"])
+    _head(out, params["head"])
+    return out
 
 
 def load_jax_variables(
     uq_model: UQModel, variables_np: dict, model: str, uncertainty_type: str
 ) -> UQModel:
     """Copy JAX ``{params, batch_stats}`` (as numpy) into ``uq_model`` in place."""
-    state_dict = export_state_dict(variables_np, model, uncertainty_type)
-    uq_model.load_state_dict(state_dict, strict=True)
+    uq_model.load_state_dict(state_dict_from_jax(variables_np, model, uncertainty_type),
+                             strict=True)
     return uq_model

@@ -104,10 +104,16 @@ def build_trunk(params: dict) -> nn.Module:
     """Trunk factory for the config's ``model``; its parameters are left on
     the meta device until :func:`add_uncertainty` places and fills them.
 
-    ``pool_backend`` takes the JAX package's values, "xla" and "pallas", so
-    that its configs carry over; both give the same pool (torch's forward,
-    K7 as its backward). ``conv_backend`` takes only its default, "auto"
-    (= "xla").
+    ``conv_backend`` takes the JAX package's values, "auto" (= "xla"),
+    "xla", "pallas" and "pallas_fused" (``models/unet.py`` says what each
+    runs; ``DoubleConv`` refuses any other); the parameters and their
+    state-dict keys are the same under all of them. ``pool_backend`` takes
+    the JAX package's values, "xla" and "pallas", so that its configs carry
+    over; both give the same pool (torch's forward, K7 as its backward).
+    ``bn_backend`` takes "auto"
+    and "flax": the JAX package's "dot" and "barrier" are not ported, and
+    with ``pallas_fused``, whose kernels fold their own BatchNorm, they are
+    refused as the JAX package refuses them.
     """
     name = params.get("model", "UNet")
     if params.get("compute_dtype") not in (None, "float32", "f32"):
@@ -116,14 +122,25 @@ def build_trunk(params: dict) -> nn.Module:
         )
     if name != "UNet":
         raise NotImplementedError(f"trunk {name!r} is not yet ported")
-    if params.get("conv_backend", "auto") not in ("auto", "xla"):
-        raise NotImplementedError(
-            f"conv_backend {params['conv_backend']!r} is not yet ported"
-        )
+    conv_backend = params.get("conv_backend", "auto")
+    if conv_backend == "auto":  # as the JAX package resolves it (assembly.py:157-168)
+        conv_backend = "xla"
+    bn_backend = params.get("bn_backend", "auto")
+    if bn_backend not in ("auto", "flax", "dot", "barrier"):
+        raise ValueError(f"unknown bn_backend {bn_backend!r}")
+    if bn_backend in ("dot", "barrier"):
+        if conv_backend == "pallas_fused":
+            raise ValueError(
+                f"bn_backend={bn_backend!r} is incompatible with conv_backend="
+                "'pallas_fused' (its kernels fuse their own BN); use "
+                "conv_backend xla/pallas or bn_backend flax/auto"
+            )
+        raise NotImplementedError(f"bn_backend {bn_backend!r} is not yet ported")
     if params.get("pool_backend", "xla") not in ("xla", "pallas"):
         raise ValueError(f"unknown pool_backend {params['pool_backend']!r}")
     with torch.device("meta"):
-        return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1)
+        return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
+                    conv_backend=conv_backend)
 
 
 def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:
@@ -146,9 +163,10 @@ def add_uncertainty(
     params: dict,
     *,
     generator: Optional[torch.Generator] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> UQState:
-    """Wrap a trunk with the configured head and place it on ``device``.
+    """Wrap a trunk with the configured head and place it on ``device``
+    (the card unless the caller asks for the CPU).
 
     With a ``generator`` the weights get torch's default init drawn from it
     (on the generator's device, then moved). Without one they are left

@@ -3,28 +3,48 @@
 Counterpart of ``im2im_uq_tpu/models/unet.py`` (``DoubleConv``, ``Down``,
 ``Up``, ``UNet``), and of the reference trunk it rebuilds. The submodule
 names are the reference's (``inc.double_conv.0``, ``down1.maxpool_conv.1``,
-``up1.conv``, ``out.conv``), which are exactly the keys that
-``im2im_uq_tpu.interop.torch_export.export_state_dict`` emits, so a JAX
-model's weights load with ``load_state_dict(strict=True)``.
+``up1.conv``, ``out.conv``), which are exactly the keys of
+``interop/from_jax.state_dict_from_jax``, so a JAX model's weights load with
+``load_state_dict(strict=True)`` under every ``conv_backend``.
 
-Convolutions and batch norm are PyTorch's own layers (cuDNN on the card,
-as the JAX package leaves them to XLA). The decoder's 2x upsample is K1
-(``ops/upsample.py``: K1f forward, K1b backward) on a CUDA tensor. ``Down``'s
-pool is ``ops/pool.MaxPool2x2``: torch's max-pool forward, K7 as its backward.
+``conv_backend`` picks how a ``DoubleConv`` runs its two 3×3 convs; the
+``nn.Conv2d`` and ``nn.BatchNorm2d`` modules hold the parameters and buffers
+in every case:
+
+- ``"xla"``: PyTorch's own layers (cuDNN on the card, as the JAX package
+  leaves them to XLA);
+- ``"pallas"``: every 3×3 conv is K3 (``ops/conv.conv3x3``), followed by
+  ``nn.BatchNorm2d`` and ReLU (``unet.py:429-485``);
+- ``"pallas_fused"``: the JAX ``DoubleConv._fused`` (``unet.py:594-658``):
+  conv0 is K4 with a stats epilogue, bn0 folds into conv1's K4 prologue, and
+  only bn1's affine + ReLU runs as elementwise work; K5 and K6 are the
+  backward. The folded BatchNorm is :func:`fold_batchnorm`.
+
+An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
+``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
+the kernel, so the concatenation is never built (``unet.py:615-629,
+737-743``). The decoder's 2x upsample is K1 (``ops/upsample.py``: K1f
+forward, K1b backward) on a CUDA tensor. ``Down``'s pool is
+``ops/pool.MaxPool2x2``: torch's max-pool forward, K7 as its backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from im2im_uq_tpu_torch.ops.conv import conv3x3, conv3x3_bn_act
 from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
 from im2im_uq_tpu_torch.ops.resize import upsample2x_align_corners
 
-__all__ = ["DoubleConv", "Down", "OutConv", "UNet", "Up"]
+__all__ = ["CONV_BACKENDS", "DoubleConv", "Down", "OutConv", "UNet", "Up", "fold_batchnorm"]
+
+CONV_BACKENDS = ("xla", "pallas", "pallas_fused")
+
+Pair = tuple[torch.Tensor, torch.Tensor]
 
 
 def _bn(features: int) -> nn.BatchNorm2d:
@@ -32,12 +52,53 @@ def _bn(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
-class DoubleConv(nn.Module):
-    """(conv3x3 → BN → ReLU) × 2."""
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
 
-    def __init__(self, in_channels: int, out_channels: int, mid_channels: Optional[int] = None):
+
+def fold_batchnorm(
+    bn: nn.BatchNorm2d, sums: Optional[torch.Tensor], sumsqs: Optional[torch.Tensor], n: int,
+    train: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``FusedBN`` (``unet.py:258-306``): BatchNorm folded to a
+    per-channel (scale, shift) from its input's Σy and Σy² over ``n``
+    elements per channel.
+
+    Train: mean = Σ/n, var = Σy²/n − mean² (the fast-variance form), and the
+    running statistics move in place, without gradient, by torch's momentum
+    with the unbiased variance var·n/(n−1); ``num_batches_tracked`` counts
+    the step as ``nn.BatchNorm2d`` does. Eval: the running statistics.
+    Then scale = γ·rsqrt(var + ε), shift = β − mean·scale.
+    """
+    if train:
+        mean = sums / n
+        var = sumsqs / n - mean * mean
+        with torch.no_grad():
+            bessel = n / (n - 1) if n > 1 else 1.0
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var * bessel)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return scale, bn.bias - mean * scale
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 → BN → ReLU) × 2, run by ``conv_backend`` (module docstring).
+
+    Its input is a tensor, or the pair (skip, upsampled) of an ``Up``,
+    which stands for their concatenation along the channels.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, mid_channels: Optional[int] = None,
+                 conv_backend: str = "xla"):
         super().__init__()
+        if conv_backend not in CONV_BACKENDS:
+            raise ValueError(f"unknown conv_backend {conv_backend!r}")
         mid = mid_channels if mid_channels is not None else out_channels
+        self.conv_backend = conv_backend
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, kernel_size=3, padding=1),
             _bn(mid),
@@ -47,8 +108,52 @@ class DoubleConv(nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
+        if self.conv_backend == "pallas_fused":
+            return self._fused(x)
+        if self.conv_backend == "pallas":
+            return self._pallas(x)
+        if isinstance(x, tuple):
+            x = torch.cat(x, dim=1)
         return self.double_conv(x)
+
+    def _conv0_k3(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
+        """conv0 through K3; over a pair, one K3 call per half of the
+        kernel, the bias in the first."""
+        conv = self.double_conv[0]
+        if not isinstance(x, tuple):
+            return conv3x3(x, conv.weight, conv.bias)
+        a, b = x
+        ca = a.shape[1]
+        return conv3x3(a, conv.weight[:, :ca], conv.bias) + conv3x3(b, conv.weight[:, ca:])
+
+    def _pallas(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
+        _, bn0, _, conv1, bn1, _ = self.double_conv
+        y = F.relu(bn0(self._conv0_k3(x)))
+        return F.relu(bn1(conv3x3(y, conv1.weight, conv1.bias)))
+
+    def _fused(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
+        conv0, bn0, _, conv1, bn1, _ = self.double_conv
+        train = self.training
+        s0 = q0 = None
+        if isinstance(x, tuple):
+            # Σ(y_a + y_b)² is not a sum of per-half stats, so the halves
+            # run K3 and the stats are reduced here (unet.py:615-629)
+            y0 = self._conv0_k3(x)
+            if train:
+                s0, q0 = y0.sum((0, 2, 3)), (y0 * y0).sum((0, 2, 3))
+        else:
+            y0, st0 = conv3x3_bn_act(x, conv0.weight, conv0.bias, None, None,
+                                     prologue=False, stats=train)
+            if train:
+                s0, q0 = st0[:, 0].sum(0), st0[:, 1].sum(0)
+        n = y0.shape[0] * y0.shape[2] * y0.shape[3]
+        scale0, shift0 = fold_batchnorm(bn0, s0, q0, n, train)
+        y1, st1 = conv3x3_bn_act(y0, conv1.weight, conv1.bias, scale0, shift0,
+                                 prologue=True, stats=train)
+        s1, q1 = (st1[:, 0].sum(0), st1[:, 1].sum(0)) if train else (None, None)
+        scale1, shift1 = fold_batchnorm(bn1, s1, q1, n, train)
+        return F.relu(y1 * _per_channel(scale1) + _per_channel(shift1))
 
 
 class Down(nn.Module):
@@ -58,20 +163,24 @@ class Down(nn.Module):
     ``maxpool_conv.1.*``.
     """
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla"):
         super().__init__()
-        self.maxpool_conv = nn.Sequential(MaxPool2x2(), DoubleConv(in_channels, out_channels))
+        self.maxpool_conv = nn.Sequential(
+            MaxPool2x2(), DoubleConv(in_channels, out_channels, conv_backend=conv_backend)
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.maxpool_conv(x)
 
 
 class Up(nn.Module):
-    """2x bilinear upsample, centre pad to the skip's size, concat [skip, up], DoubleConv."""
+    """2x bilinear upsample, centre pad to the skip's size, then DoubleConv
+    over [skip, up] along the channels."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla"):
         super().__init__()
-        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2)
+        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2,
+                               conv_backend=conv_backend)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         # the kernel takes NCHW-contiguous input; this copies only a
@@ -83,7 +192,7 @@ class Up(nn.Module):
             # left/top get diff // 2, right/bottom the rest (unet.py:729-736)
             x1 = F.pad(x1, [dw // 2, dw - dw // 2, dh // 2, dh - dh // 2])
         # the skip comes first: conv0's input-channel order depends on it
-        return self.conv(torch.cat([x2, x1], dim=1))
+        return self.conv((x2, x1))
 
 
 class OutConv(nn.Module):
@@ -102,19 +211,20 @@ class UNet(nn.Module):
     1×1 out-conv to ``n_channels_middle`` (32) features. Input (B, C, H, W)."""
 
     def __init__(self, n_channels_in: int = 1, n_channels_out: int = 1,
-                 n_channels_middle: int = 32):
+                 n_channels_middle: int = 32, conv_backend: str = "xla"):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
-        self.inc = DoubleConv(n_channels_in, 64)
-        self.down1 = Down(64, 128)
-        self.down2 = Down(128, 256)
-        self.down3 = Down(256, 512)
-        self.down4 = Down(512, 512)
-        self.up1 = Up(1024, 256)
-        self.up2 = Up(512, 128)
-        self.up3 = Up(256, 64)
-        self.up4 = Up(128, 64)
+        cb = conv_backend
+        self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb)
+        self.down1 = Down(64, 128, cb)
+        self.down2 = Down(128, 256, cb)
+        self.down3 = Down(256, 512, cb)
+        self.down4 = Down(512, 512, cb)
+        self.up1 = Up(1024, 256, cb)
+        self.up2 = Up(512, 128, cb)
+        self.up3 = Up(256, 64, cb)
+        self.up4 = Up(128, 64, cb)
         self.out = OutConv(64, n_channels_middle)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

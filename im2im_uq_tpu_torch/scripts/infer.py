@@ -31,8 +31,6 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from im2im_uq_tpu.utils.config import DEFAULTS, load_config
-
 from im2im_uq_tpu_torch.models.assembly import (
     UQState,
     add_uncertainty,
@@ -40,6 +38,7 @@ from im2im_uq_tpu_torch.models.assembly import (
     nchw_from_nhwc,
 )
 from im2im_uq_tpu_torch.training.checkpoint import load_calibrated_checkpoint
+from im2im_uq_tpu_torch.utils.config import DEFAULTS, load_config
 
 __all__ = ["load_uq_state_for_inference", "main", "predict_intervals"]
 

@@ -33,16 +33,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from im2im_uq_tpu.data.core import random_split, split_lengths
-from im2im_uq_tpu.utils.config import load_config
-from im2im_uq_tpu.utils.logging import MetricsLogger
-
 from im2im_uq_tpu_torch.calibration.metrics import eval_set_metrics
 from im2im_uq_tpu_torch.calibration.rcps import calibrate_model
+from im2im_uq_tpu_torch.data.core import random_split, split_lengths
 from im2im_uq_tpu_torch.models.assembly import add_uncertainty, build_trunk
 from im2im_uq_tpu_torch.training.checkpoint import save_calibrated_checkpoint
 from im2im_uq_tpu_torch.training.evaluate import get_images, get_loss_table
 from im2im_uq_tpu_torch.training.train import PreemptionInterrupt, train_net
+from im2im_uq_tpu_torch.utils.config import load_config
+from im2im_uq_tpu_torch.utils.logging import MetricsLogger
 from im2im_uq_tpu_torch.utils.random import fix_randomness
 
 __all__ = [
@@ -77,14 +76,14 @@ def loss_table_filename(config: dict) -> str:
 
 
 def build_dataset(config: dict):
-    """Dataset dispatch to the JAX package's data classes, which import no
-    JAX. Data locations come from ``config['data_path']``."""
+    """Dataset dispatch to the port's data classes (``data/``, copies of
+    the JAX package's). Data locations come from ``config['data_path']``."""
     name = config["dataset"]
     path = config.get("data_path")
     if path:
         path = os.path.expanduser(path)
     if name == "synthetic":
-        from im2im_uq_tpu.data.synthetic import SyntheticDataset
+        from im2im_uq_tpu_torch.data.synthetic import SyntheticDataset
 
         return SyntheticDataset(
             num_examples=config.get("num_examples", 128),
@@ -93,12 +92,12 @@ def build_dataset(config: dict):
             seed=config.get("seed", 0),
         )
     if name == "CIFAR10":
-        from im2im_uq_tpu.data.cifar10 import CIFAR10Dataset
+        from im2im_uq_tpu_torch.data.cifar10 import CIFAR10Dataset
 
         return CIFAR10Dataset(path, seed=config.get("seed", 0))
     if name == "fastmri":
-        from im2im_uq_tpu.data.fastmri import FastMRIDataset
-        from im2im_uq_tpu.data.normalize import normalize_dataset
+        from im2im_uq_tpu_torch.data.fastmri import FastMRIDataset
+        from im2im_uq_tpu_torch.data.normalize import normalize_dataset
 
         mask_info = config.get(
             "mask_info",
@@ -116,7 +115,7 @@ def build_dataset(config: dict):
         config.update(ds.norm_params)
         return ds
     if name == "temca":
-        from im2im_uq_tpu.data.temca import TEMCADataset
+        from im2im_uq_tpu_torch.data.temca import TEMCADataset
 
         side = config["side_length"]
         down = config["downsampling_factor"]
@@ -128,7 +127,7 @@ def build_dataset(config: dict):
             normalize="01",
         )
     if name == "bsbcm":
-        from im2im_uq_tpu.data.bsbcm import BSBCMDataset
+        from im2im_uq_tpu_torch.data.bsbcm import BSBCMDataset
 
         return BSBCMDataset(path, num_instances="all", normalize=config["output_normalization"])
     raise NotImplementedError(f"unknown dataset {name!r}")

@@ -13,12 +13,11 @@ from typing import Optional
 
 import numpy as np
 
-from im2im_uq_tpu.utils.logging import to_uint8_image
-
 from im2im_uq_tpu_torch.calibration.metrics import eval_set_metrics  # re-export  # noqa: F401
 from im2im_uq_tpu_torch.calibration.rcps import compute_loss_table, default_table_method, lambda_grid
 from im2im_uq_tpu_torch.models.assembly import UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.training.train import eval_net  # re-export  # noqa: F401
+from im2im_uq_tpu_torch.utils.logging import to_uint8_image
 
 __all__ = ["default_lambda", "eval_net", "eval_set_metrics", "get_images", "get_loss_table"]
 

@@ -36,12 +36,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from im2im_uq_tpu.data.core import iterate_batches
-from im2im_uq_tpu.utils.logging import MetricsLogger
-
+from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQModel, UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
 from im2im_uq_tpu_torch.training import checkpoint as ckpt
+from im2im_uq_tpu_torch.utils.logging import MetricsLogger
 
 __all__ = [
     "PreemptionInterrupt",

@@ -181,7 +181,8 @@ def test_upsample_keeps_the_graph_and_down4_gets_a_gradient(pool_backend, monkey
     y.backward(g)
     assert torch.equal(x.grad, tup.upsample2x_bwd_plain(g))
     cfg = dict(CFG, pool_backend=pool_backend)
-    state = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, generator=torch.Generator().manual_seed(0))
+    state = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg,
+                                 generator=torch.Generator().manual_seed(0), device="cpu")
     model = state.model.train()
     out = model(torch.from_numpy(_x((2, 1, 32, 32), seed=9)))
     out.square().mean().backward()
@@ -197,7 +198,8 @@ def test_pool_backends_share_state_dict_keys_and_gradients():
     for backend in ("xla", "pallas"):
         cfg = dict(CFG, pool_backend=backend)
         gen_states.append(
-            tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, generator=torch.Generator().manual_seed(1))
+            tasm.add_uncertainty(tasm.build_trunk(cfg), cfg,
+                                 generator=torch.Generator().manual_seed(1), device="cpu")
         )
     a, b = (s.model for s in gen_states)
     # both of the JAX package's values give the same pool, whose backward is K7
@@ -216,5 +218,7 @@ def test_pool_backends_share_state_dict_keys_and_gradients():
 def test_unknown_and_unported_backends_raise():
     with pytest.raises(ValueError, match="pool_backend"):
         tasm.build_trunk(dict(CFG, pool_backend="cudnn"))
+    with pytest.raises(ValueError, match="conv_backend"):
+        tasm.build_trunk(dict(CFG, conv_backend="cudnn"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tasm.build_trunk(dict(CFG, conv_backend="pallas_fused"))
+        tasm.build_trunk(dict(CFG, bn_backend="barrier"))

@@ -116,7 +116,7 @@ def pair():
         variables["batch_stats"], np.random.RandomState(1)
     )
     jstate = jstate.replace(variables=jax.tree_util.tree_map(jnp.asarray, variables))
-    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG)
+    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG, device="cpu")
     load_jax_variables(tstate.model, variables, "UNet", "quantiles")
     return jstate, tstate
 
@@ -141,7 +141,7 @@ def test_checkpoint_key_and_round_trip(pair, tmp_path):
     assert tckpt.checkpoint_key(cfg) == jckpt.checkpoint_key(cfg)
     path = tckpt.save_calibrated_checkpoint(tstate.set_lhat(1.25), cfg, str(tmp_path))
     assert path.endswith(f"CP_calibrated_{jckpt.checkpoint_key(cfg)}.pt")
-    fresh = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg)
+    fresh = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device="cpu")
     assert tckpt.load_calibrated_checkpoint(path, fresh.model) == (1.25, 3)
     a, b = tstate.model.state_dict(), fresh.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)

@@ -1,0 +1,213 @@
+"""The port's copies of the JAX package's host modules give the JAX modules'
+results on the same inputs, and the port leaves the CPU only when asked.
+
+The port imports nothing of ``im2im_uq_tpu`` (``test_torch_port_imports``);
+it keeps its own copies of the host code it shares with it: the RCPS
+bounds, the datasets and host batching, the config loader, the metrics
+logger and the JAX-to-port weight layout. Each is held here to its JAX
+original: the same items, batches, splits, bounds, configs, log lines,
+images and state dicts, bit for bit. Datasets that read files (FastMRI,
+TEMCA, CIFAR-10, BSBCM) read small ones written here.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import pickle
+import random
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from im2im_uq_tpu.calibration import bounds as jbounds
+from im2im_uq_tpu.data import bsbcm as jbsbcm
+from im2im_uq_tpu.data import cifar10 as jcifar
+from im2im_uq_tpu.data import core as jcore
+from im2im_uq_tpu.data import fastmri as jfastmri
+from im2im_uq_tpu.data import normalize as jnorm
+from im2im_uq_tpu.data import subsample as jsub
+from im2im_uq_tpu.data import synthetic as jsyn
+from im2im_uq_tpu.data import temca as jtemca
+from im2im_uq_tpu.data import transforms as jtf
+from im2im_uq_tpu.interop.torch_export import export_state_dict
+from im2im_uq_tpu.models import assembly as jasm
+from im2im_uq_tpu.utils import config as jconfig
+from im2im_uq_tpu.utils import logging as jlog
+
+from im2im_uq_tpu_torch.calibration import bounds as tbounds
+from im2im_uq_tpu_torch.data import bsbcm as tbsbcm
+from im2im_uq_tpu_torch.data import cifar10 as tcifar
+from im2im_uq_tpu_torch.data import core as tcore
+from im2im_uq_tpu_torch.data import fastmri as tfastmri
+from im2im_uq_tpu_torch.data import normalize as tnorm
+from im2im_uq_tpu_torch.data import subsample as tsub
+from im2im_uq_tpu_torch.data import synthetic as tsyn
+from im2im_uq_tpu_torch.data import temca as ttemca
+from im2im_uq_tpu_torch.data import transforms as ttf
+from im2im_uq_tpu_torch.interop.from_jax import state_dict_from_jax
+from im2im_uq_tpu_torch.models import assembly as tasm
+from im2im_uq_tpu_torch.utils import config as tconfig
+from im2im_uq_tpu_torch.utils import logging as tlog
+
+REPO = Path(__file__).resolve().parent.parent
+EXPERIMENT_CONFIGS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("experiments/**/*.yml"))
+
+
+def _same_pairs(got, want) -> None:
+    got, want = list(got), list(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("kw", [dict(num_examples=5, image_size=16, seed=0),
+                                dict(num_examples=3, image_size=24, num_channels_in=2, seed=7)])
+def test_synthetic_items_match(kw):
+    t, j = tsyn.SyntheticDataset(**kw), jsyn.SyntheticDataset(**kw)
+    _same_pairs((t[i] for i in range(len(t))), (j[i] for i in range(len(j))))
+
+
+@pytest.mark.parametrize("pad_mode", ["wrap", "zeros"])
+def test_iterate_batches_match(pad_mode):
+    ds = jsyn.SyntheticDataset(num_examples=7, image_size=8, seed=3)
+    kw = dict(shuffle=True, pad_mode=pad_mode)
+    got = tcore.iterate_batches(ds, 3, rng=np.random.RandomState(4), **kw)
+    want = jcore.iterate_batches(ds, 3, rng=np.random.RandomState(4), **kw)
+    _same_pairs(got, want)
+
+
+def test_splits_match():
+    assert tcore.split_lengths(97, [0.6, 0.2, 0.1, 0.1]) == jcore.split_lengths(97, [0.6, 0.2, 0.1, 0.1])
+    ds = jsyn.SyntheticDataset(num_examples=20, image_size=8, seed=5)
+    got = tcore.random_split(ds, [12, 5, 3], np.random.RandomState(6))
+    want = jcore.random_split(ds, [12, 5, 3], np.random.RandomState(6))
+    assert [list(s.indices) for s in got] == [list(s.indices) for s in want]
+
+
+def test_bounds_match_on_a_grid():
+    muhats = np.linspace(0.0, 0.6, 25)
+    for n in (10, 200):
+        for delta in (0.1, 0.01):
+            for m in muhats:
+                assert tbounds.HB_mu_plus(m, n, delta) == jbounds.HB_mu_plus(m, n, delta)
+            np.testing.assert_array_equal(tbounds.hb_mu_plus_grid(muhats, n, delta),
+                                          jbounds.hb_mu_plus_grid(muhats, n, delta))
+    x = np.random.RandomState(8).uniform(0.0, 0.5, 60)
+    for delta in (0.1, 0.01):
+        assert tbounds.WSR_mu_plus(x, delta) == jbounds.WSR_mu_plus(x, delta)
+
+
+@pytest.mark.parametrize("path", EXPERIMENT_CONFIGS)
+def test_load_config_matches_on_every_experiment(path):
+    assert tconfig.load_config(REPO / path) == jconfig.load_config(REPO / path)
+
+
+def test_defaults_match():
+    assert tconfig.DEFAULTS == jconfig.DEFAULTS
+
+
+def test_metrics_logger_lines_match(tmp_path):
+    records = [{"epoch": 1, "loss": np.float32(0.25), "table": np.arange(3.0)},
+               {"risk": torch.tensor(0.5), "sizes": [1, 2], "tag": "val"}]
+    for mod, name in ((tlog, "port"), (jlog, "jax")):
+        logger = mod.MetricsLogger(str(tmp_path / name), use_wandb=False)
+        for r in records:
+            logger.log(r)
+        logger.close()
+    lines = {}
+    for name in ("port", "jax"):
+        with open(tmp_path / name / "metrics.jsonl") as fh:
+            lines[name] = [{k: v for k, v in json.loads(ln).items() if k != "_time"} for ln in fh]
+    assert lines["port"] == lines["jax"] and len(lines["port"]) == 2
+
+
+def test_to_uint8_image_matches():
+    x = np.random.RandomState(9).randn(1, 12, 10, 1).astype(np.float32)
+    for norm in (True, False):
+        np.testing.assert_array_equal(tlog.to_uint8_image(x, norm), jlog.to_uint8_image(x, norm))
+
+
+def test_normalization_matches():
+    x = np.random.RandomState(10).rand(6, 8, 8, 1).astype(np.float32) * 3 + 1
+    for kind in ("standard", "min-max"):
+        for per_pixel in (False, True):
+            gt, gp = tnorm.normalize_array(x, kind, per_pixel, "input")
+            jt, jp = jnorm.normalize_array(x, kind, per_pixel, "input")
+            np.testing.assert_array_equal(gt, jt)
+            assert gp.keys() == jp.keys()
+            for k in gp:
+                np.testing.assert_array_equal(gp[k], jp[k])
+    ds = jsyn.SyntheticDataset(num_examples=6, image_size=8, seed=11)
+    assert tnorm.compute_norm_params(ds) == jnorm.compute_norm_params(ds)
+    np.testing.assert_array_equal(ttf.normalize_instance(x)[0], jtf.normalize_instance(x)[0])
+
+
+def test_fastmri_items_match(tmp_path):
+    jfastmri.write_synthetic_volume(str(tmp_path / "vol0.h5"), seed=0)
+    jfastmri.write_synthetic_volume(str(tmp_path / "vol1.h5"), seed=1)
+    mask_info = {"type": "random", "center_fraction": [0.08], "acceleration": [4]}
+    items = {}
+    for mod in (tfastmri, jfastmri):
+        random.seed(12)
+        ds = mod.FastMRIDataset(str(tmp_path), "standard", "min-max", mask_info)
+        ds.transform.mask_func.rng.seed(13)
+        items[mod] = [ds[i] for i in range(len(ds))]
+    _same_pairs(items[tfastmri], items[jfastmri])
+    for mask_type in ("random", "equispaced"):
+        t = tsub.create_mask_for_mask_type(mask_type, [0.08], [4])
+        j = jsub.create_mask_for_mask_type(mask_type, [0.08], [4])
+        np.testing.assert_array_equal(t((1, 40, 2), seed=14), j((1, 40, 2), seed=14))
+
+
+def test_temca_pairs_match(tmp_path):
+    import imageio
+
+    rng = np.random.RandomState(15)
+    for i in range(3):
+        img = (rng.rand(40, 48) * 255).astype(np.uint8)
+        img[:20, :24] = 0  # a patch the zero-fraction rule drops
+        imageio.imwrite(tmp_path / f"tile{i}.png", img)
+    pairs = {}
+    for mod in (ttemca, jtemca):
+        random.seed(16)
+        ds = mod.TEMCADataset(str(tmp_path) + "/", patch_size=(20, 24), downsampling=(4, 4),
+                              buffer_size=2)
+        pairs[mod] = list(ds)
+    _same_pairs(pairs[ttemca], pairs[jtemca])
+
+
+def test_cifar10_and_bsbcm_items_match(tmp_path):
+    rng = np.random.RandomState(17)
+    for i in range(1, 6):
+        with open(tmp_path / f"data_batch_{i}", "wb") as fh:
+            pickle.dump({b"data": (rng.rand(2, 3072) * 255).astype(np.uint8)}, fh)
+    t, j = tcifar.CIFAR10Dataset(str(tmp_path), seed=1), jcifar.CIFAR10Dataset(str(tmp_path), seed=1)
+    _same_pairs((t[i] for i in range(len(t))), (j[i] for i in range(len(j))))
+    np.save(tmp_path / "X.npy", rng.rand(4, 8, 8, 1).astype(np.float32))
+    np.save(tmp_path / "Y.npy", rng.rand(4, 8, 8, 1).astype(np.float32))
+    t = tbsbcm.BSBCMDataset(str(tmp_path), normalize="min-max")
+    j = jbsbcm.BSBCMDataset(str(tmp_path), normalize="min-max")
+    _same_pairs((t[i] for i in range(len(t))), (j[i] for i in range(len(j))))
+
+
+def test_weight_carrier_matches_export_state_dict_bit_for_bit():
+    cfg = {"model": "UNet", "uncertainty_type": "quantiles", "resize_backend": "xla"}
+    jstate = jasm.add_uncertainty(jasm.build_trunk(cfg), cfg, rng=jax.random.key(3),
+                                  example_input=jnp.zeros((1, 16, 16, 1)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.device_get(dict(jstate.variables)))
+    got = state_dict_from_jax(variables, "UNet", "quantiles")
+    want = export_state_dict(variables, "UNet", "quantiles")
+    assert list(got) == list(want) and len(got) == 134
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_add_uncertainty_places_on_the_card_unless_asked():
+    assert inspect.signature(tasm.add_uncertainty).parameters["device"].default == "cuda"

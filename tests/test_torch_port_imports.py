@@ -1,10 +1,11 @@
-"""The port imports no JAX.
+"""The port imports no JAX and nothing of the JAX package.
 
 The test process itself imports JAX (``tests/conftest.py``), so the check
 runs in a fresh interpreter: import every module of ``im2im_uq_tpu_torch``
-and ``chip_smoke``, then assert that neither ``jax`` nor ``flax`` was loaded.
-``chip_smoke.py`` also names no module of the JAX package: it reaches
-configs and datasets through the port.
+and ``chip_smoke``, then assert that none of ``jax``, ``flax`` and
+``im2im_uq_tpu`` was loaded. Statically, no ``import`` or ``from`` in the
+port's sources or in ``chip_smoke.py``, at any depth, names one of them: the
+port keeps its own copies of the host code it shares with the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _CHECK = """
 import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
-leaked = sorted(m for m in ("jax", "flax") if m in sys.modules)
+leaked = sorted(m for m in ("jax", "flax", "im2im_uq_tpu") if m in sys.modules)
 assert not leaked, leaked
 print("ok", len(sys.argv) - 1)
 """
@@ -67,3 +68,20 @@ def test_chip_smoke_names_no_module_of_the_jax_package():
     assert "im2im_uq_tpu_torch" in {n.split(".")[0] for n in named}
     leaked = [n for n in named if n.split(".")[0] in ("im2im_uq_tpu", "jax", "flax")]
     assert not leaked, leaked
+
+
+def _imported_roots(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text())
+    named = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names]
+    named += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module and not node.level]
+    return [n.split(".")[0] for n in named]
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    paths = sorted(Path(im2im_uq_tpu_torch.__file__).parent.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(paths) > 30
+    for path in paths:
+        leaked = [n for n in _imported_roots(path) if n in ("im2im_uq_tpu", "jax", "flax")]
+        assert not leaked, (path, leaked)

@@ -51,7 +51,7 @@ def pair():
         "batch_stats": _randomise_stats(variables["batch_stats"], np.random.RandomState(1)),
     }
     jstate = jstate.replace(variables=jax.tree_util.tree_map(jnp.asarray, variables))
-    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG)
+    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG, device="cpu")
     load_jax_variables(tstate.model, variables, "UNet", "quantiles")
     return jstate, tstate
 
@@ -96,7 +96,7 @@ def test_nested_sets_need_lambda_until_calibrated(pair):
 def test_generator_init_is_seeded_torch_default():
     states = [
         tasm.add_uncertainty(tasm.build_trunk(CFG), CFG,
-                             generator=torch.Generator().manual_seed(7))
+                             generator=torch.Generator().manual_seed(7), device="cpu")
         for _ in range(2)
     ]
     a, b = (s.model.state_dict() for s in states)

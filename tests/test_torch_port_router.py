@@ -221,7 +221,7 @@ def test_set_metrics_match_exactly_on_shared_outputs(stand_ins):
 def shared_unet(runs):
     jstate = runs["jax_state"]
     variables = jax.tree_util.tree_map(np.asarray, jax.device_get(dict(jstate.variables)))
-    tstate = tasm.add_uncertainty(tasm.build_trunk(CONFIG), CONFIG)
+    tstate = tasm.add_uncertainty(tasm.build_trunk(CONFIG), CONFIG, device="cpu")
     load_jax_variables(tstate.model, variables, "UNet", "quantiles")
     return jstate, tstate.set_lhat(jstate.lhat)
 

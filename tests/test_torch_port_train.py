@@ -212,7 +212,8 @@ def _jax_steps(model, variables, batches, dtype):
 
 def _port_steps(variables, batches, dtype):
     """(losses, step-1 gradients, BN statistics and grad norms) of the port."""
-    tstate = tasm.add_uncertainty(tasm.build_trunk(dict(CFG, pool_backend="pallas")), CFG)
+    tstate = tasm.add_uncertainty(tasm.build_trunk(dict(CFG, pool_backend="pallas")), CFG,
+                                 device="cpu")
     load_jax_variables(tstate.model, variables, "UNet", "quantiles")
     tstate.model.to(dtype)
     opt = torch.optim.Adam(tstate.model.parameters(), lr=CFG["lr"])
@@ -319,7 +320,7 @@ def test_eval_net_matches_jax(train_pair):
     jstate = jasm.add_uncertainty(jasm.build_trunk(CFG), CFG).replace(
         variables=jax.tree_util.tree_map(jnp.asarray, variables)
     )
-    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG)
+    tstate = tasm.add_uncertainty(tasm.build_trunk(CFG), CFG, device="cpu")
     load_jax_variables(tstate.model, variables, "UNet", "quantiles")
     ds = SyntheticDataset(num_examples=6, image_size=32, seed=20)  # last batch padded
     want = jtrain.eval_net(jstate, ds, 4)
@@ -335,7 +336,7 @@ SMALL = dict(CFG, resize_backend="auto", num_examples=8)
 
 def _small_state(seed=0):
     return tasm.add_uncertainty(tasm.build_trunk(SMALL), SMALL,
-                                generator=torch.Generator().manual_seed(seed))
+                                generator=torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _small_ds():
