@@ -168,6 +168,9 @@ CONV_TOL, SUM_TOL = 3e-5, 1e-4
 FUSED_STAT_RTOL, FUSED_EVAL_RTOL, FUSED_LOSS_RTOL = 1e-4, 1e-4, 1e-4
 # H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# f32-accurate products on the tensor cores: TF32's 495 TFLOP/s (data
+# sheet, dense) over the three passes of 3xTF32 (hi·hi + hi·lo + lo·hi)
+PEAK_F32_TC_FLOPS = 495e12 / 3
 
 
 def conv_sites(conv_backend: str) -> dict:
@@ -227,18 +230,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take for work of ``flops`` f32
-    operations on ``nbytes`` bytes each moved once, and which of the two
-    bounds it."""
-    ops_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    operations at ``peak`` FLOP/s on ``nbytes`` bytes each moved once, and
+    which of the two bounds it."""
+    ops_ms = 1e3 * flops / peak
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def add_bound(result: dict, flops: float, nbytes: float, times: int = 1) -> None:
+def add_bound(result: dict, flops: float, nbytes: float, times: int = 1,
+              peak: float = PEAK_FP32_FLOPS) -> None:
     """Add one shape's bound (``times`` launches of it) to a kernel's sums."""
-    ms, by = bound(flops, nbytes)
+    ms, by = bound(flops, nbytes, peak)
     result["bound_ms"] = result.get("bound_ms", 0.0) + times * ms
     shares = result.setdefault("_bound_shares", {})
     shares[by] = shares.get(by, 0.0) + times * ms
@@ -538,10 +542,12 @@ def conv_bound(shape: tuple, nbytes: float) -> tuple[float, str, float]:
     bound counts 1, the limit of Winograd F(m×m, 3×3) ((m+2)² products per
     m² outputs) as m grows, which no algorithm in use for the conv or its
     gradients beats (F(4×4, 3×3) needs 2.25, an FFT more than 1), the
-    transforms not counted."""
+    transforms not counted, at the card's f32-accurate rate, 3xTF32 on the
+    tensor cores (PEAK_F32_TC_FLOPS): Winograd's product stage is a batched
+    GEMM, which runs there too."""
     b, cin, h, w, cout = shape
     direct = 2.0 * b * h * w * cin * cout * 9
-    ms, by = bound(direct / 9, nbytes)
+    ms, by = bound(direct / 9, nbytes, PEAK_F32_TC_FLOPS)
     return ms, by, direct
 
 
@@ -597,14 +603,14 @@ def phase_conv_kernels() -> dict:
                 fields["plain_ms"] = cuda_ms(plain, 2)
                 fields["library_ms"] = cuda_ms(library, 5)
                 fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
-                fields["direct_flop_ms"] = 1e3 * direct / PEAK_FP32_FLOPS
+                fields["direct_flop_ms"] = 1e3 * direct / PEAK_F32_TC_FLOPS
                 fields["direct_tflops"] = direct / fields["ms"] / 1e9
                 for backend, n in fields["launches_per_step"].items():
                     result = sums[backend]
                     result["max_abs_err"] = max(result["max_abs_err"], *fields["max_abs_err"])
                     for k in ("ms", "plain_ms", "library_ms"):
                         result[k] += n * fields[k]
-                    add_bound(result, direct / 9, nbytes, n)
+                    add_bound(result, direct / 9, nbytes, n, PEAK_F32_TC_FLOPS)
             emit(CONV_PHASES[kernel], **fields)
             del c, got, again, want
         results[kernel] = close_bound(sums["pallas_fused"])

@@ -1,5 +1,6 @@
 // The shared core of the 3x3 same-padding convolution kernels (K3, K4 in
-// conv3x3.cu; K6 in dgrad3x3.cu), NCHW, float32, for sm_90a.
+// conv3x3.cu), NCHW, float32, for sm_90a; K5 and K6 take affine_relu
+// and reduce_rows from here.
 //
 // One block of 256 threads computes one output tile: 64 output channels x
 // 8 rows x 32 columns of one image. Lane l of warp k owns column x0 + l,
@@ -18,7 +19,7 @@
 //   elements inside the image only, so the zero frame stays zero when
 //   shift > 0 (K4's folded BatchNorm + ReLU of the previous layer);
 // - kFlip: read the weight as the transposed, spatially flipped kernel of a
-//   forward convolution (K6's dgrad), by index arithmetic, with no copy.
+//   forward convolution, by index arithmetic, with no copy.
 //
 // Cross-block sums (K4's stats, K6's reductions, K5's split-K) are written
 // as per-block partials and summed by reduce_rows in a fixed order: no

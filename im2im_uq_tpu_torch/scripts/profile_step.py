@@ -34,8 +34,8 @@ BATCH, IMAGE, STEPS = 32, 320, 3
 # kernels first, since their names contain "conv" too
 _BUCKETS = [
     ("K3/K4 conv3x3 (port)", ("conv3x3_fwd_kernel",)),
-    ("K5 wgrad3x3 (port)", ("wgrad3x3_kernel",)),
-    ("K6 dgrad3x3 (port)", ("dgrad3x3_kernel",)),
+    ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel",)),
+    ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel",)),
     ("fixed-order partial sums (port)", ("reduce_rows",)),
     ("K1f upsample (port)", ("upsample2x_kernel",)),
     ("K1b upsample backward (port)", ("upsample2x_bwd_kernel",)),

@@ -260,7 +260,12 @@ def test_profile_buckets_put_the_port_kernels_first():
     from im2im_uq_tpu_torch.scripts import profile_step
 
     assert profile_step.bucket("void conv3x3_fwd_kernel<true, true>(...)") == "K3/K4 conv3x3 (port)"
-    assert profile_step.bucket("void dgrad3x3_kernel<true>(...)") == "K6 dgrad3x3 (port)"
+    assert profile_step.bucket("void (anonymous namespace)::wgrad3x3_tc_kernel<false, true>(...)"
+                               ) == "K5 wgrad3x3 (port)"
+    assert profile_step.bucket("void (anonymous namespace)::dgrad3x3_tc_kernel<4, true>(...)"
+                               ) == "K6 dgrad3x3 (port)"
+    assert profile_step.bucket("sm90_xmma_wgrad_implicit_gemm_f32f32_tf32f32") == "conv (cuDNN)"
+    assert profile_step.bucket("cudnn::detail::dgrad2d_alg1_1<float, 0, 6, 7, 5>") == "conv (cuDNN)"
     assert profile_step.bucket("sm90_xmma_fprop_implicit_gemm_f32f32") == "conv (cuDNN)"
     assert profile_step.bucket("void pointwise_mult_and_sum_complex<float2, 8, 4>") == "conv (cuDNN)"
     assert profile_step.bucket("cudnn::bn_fw_tr_1C11_kernel_NCHW") == "batchnorm (cuDNN / torch)"
