@@ -25,7 +25,12 @@ Phases, one JSON line each on stdout:
               batch-32 320x320 UNet train step under ``pallas_fused`` and
               ``pallas``, odd shapes and batch 1; each run twice, bit for
               bit; kernel, plain, library and bound times at the main-path
-              shapes, summed per step.
+              shapes, summed per step; then one conv_shape line per
+              main-path shape with the K3-K6 times side by side (the stem
+              marked).
+   probes     P1-P5, the Pallas probes of ``benchmarks/`` (not ported):
+              their bound and one PyTorch call's time at the probes'
+              default shapes.
 5. calibrate  the full-width UNet + quantile head (random weights from a
               seed) calibrated on 128 synthetic 320x320 images, L=1000.
 6. serve      save the calibrated checkpoint, run ``scripts/infer.main`` on
@@ -171,6 +176,10 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # f32-accurate products on the tensor cores: TF32's 495 TFLOP/s (data
 # sheet, dense) over the three passes of 3xTF32 (hi·hi + hi·lo + lo·hi)
 PEAK_F32_TC_FLOPS = 495e12 / 3
+# (B, Cin, H, W, Cout) of the Pallas probes' defaults: P1's x
+# (benchmarks/bench_moments.py:28), P2-P5's conv
+# (benchmarks/bench_pallas_conv.py:377-389)
+PROBE_SHAPE = (32, 64, 320, 320, 64)
 
 
 def conv_sites(conv_backend: str) -> dict:
@@ -567,6 +576,7 @@ def phase_conv_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     steps = {backend: conv_sites(backend) for backend in ("pallas_fused", "pallas")}
     results = {}
+    per_shape: dict = {}  # (shape, prologue) -> {kernel phase: ms}
     for kernel in CONV_KERNELS:
         counts = {backend: collections.Counter(sites[kernel])
                   for backend, sites in steps.items() if sites[kernel]}
@@ -605,6 +615,7 @@ def phase_conv_kernels() -> dict:
                 fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
                 fields["direct_flop_ms"] = 1e3 * direct / PEAK_F32_TC_FLOPS
                 fields["direct_tflops"] = direct / fields["ms"] / 1e9
+                per_shape.setdefault((shape, prologue), {})[CONV_PHASES[kernel]] = fields["ms"]
                 for backend, n in fields["launches_per_step"].items():
                     result = sums[backend]
                     result["max_abs_err"] = max(result["max_abs_err"], *fields["max_abs_err"])
@@ -617,7 +628,33 @@ def phase_conv_kernels() -> dict:
         if "pallas" in sums:
             emit("k3_pallas_step", launches_per_step=sum(counts["pallas"].values()),
                  **close_bound(sums["pallas"]))
+    for (shape, prologue), times in per_shape.items():
+        emit("conv_shape", shape=list(shape), prologue=prologue, stem=shape[1] == 1,
+             **{f"{k}_ms": times.get(k) for k in CONV_PHASES.values()})
     return results
+
+
+def phase_probes() -> None:
+    """P1-P5, the Pallas probes of ``benchmarks/``, which no path of the
+    system launches and which are not ported: the bound and one PyTorch
+    call's time at the probes' default shapes (PROBE_SHAPE), f32, TF32 off.
+    P1 (per-channel Σx and Σx²): the bytes of x read once, against
+    ``x.sum((0, 2, 3))`` and ``(x * x).sum((0, 2, 3))``. P2-P5 (3x3 conv,
+    no bias): ``conv_bound``, against ``F.conv2d``."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, cin, h, w, cout = PROBE_SHAPE
+    x = torch.randn((b, cin, h, w), generator=gen, device="cuda")
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5
+    # an add, a multiply and an add per element; x read, 2 * Cin sums written
+    p1_ms, p1_by = bound(3 * x.numel(), 4 * (x.numel() + 2 * cin))
+    p1_lib = cuda_ms(lambda: (x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))), 5)
+    conv_ms, conv_by, _ = conv_bound(PROBE_SHAPE, 4 * (x.numel() + wt.numel() + b * cout * h * w))
+    conv_lib = cuda_ms(lambda: F.conv2d(x, wt, padding=1), 5)
+    emit("probes", shape=list(PROBE_SHAPE),
+         P1={"bound_ms": p1_ms, "bound_by": p1_by, "library_ms": p1_lib,
+             "library": "x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))"},
+         P2_P5={"bound_ms": conv_ms, "bound_by": conv_by, "library_ms": conv_lib,
+                "library": "F.conv2d(x, w, padding=1)"})
 
 
 class RecordLog:
@@ -1056,6 +1093,7 @@ def main() -> int:
         "maxpool2x2_bwd": phase_k7(),
         **phase_conv_kernels(),
     }
+    phase_probes()
 
     # 5-6. calibrate and serve
     t0 = time.perf_counter()

@@ -12,26 +12,40 @@
 // One kernel template serves both; K3 is its instance with neither the
 // prologue nor the stats.
 //
-// What bounds it: operations. A conv does 2 * B*H*W * Cin*Cout*9 FLOPs on
-// B*H*W*(Cin + Cout) floats, hundreds of FLOPs per byte at the UNet's
-// widths, and f32 runs on the CUDA cores (67 TFLOP/s on an H100 SXM), not
-// on the tensor cores. Design (conv3x3_tile.cuh): implicit GEMM on register
-// tiles of 8 channels x 8 rows per thread, the halo and the weights staged
-// in shared memory, 9 FFMA per loaded input value and 64 per loaded weight
-// vector. The TPU kernel's gates (Cin % 128, the row tile, W padded to 8)
-// and the XLA fallback beside it are gone: every shape runs, Cin = 1
-// included. Tensor cores (wgmma on TF32 or bf16) and TMA double buffering
-// are later work.
+// What bounds it: the bound counts one multiply-add per (pixel, channel
+// pair), the Winograd limit, at 165 TFLOP/s, the float32-accurate rate of
+// 3xTF32 on the tensor cores, against the bytes of x read and y written
+// once. At batch 32, 320x320 the 320x320 and 160x160 levels are bound by
+// bytes, the 40x40 and 20x20 levels by operations.
 //
-// The stats are taken per block over its 8 x 32 pixels (a warp butterfly
-// per channel), written as partials, and summed over the blocks of each
-// image in a second fixed-order pass: no float atomics.
+// Design: the implicit GEMM of conv3x3_tc.cuh on the tensor cores (wgmma,
+// A from registers) in 3xTF32, float32-accurate: M = the pixels of a box of
+// one image, N = 32 output channels a block, K = 9 taps x Cin in chunks of
+// 8 input channels, the weights unflipped, one contiguous run of 72 floats
+// per output channel and chunk. The box is chosen per shape to pad the
+// least (none at 320, 160 and 80; 10.7% at 40, 21.9% at 20, where the 8 x 32
+// tile of the FFMA kernel before this one padded 37.5% and 47.9%). The
+// prologue is applied in shared memory, by the thread that copied each in-image
+// element, after its cp.async lands. The epilogue adds the bias (rounded to
+// nearest), stores y and takes the stats over the stored values: a fixed
+// butterfly over the lanes, the warps in order into per-block partials,
+// summed per image over the boxes by conv3x3::reduce_rows in a fixed
+// order: no float atomics, the same bits on every run.
+//
+// The stem (Cin = 1, K = 9) has its own kernel: a thread per pixel of the
+// same boxes, its 9 taps in registers, FFMA over the output channels (the
+// weights read as warp-wide broadcasts), the stats per channel by a warp
+// butterfly and the warps in order. Its bound is the bytes of y. The GEMM
+// runs Cin = 1 as well (its chunks are zero past the channels), but pads K
+// = 9 to 72 and was slower there on an H100: at (32, 1, 320, 320, 64), 0.99
+// ms against the stem's 0.69 with the stats, 0.87 against 0.39 without
+// (scripts/compare_conv_builds.py --gemm-stem).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "conv3x3_tile.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -39,83 +53,177 @@ using namespace conv3x3;
 
 template <bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(kThreads, 2)
-    conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ weight,
+    conv3x3_fwd_kernel(Grid g, const float* __restrict__ x, const float* __restrict__ weight,
                        const float* __restrict__ bias, const float* __restrict__ scale,
                        const float* __restrict__ shift, float* __restrict__ y,
-                       float* __restrict__ part, int cin, int cout, int h, int w, int ntw) {
-  __shared__ Smem sm;
-  const int b = blockIdx.z;
-  const int co0 = blockIdx.y * kCoTile;
-  const int tile = blockIdx.x;
-  const int y0 = (tile / ntw) * kTileH;
-  const int x0 = (tile % ntw) * kTileW;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t plane = static_cast<int64_t>(h) * w;
+                       float* __restrict__ part, int cin) {
+  extern __shared__ __align__(16) float smem[];
+  const Place at = place(g);
+  float acc[kMt][kNt][4];
+  gemm<false, kPrologue>(geo(g, at, x, weight, scale, shift, cin), smem, acc);
 
-  float acc[kCoPerWarp][kTileH];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int cout = g.nc, h = g.h, w = g.w, tw = g.box.tw;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int npx = g.box.th * tw;
+  float bv[kNt][2], s[kNt][2], q[kNt][2];
 #pragma unroll
-  for (int j = 0; j < kCoPerWarp; ++j)
+  for (int j = 0; j < kNt; ++j)
 #pragma unroll
-    for (int r = 0; r < kTileH; ++r) acc[j][r] = 0.0f;
-  accumulate<kPrologue, false>(x + b * cin * plane, weight, scale, shift, cin, cout, h, w, y0,
-                               x0, co0, sm, acc);
+    for (int e = 0; e < 2; ++e) {
+      const int c = at.n0 + 8 * j + 2 * tig + e;
+      bv[j][e] = bias != nullptr && c < cout ? bias[c] : 0.0f;
+      s[j][e] = q[j][e] = 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < kMt; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int p = pixel(warp, i, gid, u);
+      const int yy = at.y0 + p / tw, xx = at.x0 + p % tw;
+      if (p >= npx || yy >= h || xx >= w) continue;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = at.n0 + 8 * j + 2 * tig + e;
+          if (c >= cout) continue;
+          const float v = __fadd_rn(acc[i][j][2 * u + e], bv[j][e]);
+          y[(static_cast<int64_t>(at.b) * cout + c) * hw + yy * w + xx] = v;
+          if (kStats) {  // over the stored values, as the TPU kernel
+            s[j][e] += v;
+            q[j][e] = fmaf(v, v, q[j][e]);
+          }
+        }
+    }
+  if (!kStats) return;
 
-  const int xx = x0 + lane;
-  const int ntiles = gridDim.x;
+  // the block's sums per channel: lanes of one tig in a fixed butterfly,
+  // then the M warps in order
 #pragma unroll
-  for (int j = 0; j < kCoPerWarp; ++j) {
-    const int co = co0 + warp * kCoPerWarp + j;  // the same in the whole warp
-    if (co >= cout) break;
-    const float bv = bias != nullptr ? bias[co] : 0.0f;
-    float* out = y + (static_cast<int64_t>(b) * cout + co) * plane;
-    float s = 0.0f, q = 0.0f;
+  for (int j = 0; j < kNt; ++j)
 #pragma unroll
-    for (int r = 0; r < kTileH; ++r) {
-      const int yy = y0 + r;
-      if (yy < h && xx < w) {
-        const float v = __fadd_rn(acc[j][r], bv);
-        out[static_cast<int64_t>(yy) * w + xx] = v;
-        if (kStats) {  // over the stored values, as the TPU kernel
-          s += v;
-          q = fmaf(v, v, q);
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], m);
+        q[j][e] += __shfl_xor_sync(0xffffffffu, q[j][e], m);
+      }
+  __syncthreads();  // every warp is done with the stages
+  float* red = smem;  // [warp][c_l][2]
+  if (gid == 0) {
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c_l = 8 * j + 2 * tig + e;
+        red[(warp * kBn + c_l) * 2] = s[j][e];
+        red[(warp * kBn + c_l) * 2 + 1] = q[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < kBn && at.n0 + tid < cout) {
+    float s_sum = 0.0f, q_sum = 0.0f;
+#pragma unroll
+    for (int m = 0; m < kWarps; ++m) {
+      s_sum += red[(m * kBn + tid) * 2];
+      q_sum += red[(m * kBn + tid) * 2 + 1];
+    }
+    float* p = part + (static_cast<int64_t>(at.b) * (gridDim.x / g.ntn) + at.box) * 2 * cout + at.n0 + tid;
+    p[0] = s_sum;
+    p[cout] = q_sum;
+  }
+}
+
+// The stem, Cin = 1: a thread per pixel of the box, all output channels.
+template <bool kPrologue, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    conv3x3_fwd_stem_kernel(const float* __restrict__ x, const float* __restrict__ weight,
+                            const float* __restrict__ bias, const float* __restrict__ scale,
+                            const float* __restrict__ shift, float* __restrict__ y,
+                            float* __restrict__ part, int cout, int h, int w, int th, int tw) {
+  __shared__ float red[kWarps][32][2];
+  const int b = blockIdx.y, box = blockIdx.x;
+  const int nbx = (w + tw - 1) / tw;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int yy = (box / nbx) * th + tid / tw, xx = (box % nbx) * tw + tid % tw;
+  const bool in = tid < th * tw && yy < h && xx < w;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const float* xb = x + static_cast<int64_t>(b) * hw;
+  const float sc = kPrologue ? scale[0] : 0.0f, sh = kPrologue ? shift[0] : 0.0f;
+  float a[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const int ty = yy + t / 3 - 1, tx = xx + t % 3 - 1;
+    const bool ok = in && ty >= 0 && ty < h && tx >= 0 && tx < w;
+    const float v = ok ? xb[ty * w + tx] : 0.0f;
+    a[t] = kPrologue && ok ? affine_relu(v, sc, sh) : v;
+  }
+  float* out = y + static_cast<int64_t>(b) * cout * hw + yy * w + xx;
+  for (int c0 = 0; c0 < cout; c0 += 32) {
+    const int nc = cout - c0 < 32 ? cout - c0 : 32;
+    for (int c_l = 0; c_l < nc; ++c_l) {
+      const int c = c0 + c_l;
+      const float* wc = weight + c * 9;  // the same address in the whole block
+      float acc = __fmul_rn(wc[0], a[0]);
+#pragma unroll
+      for (int t = 1; t < 9; ++t) acc = fmaf(wc[t], a[t], acc);
+      const float v = __fadd_rn(acc, bias != nullptr ? bias[c] : 0.0f);
+      if (in) out[c * hw] = v;
+      if (kStats) {
+        float sv = in ? v : 0.0f, qv = sv * sv;
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) {
+          sv += __shfl_xor_sync(0xffffffffu, sv, m);
+          qv += __shfl_xor_sync(0xffffffffu, qv, m);
+        }
+        if (lane == 0) {
+          red[warp][c_l][0] = sv;
+          red[warp][c_l][1] = qv;
         }
       }
     }
     if (kStats) {
-      s = warp_sum(s);
-      q = warp_sum(q);
-      if (lane == 0) {
-        float* p = part + (static_cast<int64_t>(b) * ntiles + tile) * 2 * cout + co;
-        p[0] = s;
-        p[cout] = q;
+      __syncthreads();
+      if (tid < nc) {
+        float s_sum = 0.0f, q_sum = 0.0f;
+#pragma unroll
+        for (int m = 0; m < kWarps; ++m) {
+          s_sum += red[m][tid][0];
+          q_sum += red[m][tid][1];
+        }
+        float* p = part + (static_cast<int64_t>(b) * gridDim.x + box) * 2 * cout + c0 + tid;
+        p[0] = s_sum;
+        p[cout] = q_sum;
       }
+      __syncthreads();
     }
   }
 }
 
 template <bool kPrologue, bool kStats>
-cudaError_t launch(const float* x, const float* weight, const float* bias, const float* scale,
-                   const float* shift, float* y, float* part, int b, int cin, int cout, int h,
-                   int w, cudaStream_t stream) {
-  const int ntw = tiles_w(w);
-  const dim3 grid(static_cast<unsigned>(ntw * tiles_h(h)),
-                  static_cast<unsigned>((cout + kCoTile - 1) / kCoTile),
-                  static_cast<unsigned>(b));
-  conv3x3_fwd_kernel<kPrologue, kStats><<<grid, kThreads, 0, stream>>>(
-      x, weight, bias, scale, shift, y, part, cin, cout, h, w, ntw);
-  return cudaGetLastError();
-}
-
-bool bad_shape(int b, int cin, int cout, int h, int w) {
-  return b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || b > 65535;
+cudaError_t launch(const Grid& g, int b, int cin, const float* x, const float* weight,
+                   const float* bias, const float* scale, const float* shift, float* y,
+                   float* part, cudaStream_t s) {
+  if (cin == 1) {
+    if (b > 65535) return cudaErrorInvalidValue;
+    const dim3 grid(static_cast<unsigned>(g.boxes), static_cast<unsigned>(b));
+    conv3x3_fwd_stem_kernel<kPrologue, kStats><<<grid, kThreads, 0, s>>>(
+        x, weight, bias, scale, shift, y, part, g.nc, g.h, g.w, g.box.th, g.box.tw);
+    return cudaGetLastError();
+  }
+  return launch_grid(conv3x3_fwd_kernel<kPrologue, kStats>, g, b, s, x, weight, bias, scale,
+                     shift, y, part, cin);
 }
 
 }  // namespace
 
 // Floats of scratch that im2im_conv3x3_fused needs for its stats partials.
 extern "C" long long im2im_conv3x3_scratch(int b, int cout, int h, int w) {
-  return static_cast<long long>(b) * tiles_w(w) * tiles_h(h) * 2 * cout;
+  return static_cast<long long>(b) * make_grid(h, w, cout).boxes * 2 * cout;
 }
 
 // K3 and K4. x (b, cin, h, w), weight (cout, cin, 3, 3), bias (cout) or
@@ -130,7 +238,9 @@ extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void
                                    int prologue, int with_stats, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bad_shape(b, cin, cout, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Grid g = make_grid(h, w, cout);
   const auto* xf = static_cast<const float*>(x);
   const auto* wf = static_cast<const float*>(weight);
   const auto* bf = static_cast<const float*>(bias);
@@ -140,15 +250,14 @@ extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void
   auto* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (prologue && with_stats)
-    err = launch<true, true>(xf, wf, bf, sc, sh, yf, pf, b, cin, cout, h, w, s);
+    err = launch<true, true>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
   else if (prologue)
-    err = launch<true, false>(xf, wf, bf, sc, sh, yf, pf, b, cin, cout, h, w, s);
+    err = launch<true, false>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
   else if (with_stats)
-    err = launch<false, true>(xf, wf, bf, sc, sh, yf, pf, b, cin, cout, h, w, s);
+    err = launch<false, true>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
   else
-    err = launch<false, false>(xf, wf, bf, sc, sh, yf, pf, b, cin, cout, h, w, s);
+    err = launch<false, false>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
   if (err != cudaSuccess || !with_stats) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce_rows(pf, static_cast<float*>(stats), b,
-                                             static_cast<int64_t>(tiles_w(w)) * tiles_h(h),
-                                             2LL * cout, s));
+  return static_cast<int>(
+      launch_reduce_rows(pf, static_cast<float*>(stats), b, g.boxes, 2LL * cout, s));
 }

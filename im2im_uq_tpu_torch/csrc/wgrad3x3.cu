@@ -61,7 +61,7 @@
 
 #include <cstdint>
 
-#include "conv3x3_tile.cuh"
+#include "conv3x3_tc.cuh"
 #include "mma_tf32.cuh"
 
 namespace {

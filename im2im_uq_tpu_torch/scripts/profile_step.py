@@ -33,7 +33,7 @@ BATCH, IMAGE, STEPS = 32, 320, 3
 # (bucket, substrings of the kernel name), first match wins: the port's
 # kernels first, since their names contain "conv" too
 _BUCKETS = [
-    ("K3/K4 conv3x3 (port)", ("conv3x3_fwd_kernel",)),
+    ("K3/K4 conv3x3 (port)", ("conv3x3_fwd",)),  # the stem too
     ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel",)),
     ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel",)),
     ("fixed-order partial sums (port)", ("reduce_rows",)),

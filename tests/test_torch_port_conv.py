@@ -260,6 +260,8 @@ def test_profile_buckets_put_the_port_kernels_first():
     from im2im_uq_tpu_torch.scripts import profile_step
 
     assert profile_step.bucket("void conv3x3_fwd_kernel<true, true>(...)") == "K3/K4 conv3x3 (port)"
+    assert profile_step.bucket("void (anonymous namespace)::conv3x3_fwd_stem_kernel<false, true>(...)"
+                               ) == "K3/K4 conv3x3 (port)"
     assert profile_step.bucket("void (anonymous namespace)::wgrad3x3_tc_kernel<false, true>(...)"
                                ) == "K5 wgrad3x3 (port)"
     assert profile_step.bucket("void (anonymous namespace)::dgrad3x3_tc_kernel<4, true>(...)"
@@ -270,3 +272,21 @@ def test_profile_buckets_put_the_port_kernels_first():
     assert profile_step.bucket("void pointwise_mult_and_sum_complex<float2, 8, 4>") == "conv (cuDNN)"
     assert profile_step.bucket("cudnn::bn_fw_tr_1C11_kernel_NCHW") == "batchnorm (cuDNN / torch)"
     assert profile_step._union_us([(0, 4), (2, 6), (8, 9), (8.5, 8.7)]) == 7
+
+
+def test_gemm_stem_source_cuts_only_the_stem_dispatch():
+    """``scripts/compare_conv_builds.py --gemm-stem`` times the shared GEMM
+    at Cin = 1 by cutting ``conv3x3.cu``'s dispatch to the stem kernel out
+    of a copy; the cut must find that one block and leave the GEMM's
+    launch."""
+    from im2im_uq_tpu_torch import _build
+    from im2im_uq_tpu_torch.scripts import compare_conv_builds
+
+    text = (_build.CSRC / "conv3x3.cu").read_text()
+    cut = compare_conv_builds.gemm_stem_source(text)
+    assert "conv3x3_fwd_stem_kernel<kPrologue, kStats><<<" in text
+    assert "conv3x3_fwd_stem_kernel<kPrologue, kStats><<<" not in cut
+    assert "return launch_grid(conv3x3_fwd_kernel<kPrologue, kStats>" in cut
+    assert cut.count("{") == cut.count("}")
+    with pytest.raises(ValueError, match="found 0"):
+        compare_conv_builds.gemm_stem_source(cut)

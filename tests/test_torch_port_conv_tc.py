@@ -1,10 +1,13 @@
-"""Why K5 and K6 split every operand for the tensor cores (3xTF32).
+"""Why K3-K6 split every operand for the tensor cores (3xTF32).
 
-K5 (``csrc/wgrad3x3.cu``) and K6 (``csrc/dgrad3x3.cu``) run their GEMMs on
-the tensor cores with TF32 operands (10 explicit mantissa bits). Here, in
-plain torch on the CPU, TF32 rounding is emulated on an int32 view of the
-float32 bits, and the two GEMMs of a small conv (B = 2, Cin = Cout = 64,
-16x16, with and without the prologue) are computed
+K3/K4 (``csrc/conv3x3.cu``), K5 (``csrc/wgrad3x3.cu``) and K6
+(``csrc/dgrad3x3.cu``) run their GEMMs on the tensor cores with TF32
+operands (10 explicit mantissa bits). Here, in plain torch on the CPU, TF32
+rounding is emulated on an int32 view of the float32 bits, and the GEMMs of
+a small conv (K5, K6: B = 2, Cin = Cout = 64, 16x16; K3, K4: a deep K, B =
+1, 8x8, Cin = 512, Cout = 64, in the kernels' chunks of 8 input channels x
+9 taps, each chunk through a fresh accumulator; with and without the
+prologue) are computed
 
 - in one TF32 pass: tf32(a)·tf32(b), float32 accumulation;
 - in 3xTF32, as the kernels do: hi = tf32(v) for each operand, lo = v − hi
@@ -13,8 +16,8 @@ float32 bits, and the two GEMMs of a small conv (B = 2, Cin = Cout = 64,
 
 and held against the plain versions in float64 with the bars that
 ``chip_smoke.py`` holds the kernels to on the card (relative L2 and
-max|error| / max|reference|): ``CONV_TOL`` on K6's dx, ``SUM_TOL`` on K5's
-dW and db and on K6's reductions. 3xTF32 stays inside them; one TF32 pass
+max|error| / max|reference|): ``CONV_TOL`` on K3's and K4's y and K6's dx,
+``SUM_TOL`` on K4's stats, K5's dW and db and K6's reductions. 3xTF32 stays inside them; one TF32 pass
 does not. TF32 products of two 11-bit significands are exact in float32,
 so a float32 matmul of TF32-rounded operands is the tensor core's product.
 The kernels round hi with ties away from zero (``cvt.rna``'s rule, by an
@@ -30,9 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from chip_smoke import CONV_TOL, PEAK_BYTES_PER_S, SUM_TOL, conv_bound
-from im2im_uq_tpu_torch.ops import conv_bwd
+from im2im_uq_tpu_torch.ops import conv, conv_bwd
 
 B, C, S = 2, 64, 16
+# K3/K4's case: K = 9 * 512, the depth of the UNet's deepest convs
+FB, FCIN, FS, FCOUT = 1, 512, 8, 64
+CHUNK = 8  # input channels per chunk of the kernels' K (x 9 taps)
 TIES = ["even", "away"]
 
 
@@ -104,6 +110,37 @@ def dgrad(t: dict, prologue: bool, mode: str, tie: str):
     return dam * t["scale"][:, None, None], red
 
 
+def fwd_inputs(seed: int) -> dict:
+    """x, weight, bias of K3/K4's deep case, scale > 0, shift > 0; float32."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    return {k: torch.from_numpy(v) for k, v in {
+        "x": rng.randn(FB, FCIN, FS, FS).astype(f32),
+        "w": (rng.randn(FCOUT, FCIN, 3, 3) / np.sqrt(9 * FCIN)).astype(f32),
+        "bias": (0.1 * rng.randn(FCOUT)).astype(f32),
+        "scale": (0.5 + rng.rand(FCIN)).astype(f32),
+        "shift": (0.05 + 0.3 * rng.rand(FCIN)).astype(f32),
+    }.items()}
+
+
+def forward(t: dict, prologue: bool, mode: str, tie: str):
+    """K3's and K4's GEMM as the kernels order it, M = B·H·W, N = Cout, K =
+    9·Cin in chunks of 8 input channels x 9 taps: each chunk's products go
+    through a fresh accumulator, added to the sums in chunk order; then the
+    bias and the stats over the stored y, as the plain version's → (y,
+    stats)."""
+    a = conv_bwd.prologue_activation(t["x"], t["scale"], t["shift"], prologue)
+    b, cin, h, w = a.shape
+    cout = t["w"].shape[0]
+    cols = F.unfold(a, 3, padding=1).permute(0, 2, 1).reshape(b * h * w, cin * 9)  # (ci, tap)
+    wm = t["w"].reshape(cout, cin * 9).T
+    acc = torch.zeros((b * h * w, cout), dtype=a.dtype)
+    for k0 in range(0, cin * 9, CHUNK * 9):
+        acc = acc + matmul(cols[:, k0:k0 + CHUNK * 9], wm[k0:k0 + CHUNK * 9], mode, tie)
+    y = (acc + t["bias"]).reshape(b, h, w, cout).permute(0, 3, 1, 2)
+    return y, torch.stack([y.sum((2, 3)), (y * y).sum((2, 3))], 1)
+
+
 def f64(t: dict) -> dict:
     return {k: v.double() for k, v in t.items()}
 
@@ -150,6 +187,45 @@ def test_k6_gemm_in_3xtf32_holds_the_bars_and_one_pass_does_not(prologue, tie):
     if prologue:
         assert errors(red3, red_ref) <= SUM_TOL / 10
     assert errors(dx1, dx_ref) > CONV_TOL
+
+
+@pytest.mark.parametrize("tie", TIES)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k3_k4_gemm_in_3xtf32_holds_the_bars_and_one_pass_does_not(prologue, tie):
+    """K = 9 * 512 in 64 chunks: 3xTF32 holds y to CONV_TOL and K4's stats
+    to SUM_TOL; one TF32 pass misses CONV_TOL on y. K3 is K4's instance
+    with neither the prologue nor the stats, so the case without the
+    prologue covers its y."""
+    t = fwd_inputs(14)
+    d = f64(t)
+    y_ref, st_ref = conv.conv3x3_bn_act_plain(d["x"], d["w"], d["bias"], d["scale"],
+                                              d["shift"], prologue, True)
+    y3, st3 = forward(t, prologue, "3xtf32", tie)
+    y1, _ = forward(t, prologue, "tf32", tie)
+    assert errors(y3, y_ref) <= CONV_TOL
+    assert errors(st3, st_ref) <= SUM_TOL
+    assert errors(y1, y_ref) > CONV_TOL
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+def test_the_emulated_forward_gemm_is_the_plain_version(prologue):
+    """In float64 with exact products, the chunked forward GEMM above is
+    ``conv3x3_plain`` (K3) and ``conv3x3_bn_act_plain`` (K4, y and stats),
+    so the errors above are the rounding's alone."""
+    t = f64(fwd_inputs(15))
+
+    def exact(a, b, mode, tie):
+        return a @ b
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(globals(), "matmul", exact)
+        y, st = forward(t, prologue, "exact", "even")
+    want_y, want_st = conv.conv3x3_bn_act_plain(t["x"], t["w"], t["bias"], t["scale"],
+                                                t["shift"], prologue, True)
+    assert errors(y, want_y) < 1e-12
+    assert errors(st, want_st) < 1e-12
+    if not prologue:
+        assert errors(y, conv.conv3x3_plain(t["x"], t["w"], t["bias"])) < 1e-12
 
 
 def test_the_emulated_gemms_are_the_plain_versions():
