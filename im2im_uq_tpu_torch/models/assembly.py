@@ -21,7 +21,9 @@ from im2im_uq_tpu_torch.models.heads import build_head
 from im2im_uq_tpu_torch.models.unet import UNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
 
-__all__ = ["UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc"]
+__all__ = [
+    "UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc", "resolve_remat",
+]
 
 
 def nchw_from_nhwc(batch: np.ndarray, device: torch.device | str) -> torch.Tensor:
@@ -100,6 +102,24 @@ class UQState:
         return dataclasses.replace(self, **kw)
 
 
+def resolve_remat(params: dict):
+    """``remat`` ∈ {False, True, 'full', 'conv', 'bn'} → the mode, as the
+    JAX package resolves it (``models/assembly.py`` ``resolve_remat``):
+    False, 0 and None are off, True and 1 mean "full", anything else
+    raises."""
+    v = params.get("remat", False)
+    if v in (False, 0, None):
+        return False
+    if v is True or v == 1:
+        return "full"
+    if v in ("full", "conv", "bn"):
+        return v
+    raise ValueError(
+        f"unknown remat mode {v!r} (expected false, true, 'full', 'conv', "
+        "or 'bn')"
+    )
+
+
 def build_trunk(params: dict) -> nn.Module:
     """Trunk factory for the config's ``model``; its parameters are left on
     the meta device until :func:`add_uncertainty` places and fills them.
@@ -113,8 +133,13 @@ def build_trunk(params: dict) -> nn.Module:
     ``bn_backend`` takes "auto"
     and "flax": the JAX package's "dot" and "barrier" are not ported, and
     with ``pallas_fused``, whose kernels fold their own BatchNorm, they are
-    refused as the JAX package refuses them.
+    refused as the JAX package refuses them. ``remat`` is validated as the
+    JAX package's ``resolve_remat`` does (:func:`resolve_remat`); a mode
+    other than off is not yet ported.
     """
+    remat = resolve_remat(params)
+    if remat:
+        raise NotImplementedError(f"remat {remat!r} is not yet ported")
     name = params.get("model", "UNet")
     if params.get("compute_dtype") not in (None, "float32", "f32"):
         raise NotImplementedError(

@@ -19,8 +19,11 @@ device comes from ``--device`` (default ``cuda``), never from the config's
         --config experiments/synthetic_test/config.yml [--grid-index 0] \\
         [--data-path DIR] [--output-dir DIR] [--device cuda]
 
-Not ported: ``on_device_transform`` (raises) and the wandb-agent mode
-without ``--config``.
+Not ported: ``on_device_transform`` for the datasets whose JAX classes
+act on it (FastMRI and TEMCA, which move their preprocessing onto the
+device; refused before any data is read); every other dataset ignores the
+flag, as the JAX router does. Nor the wandb-agent mode without
+``--config``.
 """
 
 from __future__ import annotations
@@ -150,9 +153,18 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+# the datasets whose JAX classes carry ``device_preprocess`` (FastMRI) or
+# ``device_preprocess_pair`` (TEMCA), the only ones ``on_device_transform``
+# changes in the JAX router
+ON_DEVICE_TRANSFORM_DATASETS = ("fastmri", "temca")
+
+
 def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optional[dict]:
     """One grid point end to end on ``device``; returns the results dict
     (or None when its results pickle already exists)."""
+    if config.get("on_device_transform") and config["dataset"] in ON_DEVICE_TRANSFORM_DATASETS:
+        raise NotImplementedError(
+            f"on_device_transform for dataset {config['dataset']!r} is not yet ported")
     seed = config.get("seed", 0)
     generator = fix_randomness(seed)
     if config.get("output_dir"):
@@ -163,8 +175,6 @@ def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optiona
             return None
     else:
         fname = None
-    if config.get("on_device_transform"):
-        raise NotImplementedError("on_device_transform is not yet ported")
     print("Computing the results from scratch!")
 
     logger = MetricsLogger(config.get("output_dir"), config=config)

@@ -120,6 +120,25 @@ def test_unported_configs_raise(override):
         tasm.build_trunk(dict(CFG, **override))
 
 
+@pytest.mark.parametrize("remat", [False, 0, None, True, 1, "full", "conv", "bn", "bogus", 2])
+def test_remat_is_resolved_as_the_jax_package_resolves_it(remat):
+    cfg = dict(CFG, remat=remat)
+    try:
+        want = jasm.resolve_remat(cfg)
+    except ValueError:
+        with pytest.raises(ValueError, match="unknown remat mode"):
+            tasm.resolve_remat(cfg)
+        with pytest.raises(ValueError, match="unknown remat mode"):
+            tasm.build_trunk(cfg)
+        return
+    assert tasm.resolve_remat(cfg) == want
+    if want:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tasm.build_trunk(cfg)
+    else:
+        assert isinstance(tasm.build_trunk(cfg), nn.Module)
+
+
 def test_unported_head_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tasm.add_uncertainty(tasm.build_trunk(CFG), dict(CFG, uncertainty_type="gaussian"))

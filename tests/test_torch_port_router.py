@@ -148,9 +148,29 @@ def test_device_flag_never_falls_back_to_the_cpu(monkeypatch):
         trouter.main(["--config", "experiments/synthetic_test/config.yml", "--device", "cuda"])
 
 
-def test_on_device_transform_is_refused(tmp_path):
+@pytest.mark.parametrize("dataset", ["fastmri", "temca"])
+def test_on_device_transform_is_refused(tmp_path, dataset):
+    """FastMRI and TEMCA, whose JAX classes move their preprocessing onto
+    the device under the flag, are refused before any data is read: the
+    data path does not exist and no output directory is made."""
+    cfg = dict(CONFIG, dataset=dataset, data_path=str(tmp_path / "missing"),
+               output_dir=str(tmp_path / "out"), checkpoint_dir=str(tmp_path / "ckpt"),
+               on_device_transform=True, side_length=32, downsampling_factor=2, num_buffer=1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        trouter.run_experiment(dict(CONFIG, output_dir=str(tmp_path), on_device_transform=True), "cpu")
+        trouter.run_experiment(cfg, "cpu")
+    assert sorted(os.listdir(tmp_path)) == []
+
+
+def test_on_device_transform_leaves_synthetic_unchanged(runs, tmp_path):
+    """The synthetic dataset has no device preprocessing: with the flag the
+    grid point runs as without it (the JAX router ignores it there too)."""
+    cfg = dict(runs["port"], on_device_transform=True, **_dirs(tmp_path, "flag"))
+    got = trouter.run_experiment(cfg, "cpu")
+    want = _load(trouter.results_filename(runs["port"]))
+    assert sorted(got) == sorted(want) == sorted(_load(trouter.results_filename(cfg)))
+    assert got["lhat"] == want["lhat"]
+    np.testing.assert_array_equal(_load(trouter.loss_table_filename(cfg)),
+                                  _load(trouter.loss_table_filename(runs["port"])))
 
 
 # ------------------------------------------------ shared model outputs
