@@ -28,9 +28,15 @@ Phases, one JSON line each on stdout:
               shapes, summed per step; then one conv_shape line per
               main-path shape with the K3-K6 times side by side (the stem
               marked).
-   probes     P1-P5, the Pallas probes of ``benchmarks/`` (not ported):
-              their bound and one PyTorch call's time at the probes'
-              default shapes.
+   probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
+              conv), the ports of the Pallas probes of ``benchmarks/``,
+              against their plain versions in f32 and bf16 at the probes'
+              default shape, at the shapes their CLIs run and at odd
+              shapes, each run twice, bit for bit; kernel, plain, library
+              and bound times in both dtypes.
+   probe_cli  the probes' CLIs (``scripts.bench_moments`` and
+              ``scripts.bench_conv3x3`` at Cin 64, 128 and 96), which must
+              launch P1-P5.
 5. calibrate  the full-width UNet + quantile head (random weights from a
               seed) calibrated on 128 synthetic 320x320 images, L=1000.
 6. serve      save the calibrated checkpoint, run ``scripts/infer.main`` on
@@ -61,13 +67,13 @@ Phases, one JSON line each on stdout:
               ``conv_backend: pallas_fused`` (router_fused).
 
 The kernel launch counters are set to 0 just before each path that a user
-runs (calibrate + serve, train, router, and each of them under the fused
-config) and read just after it; the ``kernels`` line reports the sum over
-those paths. Any failure raises and the script exits non-zero. The line
-before the last is ``nvidia-smi``'s name and power limit; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result.
+runs (the probe CLIs, calibrate + serve, train, router, and each of them
+under the fused config) and read just after it; the ``kernels`` line
+reports the sum over those paths. Any failure raises and the script exits
+non-zero. The line before the last is ``nvidia-smi``'s name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or without the rest of the repository beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import io
 import json
 import os
 import pickle
@@ -99,8 +106,16 @@ from im2im_uq_tpu_torch.models.assembly import (
     nchw_from_nhwc,
 )
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
-from im2im_uq_tpu_torch.ops import conv, conv_bwd, loss_table, pool, upsample
-from im2im_uq_tpu_torch.scripts import infer, router
+from im2im_uq_tpu_torch.ops import (
+    conv,
+    conv_bwd,
+    conv_probe,
+    loss_table,
+    moments,
+    pool,
+    upsample,
+)
+from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
 from im2im_uq_tpu_torch.training import train
 from im2im_uq_tpu_torch.training.checkpoint import (
     calibrated_checkpoint_path,
@@ -148,7 +163,13 @@ KERNELS = {
     "conv3x3_bn_act": conv.conv3x3_bn_act,
     "wgrad3x3": conv_bwd.wgrad3x3,
     "dgrad3x3": conv_bwd.dgrad3x3,
+    "moments": moments.moments,
+    "conv3x3_single": conv_probe.conv3x3_single,
+    "conv3x3_db": conv_probe.conv3x3_db,
+    "conv3x3_l1": conv_probe.conv3x3_l1,
+    "conv3x3_c64": conv_probe.conv3x3_c64,
 }
+PROBE_KERNELS = ["moments", "conv3x3_single", "conv3x3_db", "conv3x3_l1", "conv3x3_c64"]
 DEFAULT_PATH_KERNELS = ["upsample2x", "upsample2x_bwd", "loss_table", "maxpool2x2_bwd"]
 CONV_KERNELS = ["conv3x3", "conv3x3_bn_act", "wgrad3x3", "dgrad3x3"]
 CONV_PHASES = dict(zip(CONV_KERNELS, ["k3", "k4", "k5", "k6"]))
@@ -176,10 +197,31 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # f32-accurate products on the tensor cores: TF32's 495 TFLOP/s (data
 # sheet, dense) over the three passes of 3xTF32 (hi·hi + hi·lo + lo·hi)
 PEAK_F32_TC_FLOPS = 495e12 / 3
+# bf16 products on the tensor cores, f32 accumulation (H100 SXM data sheet,
+# dense)
+PEAK_BF16_TC_FLOPS = 989e12
 # (B, Cin, H, W, Cout) of the Pallas probes' defaults: P1's x
 # (benchmarks/bench_moments.py:28), P2-P5's conv
 # (benchmarks/bench_pallas_conv.py:377-389)
 PROBE_SHAPE = (32, 64, 320, 320, 64)
+# P1's NHWC cases beyond PROBE_SHAPE: C 1, 3 and 96 over 100011 rows (which
+# fill no block evenly), batch 1
+MOMENT_ODD_SHAPES = [(3, 37, 901, 1), (3, 37, 901, 3), (3, 37, 901, 96), (1, 5, 7, 64)]
+# P1's bars: each sum within 1e-5 of Σ|x| (Σx) or Σx² (Σx²) per channel; the
+# mean within 1e-5, the variance within 1e-4·E[x²] (a mean of 3 makes
+# Σx²/n − mean² cancel)
+MOMENT_SUM_TOL, MOMENT_MEAN_ATOL, MOMENT_VAR_TOL = 1e-5, 1e-5, 1e-4
+# (wrapper, (B, H, W, Cin, Cout)) of P2-P5's odd cases: Cin 128 for P2/P3,
+# P4 at Cin 3 and 96 with H = 13, batch 1, 13x17 and 13x21 images
+CONV_PROBE_ODD = [("conv3x3_single", (1, 13, 17, 128, 128)), ("conv3x3_db", (2, 13, 17, 128, 64)),
+                  ("conv3x3_l1", (2, 13, 17, 3, 32)), ("conv3x3_l1", (1, 13, 16, 96, 96)),
+                  ("conv3x3_l1", (1, 5, 9, 5, 7)), ("conv3x3_c64", (1, 13, 21, 64, 40))]
+# the shapes at which the probe CLIs (bench_conv3x3.main, bf16) run each
+# wrapper: the main path's
+CONV_PROBE_CLI = {"conv3x3_single": (32, 320, 320, 128, 128), "conv3x3_db": (32, 320, 320, 128, 128),
+                  "conv3x3_l1": (32, 320, 320, 96, 96), "conv3x3_c64": (32, 320, 320, 64, 64)}
+# f32 bar of P2-P5 (the probe's own, bench_pallas_conv.py:399)
+CONV_PROBE_TOL = 2e-5
 
 
 def conv_sites(conv_backend: str) -> dict:
@@ -543,7 +585,8 @@ def _conv_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, f
     return max_abs, rel_l2, rel_max
 
 
-def conv_bound(shape: tuple, nbytes: float) -> tuple[float, str, float]:
+def conv_bound(shape: tuple, nbytes: float,
+               peak: float = PEAK_F32_TC_FLOPS) -> tuple[float, str, float]:
     """(bound ms, what bounds it, a direct conv's operations) of one 3x3
     conv kernel at ``shape`` = (B, Cin, H, W, Cout).
 
@@ -552,11 +595,12 @@ def conv_bound(shape: tuple, nbytes: float) -> tuple[float, str, float]:
     m² outputs) as m grows, which no algorithm in use for the conv or its
     gradients beats (F(4×4, 3×3) needs 2.25, an FFT more than 1), the
     transforms not counted, at the card's f32-accurate rate, 3xTF32 on the
-    tensor cores (PEAK_F32_TC_FLOPS): Winograd's product stage is a batched
-    GEMM, which runs there too."""
+    tensor cores (PEAK_F32_TC_FLOPS; ``peak``, PEAK_BF16_TC_FLOPS for bf16
+    operands): Winograd's product stage is a batched GEMM, which runs there
+    too."""
     b, cin, h, w, cout = shape
     direct = 2.0 * b * h * w * cin * cout * 9
-    ms, by = bound(direct / 9, nbytes, PEAK_F32_TC_FLOPS)
+    ms, by = bound(direct / 9, nbytes, peak)
     return ms, by, direct
 
 
@@ -634,27 +678,146 @@ def phase_conv_kernels() -> dict:
     return results
 
 
-def phase_probes() -> None:
-    """P1-P5, the Pallas probes of ``benchmarks/``, which no path of the
-    system launches and which are not ported: the bound and one PyTorch
-    call's time at the probes' default shapes (PROBE_SHAPE), f32, TF32 off.
-    P1 (per-channel Σx and Σx²): the bytes of x read once, against
-    ``x.sum((0, 2, 3))`` and ``(x * x).sum((0, 2, 3))``. P2-P5 (3x3 conv,
-    no bias): ``conv_bound``, against ``F.conv2d``."""
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _moments_case(shape: tuple, dtype: torch.dtype, gen: torch.Generator, timed: bool) -> dict:
+    """P1 against its plain version at one NHWC shape (x = N(3, 1)): the
+    (2, C) sums, the mean and the variance each within their bars, the
+    kernel's sums the same bits twice; with ``timed`` the kernel's, plain
+    version's and library call's times and the bound."""
+    x = (torch.randn(shape, generator=gen, device="cuda") + 3.0).to(dtype)
+    n = x.numel() // shape[-1]
+    got, again = moments.moment_sums(x), moments.moment_sums(x)
+    want = moments.moment_sums_plain(x)
+    x32 = x.float().reshape(n, -1)
+    scale = torch.stack([x32.abs().sum(0), (x32 * x32).sum(0)])
+    (m, v), (pm, pv) = moments.finish(got, n), moments.finish(want, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"moments {shape} {dtype}: two runs differ")
+    sum_err = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+    mean_err = (m - pm).abs().max().item()
+    ex2 = (scale[1] / n).max().item()
+    var_err = (v - pv).abs().max().item()
+    fields = {"kernel": "moments", "shape": list(shape), "dtype": _dtype_name(dtype),
+              "max_abs_err": (got - want).abs().max().item(), "sum_rel_err": sum_err,
+              "mean_abs_err": mean_err, "var_abs_err": var_err, "bit_identical": True,
+              "bars": [MOMENT_SUM_TOL, MOMENT_MEAN_ATOL, MOMENT_VAR_TOL * ex2]}
+    if sum_err > MOMENT_SUM_TOL or mean_err > MOMENT_MEAN_ATOL or var_err > MOMENT_VAR_TOL * ex2:
+        raise AssertionError(f"P1 disagrees with its plain version: {fields}")
+    if timed:
+        fields["ms"] = cuda_ms(lambda: moments.moments(x), 20)
+        fields["plain_ms"] = cuda_ms(lambda: moments.moments_plain(x), 5)
+        fields["library_ms"] = cuda_ms(lambda: bench_moments.library_moments(x), 20)
+        # an add, a multiply and an add per element; x read, 2C sums written
+        fields["bound_ms"], fields["bound_by"] = bound(
+            3 * x.numel(), x.numel() * x.element_size() + 8 * shape[-1])
+    emit("probes", **fields)
+    return fields
+
+
+def _conv_probe_case(name: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator,
+                     timed: bool) -> dict:
+    """One of P2-P5 against ``conv3x3_nobias_plain`` at (B, H, W, Cin,
+    Cout): f32 within CONV_PROBE_TOL relative and absolute; bf16 within
+    ``conv_probe.bf16_tolerance``: one bf16 ulp of the plain value plus the
+    f32 sums' worst-case difference between two orders, 2·K·2^-24·Σ|x||w|
+    (K = 9·Cin), which only matters where the sum cancels to near zero; the
+    same bits twice."""
+    b, h, w, cin, cout = shape
+    x = torch.randn((b, h, w, cin), generator=gen, device="cuda").to(dtype)
+    k = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
+    fn = KERNELS[name]
+    got, again = fn(x, k), fn(x, k)
+    want = conv_probe.conv3x3_nobias_plain(x, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {shape} {dtype}: two runs differ")
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        tol = CONV_PROBE_TOL * (1.0 + want.abs())
+    else:
+        tol = conv_probe.bf16_tolerance(x, k, want)
+    worst = (diff / tol).max().item()
+    fields = {"kernel": name, "shape": list(shape), "dtype": _dtype_name(dtype),
+              "max_abs_err": diff.max().item(), "err_over_bar": worst, "bit_identical": True}
+    if worst > 1.0:
+        raise AssertionError(f"{name} disagrees with its plain version: {fields}")
+    if timed:
+        x_lib = x.permute(0, 3, 1, 2)  # NCHW channels_last: the same memory
+        w_lib = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        fields["ms"] = cuda_ms(lambda: fn(x, k), 10)
+        fields["plain_ms"] = cuda_ms(lambda: conv_probe.conv3x3_nobias_plain(x, k), 3)
+        fields["library_ms"] = cuda_ms(lambda: F.conv2d(x_lib, w_lib, padding=1), 10)
+        peak = PEAK_F32_TC_FLOPS if dtype == torch.float32 else PEAK_BF16_TC_FLOPS
+        nbytes = (x.numel() + k.numel() + got.numel()) * x.element_size()
+        fields["bound_ms"], fields["bound_by"], _ = conv_bound((b, cin, h, w, cout), nbytes, peak)
+    emit("probes", **fields)
+    del x, k, got, again, want, diff, tol
+    return fields
+
+
+def phase_probes() -> dict:
+    """P1-P5 against their plain versions on the card, TF32 off, each run
+    twice for the same bits.
+
+    P1 at the probe's x (PROBE_SHAPE in NHWC) and MOMENT_ODD_SHAPES; P2-P5
+    at PROBE_SHAPE, at the shapes their CLI runs them (CONV_PROBE_CLI) and
+    at CONV_PROBE_ODD; every case in f32 and bf16. Timed: PROBE_SHAPE in
+    both dtypes, the CLI shapes in bf16 (the CLI's dtype). → the ``kernels``
+    line's rows: P1 summed over one call in each dtype at PROBE_SHAPE (what
+    one pass of its CLI runs), P2-P5 at their CLI shape in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, cin, h, w, cout = PROBE_SHAPE
-    x = torch.randn((b, cin, h, w), generator=gen, device="cuda")
-    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5
-    # an add, a multiply and an add per element; x read, 2 * Cin sums written
-    p1_ms, p1_by = bound(3 * x.numel(), 4 * (x.numel() + 2 * cin))
-    p1_lib = cuda_ms(lambda: (x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))), 5)
-    conv_ms, conv_by, _ = conv_bound(PROBE_SHAPE, 4 * (x.numel() + wt.numel() + b * cout * h * w))
-    conv_lib = cuda_ms(lambda: F.conv2d(x, wt, padding=1), 5)
-    emit("probes", shape=list(PROBE_SHAPE),
-         P1={"bound_ms": p1_ms, "bound_by": p1_by, "library_ms": p1_lib,
-             "library": "x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))"},
-         P2_P5={"bound_ms": conv_ms, "bound_by": conv_by, "library_ms": conv_lib,
-                "library": "F.conv2d(x, w, padding=1)"})
+    results = {}
+    p1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(b, h, w, cin)] + MOMENT_ODD_SHAPES:
+            f = _moments_case(shape, dtype, gen, shape == (b, h, w, cin))
+            if "ms" in f:  # the error of P1's outputs, the mean and the variance
+                p1["max_abs_err"] = max(p1["max_abs_err"], f["mean_abs_err"], f["var_abs_err"])
+                for key in ("ms", "plain_ms", "library_ms"):
+                    p1[key] += f[key]
+                size = torch.empty((), dtype=dtype).element_size()
+                add_bound(p1, 3 * b * h * w * cin, size * b * h * w * cin + 8 * cin)
+    results["moments"] = close_bound(p1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in PROBE_KERNELS[1:]:
+            cases = [(b, h, w, cin, cout)] + [s for n, s in CONV_PROBE_ODD if n == name]
+            if dtype == torch.bfloat16 and CONV_PROBE_CLI[name] not in cases:
+                cases.append(CONV_PROBE_CLI[name])
+            for shape in cases:
+                timed = shape == (b, h, w, cin, cout) or (
+                    dtype == torch.bfloat16 and shape == CONV_PROBE_CLI[name])
+                f = _conv_probe_case(name, shape, dtype, gen, timed)
+                if dtype == torch.bfloat16 and shape == CONV_PROBE_CLI[name]:
+                    results[name] = {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                       "library_ms", "bound_ms", "bound_by")}
+    return results
+
+
+def phase_probe_cli() -> dict:
+    """The probes' CLIs as a user runs them on the card: ``bench_moments``
+    (f32 and bf16 at the probe's x) and ``bench_conv3x3`` at its default
+    (bf16, Cin = Cout = 64: P5), at Cin 128 (P2 and P3) and at Cin 96 (P4),
+    each of which holds its kernels to a reference itself. → launches."""
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rcs = [bench_moments.main([]), bench_conv3x3.main([]),
+               bench_conv3x3.main(["32", "320", "128", "128"]),
+               bench_conv3x3.main(["32", "320", "96", "96"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if any(rcs):
+        raise AssertionError(f"probe CLIs returned {rcs}")
+    require_launches("probe_cli", counts, PROBE_KERNELS)
+    emit("probe_cli", seconds=wall, output=out.getvalue().splitlines(), launches=counts)
+    return counts
 
 
 class RecordLog:
@@ -1093,7 +1256,8 @@ def main() -> int:
         "maxpool2x2_bwd": phase_k7(),
         **phase_conv_kernels(),
     }
-    phase_probes()
+    measured.update(phase_probes())
+    launches = phase_probe_cli()
 
     # 5-6. calibrate and serve
     t0 = time.perf_counter()
@@ -1104,7 +1268,7 @@ def main() -> int:
         build_trunk(config), config,
         generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
     )
-    state, xs, launches = calibrate_and_serve("", state, config, calib, serve, [])
+    state, xs, calib_serve_counts = calibrate_and_serve("", state, config, calib, serve, [])
 
     # 7. crosscheck: CPU (plain versions) vs the card, fp32, TF32 off
     x2 = nchw_from_nhwc(xs[:2], "cpu")
@@ -1131,7 +1295,8 @@ def main() -> int:
     router_fused_counts = phase_router(
         "router_fused", {"conv_backend": "pallas_fused"},
         DEFAULT_PATH_KERNELS + ["conv3x3_bn_act", "conv3x3", "wgrad3x3", "dgrad3x3"])
-    for counts in (train_counts, router_counts, fused_counts, router_fused_counts):
+    for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
+                   router_fused_counts):
         for name, n in counts.items():
             launches[name] += n
 
@@ -1144,6 +1309,11 @@ def main() -> int:
         "conv3x3_bn_act": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "moments": ("moments.cu", "benchmarks/bench_moments.py:51"),
+        "conv3x3_single": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:51"),
+        "conv3x3_db": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),
+        "conv3x3_l1": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:196"),
+        "conv3x3_c64": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:293"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": f"im2im_uq_tpu_torch/csrc/{src}",

@@ -76,6 +76,14 @@ _SIGNATURES = {
     "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
     # floats of K6's reduction scratch: (b, cin, h, w)
     "im2im_dgrad3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # P1: blocks of the partial buffer for (n rows, device)
+    "im2im_moments_blocks": ([ctypes.c_longlong, ctypes.c_int], ctypes.c_int),
+    # P1: (x, part, sums, n, c, blocks, dtype, vec, device, stream)
+    "im2im_moments": (
+        [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
+    # P2-P5: (x, kernel, y, b, h, w, cin, cout, variant, dtype, vec_x, vec_w,
+    #         device, stream)
+    "im2im_conv3x3_nhwc": ([_P] * 3 + [ctypes.c_int] * 10 + [_P], ctypes.c_int),
     "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
