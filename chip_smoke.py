@@ -121,6 +121,7 @@ from im2im_uq_tpu_torch.training.checkpoint import (
     calibrated_checkpoint_path,
     save_calibrated_checkpoint,
 )
+from im2im_uq_tpu_torch.utils.timing import time_ms
 
 DECODER_SHAPES = [(32, 512, 20, 20), (32, 256, 40, 40), (32, 128, 80, 80), (32, 64, 160, 160)]
 ODD_SHAPES = [(2, 3, 1, 1), (1, 5, 1, 7), (3, 7, 9, 1), (2, 4, 13, 17), (1, 2, 33, 5)]
@@ -266,21 +267,6 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` in ms from CUDA events, after warm-up."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take for work of ``flops`` f32
     operations at ``peak`` FLOP/s on ``nbytes`` bytes each moved once, and
@@ -304,12 +290,6 @@ def close_bound(result: dict) -> dict:
     shares = result.pop("_bound_shares")
     result["bound_by"] = max(shares, key=shares.get)
     return result
-
-
-def bf16_ulp(t):
-    """One bf16 ulp at each value of ``t`` (8 significant bits)."""
-    _, exp = torch.frexp(t.float())
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
 
 
 def reset_counts() -> None:
@@ -370,7 +350,7 @@ def phase_k1() -> dict:
                 tol = 1e-6 * x.abs().max().item()
                 ok = diff.max().item() <= tol
             else:
-                tol = bf16_ulp(want)
+                tol = conv_probe.bf16_ulp(want)
                 ok = bool((diff <= tol).all())
                 tol = tol.max().item()
             if not ok:
@@ -381,9 +361,9 @@ def phase_k1() -> dict:
             fields = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
                       "max_abs_err": diff.max().item(), "tol": tol}
             if shape in DECODER_SHAPES:
-                fields["ms"] = cuda_ms(lambda: upsample.upsample2x(x), 20)
-                fields["plain_ms"] = cuda_ms(lambda: upsample.upsample2x_plain(x), 5)
-                fields["library_ms"] = cuda_ms(lambda: F.interpolate(
+                fields["ms"] = time_ms(lambda: upsample.upsample2x(x), 20)
+                fields["plain_ms"] = time_ms(lambda: upsample.upsample2x_plain(x), 5)
+                fields["library_ms"] = time_ms(lambda: F.interpolate(
                     x, scale_factor=2, mode="bilinear", align_corners=True), 20)
                 if dtype == torch.float32:  # the main path's dtype
                     result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
@@ -412,8 +392,8 @@ def phase_k2(lam) -> dict:
     max_err = (got - want).abs().max().item()
     if differ > 1e-5 * got.numel():
         raise AssertionError(f"K2 disagrees with its plain version in {differ} cells")
-    ms = cuda_ms(lambda: loss_table.loss_table(pred, label, dl, du, lam), 10)
-    plain_ms = cuda_ms(lambda: loss_table.loss_table_plain(pred, label, dl, du, lam), 2)
+    ms = time_ms(lambda: loss_table.loss_table(pred, label, dl, du, lam), 10)
+    plain_ms = time_ms(lambda: loss_table.loss_table_plain(pred, label, dl, du, lam), 2)
     num_lam = int(lam.shape[0])
     # two multiplies and two compares per (pixel, λ); four maps read, the
     # table written. No single PyTorch call computes the table: library_ms
@@ -444,7 +424,7 @@ def phase_k1b() -> dict:
                 tol = 4e-6 * g.abs().max().item()
                 ok = diff.max().item() <= tol
             else:
-                tol = bf16_ulp(want)
+                tol = conv_probe.bf16_ulp(want)
                 ok = bool((diff <= tol).all())
                 tol = tol.max().item()
             if not ok:
@@ -455,10 +435,10 @@ def phase_k1b() -> dict:
             fields = {"cotangent": list(g.shape), "dtype": str(dtype).split(".")[-1],
                       "max_abs_err": diff.max().item(), "tol": tol}
             if (b, c, h, w) in DECODER_SHAPES:
-                fields["ms"] = cuda_ms(lambda: upsample.upsample2x_bwd(g), 20)
-                fields["plain_ms"] = cuda_ms(lambda: upsample.upsample2x_bwd_plain(g), 5)
+                fields["ms"] = time_ms(lambda: upsample.upsample2x_bwd(g), 20)
+                fields["plain_ms"] = time_ms(lambda: upsample.upsample2x_bwd_plain(g), 5)
                 # the backward of F.interpolate, which autograd would call
-                fields["library_ms"] = cuda_ms(
+                fields["library_ms"] = time_ms(
                     lambda: torch.ops.aten.upsample_bilinear2d_backward(
                         g, [2 * h, 2 * w], [b, c, h, w], True), 20)
                 if dtype == torch.float32:  # the main path's dtype
@@ -513,10 +493,10 @@ def phase_k7() -> dict:
                       if got.numel() else 0.0}
             if shape in POOL_SHAPES:
                 _, idx = F.max_pool2d(x, 2, return_indices=True)
-                fields["ms"] = cuda_ms(lambda: pool.max_pool2x2_bwd(x, g), 20)
-                fields["plain_ms"] = cuda_ms(lambda: pool.max_pool2x2_bwd_plain(x, g), 5)
+                fields["ms"] = time_ms(lambda: pool.max_pool2x2_bwd(x, g), 20)
+                fields["plain_ms"] = time_ms(lambda: pool.max_pool2x2_bwd_plain(x, g), 5)
                 # torch's own max-pool backward (given its forward's indices)
-                fields["library_ms"] = cuda_ms(
+                fields["library_ms"] = time_ms(
                     lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                         g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx), 20)
                 if dtype == torch.float32:
@@ -653,9 +633,9 @@ def phase_conv_kernels() -> dict:
             if (shape, prologue) in main:
                 fields["launches_per_step"] = {k: n[(shape, prologue)] for k, n in counts.items()
                                                if n[(shape, prologue)]}
-                fields["ms"] = cuda_ms(run, 5)
-                fields["plain_ms"] = cuda_ms(plain, 2)
-                fields["library_ms"] = cuda_ms(library, 5)
+                fields["ms"] = time_ms(run, 5)
+                fields["plain_ms"] = time_ms(plain, 2)
+                fields["library_ms"] = time_ms(library, 5)
                 fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
                 fields["direct_flop_ms"] = 1e3 * direct / PEAK_F32_TC_FLOPS
                 fields["direct_tflops"] = direct / fields["ms"] / 1e9
@@ -708,9 +688,9 @@ def _moments_case(shape: tuple, dtype: torch.dtype, gen: torch.Generator, timed:
     if sum_err > MOMENT_SUM_TOL or mean_err > MOMENT_MEAN_ATOL or var_err > MOMENT_VAR_TOL * ex2:
         raise AssertionError(f"P1 disagrees with its plain version: {fields}")
     if timed:
-        fields["ms"] = cuda_ms(lambda: moments.moments(x), 20)
-        fields["plain_ms"] = cuda_ms(lambda: moments.moments_plain(x), 5)
-        fields["library_ms"] = cuda_ms(lambda: bench_moments.library_moments(x), 20)
+        fields["ms"] = time_ms(lambda: moments.moments(x), 20)
+        fields["plain_ms"] = time_ms(lambda: moments.moments_plain(x), 5)
+        fields["library_ms"] = time_ms(lambda: bench_moments.library_moments(x), 20)
         # an add, a multiply and an add per element; x read, 2C sums written
         fields["bound_ms"], fields["bound_by"] = bound(
             3 * x.numel(), x.numel() * x.element_size() + 8 * shape[-1])
@@ -748,9 +728,9 @@ def _conv_probe_case(name: str, shape: tuple, dtype: torch.dtype, gen: torch.Gen
     if timed:
         x_lib = x.permute(0, 3, 1, 2)  # NCHW channels_last: the same memory
         w_lib = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        fields["ms"] = cuda_ms(lambda: fn(x, k), 10)
-        fields["plain_ms"] = cuda_ms(lambda: conv_probe.conv3x3_nobias_plain(x, k), 3)
-        fields["library_ms"] = cuda_ms(lambda: F.conv2d(x_lib, w_lib, padding=1), 10)
+        fields["ms"] = time_ms(lambda: fn(x, k), 10)
+        fields["plain_ms"] = time_ms(lambda: conv_probe.conv3x3_nobias_plain(x, k), 3)
+        fields["library_ms"] = time_ms(lambda: F.conv2d(x_lib, w_lib, padding=1), 10)
         peak = PEAK_F32_TC_FLOPS if dtype == torch.float32 else PEAK_BF16_TC_FLOPS
         nbytes = (x.numel() + k.numel() + got.numel()) * x.element_size()
         fields["bound_ms"], fields["bound_by"], _ = conv_bound((b, cin, h, w, cout), nbytes, peak)

@@ -29,6 +29,7 @@ from im2im_uq_tpu_torch import _build
 __all__ = [
     "VARIANTS",
     "bf16_tolerance",
+    "bf16_ulp",
     "conv3x3_c64",
     "conv3x3_db",
     "conv3x3_l1",
@@ -59,6 +60,12 @@ def conv3x3_nobias_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return acc.reshape(b, h, w, kernel.shape[-1]).to(x.dtype)
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each value of ``t`` (8 significant bits), float32."""
+    _, exp = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exp - 8)
+
+
 def bf16_tolerance(x: torch.Tensor, kernel: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     """The bar of a bfloat16 result against the plain version's ``want``,
     per output: one bfloat16 ulp of ``want`` (the two round different float32
@@ -66,10 +73,8 @@ def bf16_tolerance(x: torch.Tensor, kernel: torch.Tensor, want: torch.Tensor) ->
     the worst-case difference of two float32 sums of the same K = 9·Cin
     products in different orders, 2·K·2^-24·Σ|x||w|, which matters only
     where the sum cancels to near zero and its ulp is smaller than that."""
-    _, exp = torch.frexp(want.float())
-    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exp - 8)
     mass = conv3x3_nobias_plain(x.float().abs(), kernel.float().abs())
-    return ulp + 2.0 * 9 * x.shape[-1] * 2.0**-24 * mass
+    return bf16_ulp(want) + 2.0 * 9 * x.shape[-1] * 2.0**-24 * mass
 
 
 def takes(probe: str, cin: int, dtype: torch.dtype) -> bool:

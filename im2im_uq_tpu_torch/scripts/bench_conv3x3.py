@@ -2,7 +2,7 @@
 against ``F.conv2d``.
 
     python -m im2im_uq_tpu_torch.scripts.bench_conv3x3 [batch] [size] [cin]
-        [cout] [--check] [--device cuda] [--iters 10]
+        [cout] [--check] [--device cuda]
 
 Counterpart of ``benchmarks/bench_pallas_conv.py``. x (batch, size, size,
 cin) and a kernel (3, 3, cin, cout) from ``RandomState(0)`` (defaults 32,
@@ -32,12 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from im2im_uq_tpu_torch.ops import conv_probe
-from im2im_uq_tpu_torch.scripts.bench_moments import time_ms
 from im2im_uq_tpu_torch.scripts.router import resolve_device
+from im2im_uq_tpu_torch.utils.timing import time_ms
 
 __all__ = ["main", "variants_for"]
 
 CHECK_TOL = 2e-5  # bench_pallas_conv.py:399
+ITERS = 10
 
 
 def variants_for(cin: int) -> list[str]:
@@ -73,7 +74,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("sizes", nargs="*", type=int, help="[batch] [size] [cin] [cout]")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     batch, size, cin, cout = (list(args.sizes) + [32, 320, 64, 64][len(args.sizes):])[:4]
     device = resolve_device(args.device)
@@ -99,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             err = (fn().float() - want.float()).abs()
             if not bool((err <= tol).all()):
                 raise AssertionError(f"{label} is off its plain version by {err.max().item()}")
-        ms = time_ms(fn, args.iters, device)
+        ms = time_ms(fn, ITERS, device)
         print(f"{label:28s} {ms:8.3f} ms/call   ({gb:.3f} GB moved once: "
               f"{gb / (ms / 1e3):7.1f} GB/s effective)")
     return 0

@@ -37,6 +37,7 @@ import torch
 import chip_smoke as cs
 from im2im_uq_tpu_torch import _build
 from im2im_uq_tpu_torch.ops import conv, conv_bwd
+from im2im_uq_tpu_torch.utils.timing import time_ms
 
 __all__ = ["gemm_stem_source", "main"]
 
@@ -170,7 +171,7 @@ def main(argv: list[str] | None = None) -> int:
                  for name, lib in libs.items()}
         times = collections.defaultdict(list)
         for name in [*calls, *reversed(calls), *calls]:
-            times[name].append(cs.cuda_ms(calls[name], 10))
+            times[name].append(time_ms(calls[name], 10))
         ms = {name: sum(t) / len(t) for name, t in times.items()}
         for name in ms:
             sums[name][kernel] += n * ms[name]

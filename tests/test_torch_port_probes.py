@@ -38,6 +38,7 @@ import torch
 
 from im2im_uq_tpu_torch.ops import conv_probe, moments
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments
+from im2im_uq_tpu_torch.utils.timing import time_ms
 
 BENCHMARKS = Path(__file__).resolve().parent.parent / "benchmarks"
 MEAN_ATOL, VAR_TOL = 1e-5, 1e-4
@@ -211,10 +212,23 @@ def test_bf16_tolerance_is_one_ulp_away_from_zero():
     assert (tol >= ulp).all() and (tol <= ulp + 1e-4).all()
 
 
-def test_cli_runs_on_the_cpu_when_asked(capsys):
-    assert bench_moments.main(["--device", "cpu", "--batch", "2", "--size", "4",
-                               "--channels", "3", "--iters", "1"]) == 0
-    assert bench_conv3x3.main(["1", "6", "96", "8", "--device", "cpu", "--iters", "1"]) == 0
+def test_bf16_ulp_matches_the_numpy_ulp():
+    rng = np.random.RandomState(4)
+    a = (rng.randn(512) * 10.0 ** rng.randint(-6, 7, 512)).astype(np.float32)
+    np.testing.assert_array_equal(conv_probe.bf16_ulp(torch.from_numpy(a)).numpy(), _bf16_ulp(a))
+
+
+def test_time_ms_uses_the_host_clock_off_the_card():
+    calls = []
+    ms = time_ms(lambda: calls.append(None), 5, torch.device("cpu"))
+    assert len(calls) == 2 + 5 and ms >= 0.0
+
+
+def test_cli_runs_on_the_cpu_when_asked(monkeypatch, capsys):
+    for name, size in zip("BHWC", (2, 4, 4, 3)):
+        monkeypatch.setattr(bench_moments, name, size)
+    assert bench_moments.main(["--device", "cpu"]) == 0
+    assert bench_conv3x3.main(["1", "6", "96", "8", "--device", "cpu"]) == 0
     assert bench_conv3x3.main(["1", "6", "64", "8", "--device", "cpu", "--check"]) == 0
     out = capsys.readouterr().out
     assert "kernel moments" in out and "P4 conv3x3_l1" in out and "library F.conv2d" in out
