@@ -1,7 +1,7 @@
 """K2: the RCPS fraction-missed loss table.
 
 Counterpart of ``im2im_uq_tpu/ops/pallas_kernels.py``. On CUDA tensors
-:func:`loss_table` launches the hand-written kernel in ``csrc/loss_table.cu``;
+:func:`loss_table` launches the hand-written kernels in ``csrc/loss_table.cu``;
 on CPU tensors it runs :func:`loss_table_plain`, the same count in PyTorch
 ops. Nothing else picks between the two.
 
@@ -9,6 +9,15 @@ A pixel is missed at λ when ``(a > 1e-6 & λ·dl < a) | (b > 1e-6 & λ·du < b)
 with a = pred − label and b = −a; the table holds count / P. This is the
 direct method's set test (``ops/sets.py``) rearranged, and the two agree
 except at exact float ties of λ·slope and the residual.
+
+The kernel does not test every (pixel, λ) pair: at most one guard passes,
+and f32 multiplication is monotone, so each pixel is missed on an interval
+of the grid sorted ascending (a prefix, a suffix, or the finite values),
+which a binary search over the same f32 compare finds. It ranks the grid,
+searches each pixel's interval into a difference array of integer bins and
+takes their prefix sum: the same integer counts as the plain version, so
+the same table bit for bit (``tests/test_torch_port_loss_table_search.py``
+holds a numpy model of these steps to the plain version).
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ __all__ = ["loss_table", "loss_table_plain"]
 
 # The plain version holds at most this many (λ, example, pixel) booleans at once.
 _PLAIN_CHUNK_ELEMS = 1 << 26
+# The kernel counts an example's pixels in int32 bins.
+_MAX_PX = 2**31 - 1
 
 
 def loss_table_plain(
@@ -66,15 +77,22 @@ def _launch(pred, label, dl, du, lam) -> torch.Tensor:
         raise ValueError("loss_table kernel takes pred, label, dl, du of one shape")
     n, p = pred.shape
     num_lam = lam.shape[0]
-    if n > 65535:
-        raise ValueError(f"loss_table kernel takes at most 65535 examples, got {n}")
+    if p > _MAX_PX:
+        raise ValueError(f"loss_table kernel counts at most {_MAX_PX} pixels an example, got {p}")
     out = torch.empty((n, num_lam), dtype=torch.float32, device=pred.device)
     if out.numel() == 0:
         return out
-    err = _build.library().im2im_loss_table(
+    lib = _build.library()
+    vec = int(p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in maps))
+    # the per-example counts, the sorted grid, the ranks, the blocks' difference bins
+    size = lib.im2im_loss_table_scratch(n, p, num_lam, vec, pred.device.index)
+    if size < 0:
+        _build.check(-size, "loss_table")
+    scratch = torch.empty(size, dtype=torch.int32, device=pred.device)
+    err = lib.im2im_loss_table(
         pred.data_ptr(), label.data_ptr(), dl.data_ptr(), du.data_ptr(),
-        lam.data_ptr(), out.data_ptr(), n, p, num_lam, pred.device.index,
-        torch.cuda.current_stream(pred.device).cuda_stream,
+        lam.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, p, num_lam, vec,
+        pred.device.index, torch.cuda.current_stream(pred.device).cuda_stream,
     )
     loss_table.launches += 1
     _build.check(err, "loss_table")
