@@ -43,12 +43,18 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
-    # (pred, label, dl, du, lam, out, n, num_px, num_lam, device, stream)
+    # (pred, label, dl, du, lam, out, scratch, n, num_px, num_lam, vec, device,
+    #  stream)
     "im2im_loss_table": (
-        [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, _P],
+        [_P] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, _P],
         ctypes.c_int,
     ),
+    # int32 elements of K2's scratch, or minus a CUDA error: (n, num_px,
+    #  num_lam, vec, device)
+    "im2im_loss_table_scratch": (
+        [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+        ctypes.c_longlong),
     # (g, dx, ah, aw, planes, h, w, dtype, device, stream); h, w are dx's
     "im2im_upsample2x_bwd": (
         [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -84,6 +90,11 @@ _SIGNATURES = {
     # P2-P5: (x, kernel, y, b, h, w, cin, cout, variant, dtype, vec_x, vec_w,
     #         device, stream)
     "im2im_conv3x3_nhwc": ([_P] * 3 + [ctypes.c_int] * 10 + [_P], ctypes.c_int),
+    # P2-P5's bf16 path on wgmma with TMA: (x, kernel, y, wpack, b, h, w, cin,
+    #         cout, bn, groups, stages, device, stream)
+    "im2im_conv3x3_nhwc_tma": ([_P] * 4 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
+    # bytes of its packed weights: (cin, cout, bn, groups)
+    "im2im_conv3x3_nhwc_tma_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
     "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,6 +1,12 @@
 // P2-P5: the 3x3 same-padding convolution without bias, NHWC input, HWIO
-// kernel, float32 or bfloat16, for sm_90a: one implicit GEMM on the tensor
-// cores with four launch configurations.
+// kernel, float32 or bfloat16, for sm_90a, on the tensor cores, by two
+// paths:
+//   the TMA path (namespace tma, below): bfloat16 where Cin and Cout are
+//     multiples of 8 (TMA's 16-byte strides) and the weights of one slice
+//     of output channels fit a block (ops/conv_probe.tma_plan): one
+//     persistent wgmma kernel that all four wrappers share;
+//   the cp.async path: every other shape and all of float32, one implicit
+//     GEMM on mma.sync with four launch configurations.
 //
 // Replaces the TPU kernels of benchmarks/bench_pallas_conv.py (the probes of
 // a hand-written conv against XLA's):
@@ -17,10 +23,12 @@
 //
 // What bounds it: bytes at the probes' default (32, 320, 320, 64 -> 64):
 // x, y and w each moved once take 0.25 ms in bfloat16 at 3.35 TB/s; the
-// 13.4 GMAC at 989 TFLOP/s dense bfloat16 take 0.027 ms.
+// 13.4 GMAC at 989 TFLOP/s dense bfloat16 take 0.027 ms (one multiply-add
+// per output and channel pair, the Winograd count; a direct conv's nine
+// take 0.245 ms, as long as the bytes).
 //
-// Design. A block owns a tile of 8 x 16 output pixels (one m16 fragment per
-// tile row) x 64 output channels and walks K in chunks of kKc channels
+// The cp.async path. A block owns a tile of 8 x 16 output pixels (one m16
+// fragment per tile row) x 64 output channels and walks K in chunks of kKc channels
 // (64 bytes of a pixel: 32 bfloat16 or 16 float32; 128 bytes in kC64) x 9
 // taps. In NHWC a tap moves an operand by whole pixels, that is by Cin
 // contiguous channels, so every tap's A rows stay 16-byte aligned (K3's
@@ -54,12 +62,14 @@
 // weight row is not a whole number of 16-byte vectors is copied element by
 // element (plain loads and stores) instead of by cp.async.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -430,6 +440,384 @@ cudaError_t dispatch(const Geo& g, int variant, int device, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 path on wgmma with TMA (Cin % 8 == 0, Cout % 8 == 0, and the
+// plan's weights fit a block's shared memory; ops/conv_probe.tma_plan picks
+// it and its sizes). P2-P5 share it: on Hopper their distinct staging
+// schemes buy nothing over one ring fed by TMA.
+//
+// A block owns one slice of kBn output channels (blockIdx.x % ntn) and
+// keeps all of that slice's weights resident in shared memory, packed by
+// pack_weights_kernel into wgmma's K-major no-swizzle layout (core matrices
+// of 8 n x 8 k, 16 bytes a row: LBO = 128 bytes between K-adjacent, SBO =
+// 256 between N-adjacent ones) and copied once by a bulk copy. It walks
+// output tiles of kTh rows x 64 pixels (persistent: tiles first, first +
+// step, ...), and for each tile the K chunks of `groups` x 8 channels.
+// A chunk's haloed activations, (kTh + 2) rows x 66 pixels, land by TMA
+// as one box per group of 8 channels, [group][row][col][8 bf16]: a tensor
+// map over x as (Cin, W, H, B) with the box (8, 66, kTh + 2, 1), whose
+// coordinates -1 and past the edge (and channels past Cin) are zero-filled.
+// In that layout every tap's A for one output row of 64 pixels is the same
+// buffer offset by (dh * 66 + dw) * 16 bytes: a K-major no-swizzle A with
+// SBO = 128 (8 pixels of 16 bytes) and LBO = the group's plane.
+// Warps 0-7 are two consumer warpgroups, each kTh / 2 output rows of m64 x
+// kBn (wgmma.m64nNk16, bf16 x bf16 -> f32); warp 8 is the producer, one
+// thread that keeps a ring of `stages` chunks in flight (full / empty
+// mbarriers). A consumer releases a stage once the products that read it
+// are done (wgmma.wait_group 1 after the next chunk's are issued). The
+// epilogue rounds each float32 sum once to bfloat16 (nearest even), turns
+// each quad's pairs of channels into 8 channels a lane by shuffles, and
+// stores them 16 bytes a lane from the registers (bn = 16: pairs, 4 bytes);
+// the next tile's copies are already in flight.
+namespace tma {
+
+constexpr int kTw = 64;                          // output pixels of a tile row
+constexpr int kHc = kTw + 2;                     // haloed columns
+constexpr int kConsumers = 2;                    // warpgroups
+constexpr int kThreads = 128 * kConsumers + 32;  // and the producer warp
+constexpr int kPiece = 32768;                    // bytes per bulk copy of weights
+
+__host__ __device__ constexpr int rows_for(int bn) { return bn <= 64 ? 8 : 4; }
+// bytes of one group's box, and its stride in a stage (128-byte aligned)
+__host__ __device__ constexpr int box_bytes(int th) { return (th + 2) * kHc * 16; }
+__host__ __device__ constexpr int plane_bytes(int th) { return (box_bytes(th) + 127) / 128 * 128; }
+
+struct Geo {
+  __nv_bfloat16* y;
+  int b, h, w, cin, cout;
+  int groups, stages, nch, ntn;  // 8-channel groups a chunk, ring stages, chunks, N slices
+  int tiles_y, tiles_x, tiles;
+  int plane, abytes, wchunk, wbytes;  // bytes: a group, a stage, a weight chunk, a slice
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on `bar` where `on` (a predicate inside the instruction: the
+// consumers' code stays free of branches that ptxas would take as divergent
+// around their wgmma)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(static_cast<int>(on))
+      : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed (the loop
+// inside the asm, for the same reason)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// *p = v where `on`, predicated inside the instruction
+__device__ __forceinline__ void store_if(void* p, uint32_t v, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n" ::"l"(p),
+      "r"(v), "r"(static_cast<int>(on))
+      : "memory");
+}
+
+// 16 bytes at p (16-byte aligned) where `on`
+__device__ __forceinline__ void store16_if(void* p, const uint32_t (&v)[4], bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(p),
+      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(static_cast<int>(on))
+      : "memory");
+}
+
+// The 4 x 4 transpose of 32-bit words across the 4 lanes of a quad (lane
+// bits 0-1 = q): on entry lane q holds v[i] = word (i, q), on exit word
+// (q, i). Two butterfly stages of 2 x 2 blocks, by shuffles and selects.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+  const bool odd = q & 1, high = q & 2;
+  uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  v[0] = odd ? x0 : v[0];
+  v[1] = odd ? v[1] : x0;
+  v[2] = odd ? x1 : v[2];
+  v[3] = odd ? v[3] : x1;
+  x0 = __shfl_xor_sync(0xffffffffu, high ? v[0] : v[2], 2);
+  x1 = __shfl_xor_sync(0xffffffffu, high ? v[1] : v[3], 2);
+  v[0] = high ? x0 : v[0];
+  v[1] = high ? x1 : v[1];
+  v[2] = high ? v[2] : x0;
+  v[3] = high ? v[3] : x1;
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wpack[slice][chunk][tap][k16 step][n group][k half][8 n][8 k] from HWIO
+// w (3, 3, cin, cout), 0 past Cin and Cout: each chunk the shared-memory
+// image that the consumers' B descriptors read.
+__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ w,
+                                    __nv_bfloat16* __restrict__ out, int cin, int cout, int bn,
+                                    int kc, int nch, int64_t total) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    int64_t e = i;
+    const int k8 = static_cast<int>(e % 8);
+    e /= 8;
+    const int n8 = static_cast<int>(e % 8);
+    e /= 8;
+    const int kh = static_cast<int>(e % 2);
+    e /= 2;
+    const int ng = static_cast<int>(e % (bn / 8));
+    e /= bn / 8;
+    const int ks = static_cast<int>(e % (kc / 16));
+    e /= kc / 16;
+    const int tap = static_cast<int>(e % 9);
+    e /= 9;
+    const int c = static_cast<int>(e % nch);
+    const int ns = static_cast<int>(e / nch);
+    const int k = c * kc + ks * 16 + kh * 8 + k8, n = ns * bn + ng * 8 + n8;
+    out[i] = k < cin && n < cout ? w[(static_cast<int64_t>(tap) * cin + k) * cout + n]
+                                 : __float2bfloat16_rn(0.0f);
+  }
+}
+
+template <int kBn>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __nv_bfloat16* __restrict__ wpack, Geo g) {
+  constexpr int kTh = rows_for(kBn);
+  constexpr int kMi = kTh / kConsumers;  // output rows (m64 instances) a consumer
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* wres = smem;                  // the slice's weights, chunk c at c * wchunk
+  unsigned char* astage = smem + g.wbytes;     // the ring: stage s at s * abytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(astage + g.stages * g.abytes);
+  uint64_t* empty = full + g.stages;
+  uint64_t* wfull = empty + g.stages;
+  const int ns = blockIdx.x % g.ntn;
+  const int first = blockIdx.x / g.ntn, step = gridDim.x / g.ntn;
+  // the warp index broadcast from lane 0, so that ptxas sees the role branch
+  // below as warp-uniform (else it serializes the consumers' wgmma)
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);  // lane 0 of each consumer warp
+    }
+    mbar_init(wfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier: the producer warp leaves below
+
+  if (warp == 4 * kConsumers) {
+    if (lane != 0) return;
+    mbar_expect_tx(wfull, g.wbytes);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(wpack) + static_cast<int64_t>(ns) * g.wbytes;
+    for (int off = 0; off < g.wbytes; off += kPiece)
+      bulk_load(wres + off, src + off, g.wbytes - off < kPiece ? g.wbytes - off : kPiece, wfull);
+    const int per_img = g.tiles_y * g.tiles_x;
+    int q = 0;
+    for (int t = first; t < g.tiles; t += step) {
+      const int b = t / per_img, r = t - b * per_img;
+      const int y0 = (r / g.tiles_x) * kTh, x0 = (r % g.tiles_x) * kTw;
+      for (int c = 0; c < g.nch; ++c, ++q) {
+        const int s = q % g.stages, use = q / g.stages;
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        unsigned char* a = astage + s * g.abytes;
+        mbar_expect_tx(full + s, g.groups * box_bytes(kTh));
+        for (int gi = 0; gi < g.groups; ++gi)
+          tma_load_4d(a + gi * g.plane, &xmap, (c * g.groups + gi) * 8, x0 - 1, y0 - 1, b,
+                      full + s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  float acc[kMi][kBn / 2];
+  mbar_wait(wfull, 0);
+  const int steps = g.groups / 2;  // k16 steps a chunk
+  const int per_img = g.tiles_y * g.tiles_x;
+  int q = 0;
+  for (int t = first; t < g.tiles; t += step) {
+    for (int c = 0; c < g.nch; ++c, ++q) {
+      const int s = q % g.stages;
+      mbar_wait(full + s, (q / g.stages) & 1);
+      const unsigned char* a = astage + s * g.abytes;
+      const unsigned char* wc = wres + c * g.wchunk;
+      tc::wgmma_fence();
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dh = tap / 3, dw = tap - 3 * (tap / 3);
+#pragma unroll 1
+        for (int ks = 0; ks < steps; ++ks) {
+          const uint64_t db = tc::wgmma_desc(wc + (tap * steps + ks) * (kBn / 8) * 256, 128, 256);
+          const int scale = (c | tap | ks) != 0;  // the tile's first product overwrites
+#pragma unroll
+          for (int mi = 0; mi < kMi; ++mi) {
+            const int row = wg * kMi + mi;
+            const uint64_t da = tc::wgmma_desc(
+                a + ks * 2 * g.plane + ((row + dh) * kHc + dw) * 16, g.plane, 128);
+            tc::WgmmaBf16<kBn>::run(acc[mi], da, db, scale);
+          }
+        }
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // the previous chunk's products are done: free its stage
+      mbar_arrive_if(empty + (q + g.stages - 1) % g.stages, c > 0 && lane == 0);
+    }
+    tc::wgmma_wait<0>();
+    mbar_arrive_if(empty + (q - 1) % g.stages, lane == 0);
+
+    const int b = t / per_img, r = t - b * per_img;
+    const int y0 = (r / g.tiles_x) * kTh, x0 = (r % g.tiles_x) * kTw;
+#pragma unroll
+    for (int mi = 0; mi < kMi; ++mi) {
+      const int yy = y0 + wg * kMi + mi;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int xx = x0 + 16 * wq + (lane >> 2) + 8 * hf;
+        const bool in = yy < g.h && xx < g.w;
+        __nv_bfloat16* yp =
+            g.y + ((static_cast<int64_t>(b) * g.h + yy) * g.w + xx) * g.cout + ns * kBn;
+        if constexpr (kBn % 32 == 0) {
+          // each quad's 4 lanes hold 2 channels of each 8-channel group j; a
+          // transpose over 4 groups gives each lane 8 channels: 16 bytes
+#pragma unroll
+          for (int jb = 0; jb < kBn / 32; ++jb) {
+            uint32_t v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int j = 4 * jb + i;
+              const __nv_bfloat162 pr =
+                  __floats2bfloat162_rn(acc[mi][4 * j + 2 * hf], acc[mi][4 * j + 2 * hf + 1]);
+              v[i] = *reinterpret_cast<const uint32_t*>(&pr);
+            }
+            quad_transpose(v, lane & 3);
+            const int n = 8 * (4 * jb + (lane & 3));
+            store16_if(yp + n, v, in && ns * kBn + n < g.cout);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kBn / 8; ++j) {
+            const int n = 8 * j + 2 * (lane & 3);
+            const __nv_bfloat162 pr =
+                __floats2bfloat162_rn(acc[mi][4 * j + 2 * hf], acc[mi][4 * j + 2 * hf + 1]);
+            store_if(yp + n, *reinterpret_cast<const uint32_t*>(&pr), in && ns * kBn + n < g.cout);
+          }
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// library links no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <int kBn>
+cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo g, int device,
+                   cudaStream_t s) {
+  constexpr int kTh = rows_for(kBn);
+  const int kc = 8 * g.groups;
+  g.nch = (g.cin + kc - 1) / kc;
+  g.ntn = (g.cout + kBn - 1) / kBn;
+  g.tiles_y = (g.h + kTh - 1) / kTh;
+  g.tiles_x = (g.w + kTw - 1) / kTw;
+  const int64_t tiles = static_cast<int64_t>(g.b) * g.tiles_y * g.tiles_x;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  g.tiles = static_cast<int>(tiles);
+  g.plane = plane_bytes(kTh);
+  g.abytes = g.groups * g.plane;
+  g.wchunk = 9 * kc * kBn * 2;
+  g.wbytes = g.nch * g.wchunk;
+  const int bytes = g.wbytes + g.stages * g.abytes + (2 * g.stages + 1) * 8;
+
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g.cin), static_cast<cuuint64_t>(g.w),
+                              static_cast<cuuint64_t>(g.h), static_cast<cuuint64_t>(g.b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(g.cin) * 2;
+  const cuuint64_t strides[3] = {row, row * g.w, row * g.w * g.h};
+  const cuuint32_t box[4] = {8, kHc, kTh + 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+
+  const int64_t total = static_cast<int64_t>(g.ntn) * g.wbytes / 2;
+  const int64_t pblocks = (total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096;
+  pack_weights_kernel<<<static_cast<unsigned>(pblocks), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wpack), g.cin, g.cout,
+      kBn, kc, g.nch, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kernel = conv3x3_tma_kernel<kBn>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // one block per SM, the slices of a tile side by side (blockIdx % ntn)
+  int64_t per_slice = sms / g.ntn;
+  if (per_slice < 1) per_slice = 1;
+  if (per_slice > g.tiles) per_slice = g.tiles;
+  const int64_t blocks = per_slice * g.ntn;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  g.y = static_cast<__nv_bfloat16*>(y);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
+      xmap, static_cast<const __nv_bfloat16*>(wpack), g);
+  return cudaGetLastError();
+}
+
+}  // namespace tma
+
 }  // namespace
 
 // x: (b, h, w, cin), kernel: (3, 3, cin, cout), y: (b, h, w, cout), all
@@ -460,4 +848,44 @@ extern "C" int im2im_conv3x3_nhwc(const void* x, const void* kernel, void* y, in
   if (dtype == 0) return static_cast<int>(dispatch<float>(g, variant, device, s));
   if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(g, variant, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of the packed weights that im2im_conv3x3_nhwc_tma needs as scratch
+// for the plan (bn, groups): every N slice's chunks of groups x 8 channels.
+extern "C" long long im2im_conv3x3_nhwc_tma_scratch(int cin, int cout, int bn, int groups) {
+  const long long kc = 8LL * groups;
+  return ((cout + bn - 1) / bn) * ((cin + kc - 1) / kc) * 9 * kc * bn * 2;
+}
+
+// The bfloat16 path on wgmma with TMA: x (b, h, w, cin), kernel (3, 3,
+// cin, cout), y (b, h, w, cout), all bfloat16, contiguous and 16-byte
+// aligned, Cin % 8 == 0 and Cout % 8 == 0; wpack: the scratch above. The
+// plan (bn in 16, 32, 64, 96, 128; groups of 8 channels a chunk, even;
+// stages) comes from ops/conv_probe.tma_plan. Returns a cudaError_t value.
+extern "C" int im2im_conv3x3_nhwc_tma(const void* x, const void* kernel, void* y, void* wpack,
+                                      int b, int h, int w, int cin, int cout, int bn,
+                                      int groups, int stages, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cin % 8 != 0 || cout % 8 != 0 ||
+      groups < 2 || groups % 2 != 0 || stages < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wpack)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tma::Geo g{};
+  g.b = b;
+  g.h = h;
+  g.w = w;
+  g.cin = cin;
+  g.cout = cout;
+  g.groups = groups;
+  g.stages = stages;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 16: return static_cast<int>(tma::launch<16>(x, kernel, y, wpack, g, device, s));
+    case 32: return static_cast<int>(tma::launch<32>(x, kernel, y, wpack, g, device, s));
+    case 64: return static_cast<int>(tma::launch<64>(x, kernel, y, wpack, g, device, s));
+    case 96: return static_cast<int>(tma::launch<96>(x, kernel, y, wpack, g, device, s));
+    case 128: return static_cast<int>(tma::launch<128>(x, kernel, y, wpack, g, device, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

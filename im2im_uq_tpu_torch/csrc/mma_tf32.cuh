@@ -105,9 +105,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // through a descriptor, D in registers (per warp and 8-column group j the
 // layout of mma.m16n8k8's C: d[4 j + r]).
 
-// Descriptor of a K-major B tile without swizzle at p: lbo bytes between
-// core matrices adjacent in K, sbo bytes between those adjacent in N.
-__device__ __forceinline__ uint64_t wgmma_desc(const float* p, int lbo, int sbo) {
+// Descriptor of a K-major tile without swizzle at p (16-byte aligned): lbo
+// bytes between core matrices adjacent in K, sbo bytes between those
+// adjacent in M or N.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo, int sbo) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);

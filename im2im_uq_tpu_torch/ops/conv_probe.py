@@ -11,9 +11,13 @@ one wrapper each:
 Each takes x (B, H, W, Cin) float32 or bfloat16 and a kernel (3, 3, Cin,
 Cout) of the same dtype and returns (B, H, W, Cout) in x's dtype: the nine
 shifted products accumulated in float32, rounded once to x's dtype. On a
-CUDA tensor each launches its instance of ``csrc/conv3x3_nhwc.cu`` (no
-TF32: float32 runs in 3xTF32 on the tensor cores); on a CPU tensor each runs
-:func:`conv3x3_nobias_plain`; any other device raises. The TPU's tiling
+CUDA tensor each launches ``csrc/conv3x3_nhwc.cu``: in bfloat16, where
+:func:`tma_plan` takes the channels (Cin and Cout multiples of 8) and the
+tensors are 16-byte aligned (:func:`uses_tma`), the one persistent
+``wgmma`` kernel fed by TMA that all four share; otherwise its own instance
+of the ``cp.async`` / ``mma.sync`` GEMM (no TF32: float32 runs in 3xTF32 on
+the tensor cores). On a CPU tensor each runs :func:`conv3x3_nobias_plain`;
+any other device raises. The TPU's tiling
 gates (H % 8, W % 8 or 16, W even) do not carry over: any H, W ≥ 1. P2 and
 P3 take a Cin that fills whole chunks (a multiple of 32 in bfloat16, 16 in
 float32), as the probes' own dispatch gives them Cin % 128 == 0; P4 takes any.
@@ -21,12 +25,16 @@ float32), as the probes' own dispatch gives them Cin % 128 == 0; P4 takes any.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from im2im_uq_tpu_torch import _build
 
 __all__ = [
+    "TmaPlan",
     "VARIANTS",
     "bf16_tolerance",
     "bf16_ulp",
@@ -36,11 +44,88 @@ __all__ = [
     "conv3x3_nobias_plain",
     "conv3x3_single",
     "takes",
+    "tma_plan",
+    "uses_tma",
 ]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's chunk of channels (64 bytes a pixel), which P2 and P3 need whole
 _CHUNK_BYTES = 64
+
+# The bfloat16 path on wgmma with TMA (csrc/conv3x3_nhwc.cu, namespace tma):
+# output tiles of rows x 64 pixels, one block a slice of bn output
+# channels with all of that slice's weights resident in shared memory.
+_TMA_BNS = (128, 96, 64, 32, 16)  # the instantiated N widths
+_TMA_TILE_W = 64
+_SMEM_BLOCK = 232448  # bytes of shared memory a block may use on an H100
+_SMEM_RESERVED = 1024  # the ring's mbarriers, with room to spare
+_TMA_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaPlan:
+    """The TMA path's sizes for one (Cin, Cout): bn output channels a block
+    (``ntn`` slices), ``rows`` output rows a tile, chunks of ``groups`` x 8
+    input channels, a ring of ``stages`` chunks, ``smem`` bytes a block."""
+
+    bn: int
+    rows: int
+    groups: int
+    stages: int
+    ntn: int
+    smem: int
+
+
+def _tma_rows(bn: int) -> int:
+    return 8 if bn <= 64 else 4  # the accumulators: at most 128 floats a thread
+
+
+def _tma_plane(rows: int) -> int:
+    """Bytes of one group's haloed box, (rows + 2) x 66 pixels x 16 bytes,
+    128-byte aligned."""
+    return -(-(rows + 2) * (_TMA_TILE_W + 2) * 16 // 128) * 128
+
+
+def tma_plan(cin: int, cout: int) -> Optional[TmaPlan]:
+    """The TMA path's plan for a bfloat16 conv of Cin → Cout, or None where
+    the path does not take it: TMA's 16-byte strides need Cin % 8 == 0 and
+    Cout % 8 == 0, and one slice's weights (9·Cin'·bn·2 bytes, Cin' padded
+    to whole chunks) and a ring of at least two stages must fit a block.
+
+    For each bn the chunk is the largest of 64, 32, 16 channels (not past
+    Cin rounded up to 16) that leaves room for three stages, else 16
+    channels with two or more; up to four stages. Among the bn that fit,
+    the least padded N (ntn·bn) wins, then the widest bn."""
+    if cin <= 0 or cout <= 0 or cin % 8 or cout % 8:
+        return None
+    best = None
+    for bn in _TMA_BNS:
+        rows = _tma_rows(bn)
+        plane = _tma_plane(rows)
+        fit = None
+        for groups in (8, 4, 2):
+            if 8 * groups > -(-cin // 16) * 16:
+                continue
+            kc = 8 * groups
+            wbytes = 9 * (-(-cin // kc) * kc) * bn * 2
+            room = _SMEM_BLOCK - _SMEM_RESERVED - wbytes
+            stages = min(_TMA_MAX_STAGES, room // (groups * plane)) if room > 0 else 0
+            if stages >= 3 or (groups == 2 and stages >= 2):
+                fit = TmaPlan(bn, rows, groups, stages, -(-cout // bn),
+                              wbytes + stages * groups * plane + (2 * stages + 1) * 8)
+                break
+        if fit is not None and (best is None or fit.ntn * bn < best.ntn * best.bn):
+            best = fit
+    return best
+
+
+def uses_tma(x: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """Whether a CUDA call on these tensors takes the TMA path (bfloat16,
+    a plan for its channels, 16-byte aligned x and kernel); any other runs
+    the cp.async path (``mma.sync`` in bf16, 3xTF32 in f32)."""
+    return (x.dtype == torch.bfloat16 and kernel.dtype == torch.bfloat16
+            and x.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0
+            and tma_plan(x.shape[-1], kernel.shape[-1]) is not None)
 
 
 def conv3x3_nobias_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -106,14 +191,24 @@ def _launch(wrapper, variant: int, x: torch.Tensor, kernel: torch.Tensor) -> tor
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    size = x.element_size()
-    vec_x = (cin * size) % 16 == 0 and x.data_ptr() % 16 == 0
-    vec_w = (cout * size) % 16 == 0 and kernel.data_ptr() % 16 == 0
-    err = _build.library().im2im_conv3x3_nhwc(
-        x.data_ptr(), kernel.data_ptr(), y.data_ptr(), b, h, w, cin, cout, variant,
-        _KERNEL_DTYPES[x.dtype], int(vec_x), int(vec_w), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if uses_tma(x, kernel):
+        plan = tma_plan(cin, cout)
+        wpack = torch.empty(lib.im2im_conv3x3_nhwc_tma_scratch(cin, cout, plan.bn, plan.groups),
+                            dtype=torch.uint8, device=x.device)
+        err = lib.im2im_conv3x3_nhwc_tma(
+            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), wpack.data_ptr(), b, h, w, cin, cout,
+            plan.bn, plan.groups, plan.stages, x.device.index, stream,
+        )
+    else:
+        size = x.element_size()
+        vec_x = (cin * size) % 16 == 0 and x.data_ptr() % 16 == 0
+        vec_w = (cout * size) % 16 == 0 and kernel.data_ptr() % 16 == 0
+        err = lib.im2im_conv3x3_nhwc(
+            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), b, h, w, cin, cout, variant,
+            _KERNEL_DTYPES[x.dtype], int(vec_x), int(vec_w), x.device.index, stream,
+        )
     wrapper.launches += 1
     _build.check(err, name)
     return y
@@ -133,22 +228,25 @@ def _run(wrapper, variant: int, x: torch.Tensor, kernel: torch.Tensor) -> torch.
 
 
 def conv3x3_single(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """P2: one shared-memory stage, copy then compute."""
+    """P2: one shared-memory stage, copy then compute (the TMA kernel where
+    :func:`uses_tma`)."""
     return _run(conv3x3_single, 0, x, kernel)
 
 
 def conv3x3_db(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """P3: a two-stage cp.async ring."""
+    """P3: a two-stage cp.async ring (the TMA kernel where :func:`uses_tma`)."""
     return _run(conv3x3_db, 1, x, kernel)
 
 
 def conv3x3_l1(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """P4: P3 with a channel tail, for any Cin."""
+    """P4: P3 with a channel tail, for any Cin (the TMA kernel where
+    :func:`uses_tma`)."""
     return _run(conv3x3_l1, 2, x, kernel)
 
 
 def conv3x3_c64(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """P5: Cin = 64, the weights resident in shared memory."""
+    """P5: Cin = 64, the weights resident in shared memory (the TMA kernel
+    where :func:`uses_tma`)."""
     if x.ndim == 4 and x.shape[-1] != 64:
         raise ValueError(f"conv3x3_c64 takes Cin = 64, not {x.shape[-1]}")
     return _run(conv3x3_c64, 3, x, kernel)
