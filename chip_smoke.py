@@ -14,8 +14,12 @@ Phases, one JSON line each on stdout:
    k1b        the upsample's backward kernel against its plain version at
               the four decoder cotangent shapes and the odd shapes, both
               dtypes, with both times.
-4. k2         the loss-table kernel against its plain version at
-              (32, 102400) and L=1000, with both times.
+4. k2         the loss-table kernel against its plain version, 0 cells
+              apart and the same bits twice, at (32, 102400) and L=1000 on
+              the calibration grid and on edge grids (unsorted, duplicates,
+              negative, ±0, NaN, ±inf; slopes of both signs, ±0, ±inf, NaN;
+              exact ties), the same at an odd P and at L=20000, with both
+              times.
    k7         the max-pool backward kernel against its plain version and
               against autograd of ``F.max_pool2d``, bit for bit, at the four
               pool inputs of the batch-32 320x320 UNet, odd shapes and tied
@@ -31,9 +35,12 @@ Phases, one JSON line each on stdout:
    probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
               conv), the ports of the Pallas probes of ``benchmarks/``,
               against their plain versions in f32 and bf16 at the probes'
-              default shape, at the shapes their CLIs run and at odd
-              shapes, each run twice, bit for bit; kernel, plain, library
-              and bound times in both dtypes.
+              default shape, at the shapes their CLIs run (which must take
+              the bf16 TMA path) and at odd shapes (ragged tiles, Cin and
+              Cout 8, 24 and 200, several N slices; Cin 3 and 5, Cout 7 on
+              the cp.async path), each run twice, bit for bit; each line
+              names its path; kernel, plain, library and bound times in
+              both dtypes.
    probe_cli  the probes' CLIs (``scripts.bench_moments`` and
               ``scripts.bench_conv3x3`` at Cin 64, 128 and 96), which must
               launch P1-P5.
@@ -213,10 +220,19 @@ MOMENT_ODD_SHAPES = [(3, 37, 901, 1), (3, 37, 901, 3), (3, 37, 901, 96), (1, 5, 
 # Σx²/n − mean² cancel)
 MOMENT_SUM_TOL, MOMENT_MEAN_ATOL, MOMENT_VAR_TOL = 1e-5, 1e-5, 1e-4
 # (wrapper, (B, H, W, Cin, Cout)) of P2-P5's odd cases: Cin 128 for P2/P3,
-# P4 at Cin 3 and 96 with H = 13, batch 1, 13x17 and 13x21 images
+# P4 at Cin 3 and 96 with H = 13, batch 1, 13x17 and 13x21 images (Cin 3,
+# 5 and Cout 7 take the cp.async path in bf16 too); then ragged cases of
+# the bf16 TMA path: H and W past whole tiles (13 and 70 against tiles of
+# 4 or 8 rows x 64 pixels), Cin and Cout 8, 24 and 200 at batch 2, several
+# N slices (Cout 200 and 40), and every N width the plan picks (16, 32, 64,
+# 96, 128)
 CONV_PROBE_ODD = [("conv3x3_single", (1, 13, 17, 128, 128)), ("conv3x3_db", (2, 13, 17, 128, 64)),
                   ("conv3x3_l1", (2, 13, 17, 3, 32)), ("conv3x3_l1", (1, 13, 16, 96, 96)),
-                  ("conv3x3_l1", (1, 5, 9, 5, 7)), ("conv3x3_c64", (1, 13, 21, 64, 40))]
+                  ("conv3x3_l1", (1, 5, 9, 5, 7)), ("conv3x3_c64", (1, 13, 21, 64, 40)),
+                  ("conv3x3_l1", (2, 13, 70, 8, 8)), ("conv3x3_l1", (2, 13, 70, 24, 24)),
+                  ("conv3x3_l1", (2, 13, 70, 200, 200)), ("conv3x3_l1", (2, 11, 130, 8, 200)),
+                  ("conv3x3_single", (2, 11, 70, 128, 200)), ("conv3x3_db", (2, 9, 70, 96, 24)),
+                  ("conv3x3_c64", (2, 13, 70, 64, 8)), ("conv3x3_c64", (2, 13, 70, 64, 128))]
 # the shapes at which the probe CLIs (bench_conv3x3.main, bf16) run each
 # wrapper: the main path's
 CONV_PROBE_CLI = {"conv3x3_single": (32, 320, 320, 128, 128), "conv3x3_db": (32, 320, 320, 128, 128),
@@ -375,34 +391,97 @@ def phase_k1() -> dict:
     return close_bound(result)
 
 
+def _k2_maps(n: int, p: int, gen: torch.Generator, signed: bool) -> tuple:
+    """(pred, label, dl, du) on the card: residuals of both signs, slopes in
+    [0.05, 0.5] with rows of zero slopes; ``signed``: slopes of both signs,
+    ±0, ±inf and NaN, and residuals inside the 1e-6 guard."""
+    pred = torch.rand((n, p), generator=gen, device="cuda")
+    label = pred + 0.3 * torch.randn((n, p), generator=gen, device="cuda")
+    dl = 0.05 + 0.45 * torch.rand((n, p), generator=gen, device="cuda")
+    du = 0.05 + 0.45 * torch.rand((n, p), generator=gen, device="cuda")
+    dl[0, :1000] = 0.0  # zero slopes: missed at every finite λ where the guard passes
+    du[min(1, n - 1), :1000] = 0.0
+    if signed:
+        for slope in (dl, du):
+            pick = torch.randint(0, 10, (n, p), generator=gen, device="cuda")
+            slope[pick < 4] *= -1.0
+            for v, special in enumerate([0.0, -0.0, float("inf"), -float("inf"), float("nan")]):
+                slope[pick == 4 + v] = special
+        label[:, :7] = pred[:, :7] - 5e-7
+    return pred, label, dl, du
+
+
+def _k2_ties(n: int, p: int, lam: torch.Tensor, gen: torch.Generator) -> tuple:
+    """Maps whose residual is exactly λ·s for a finite λ of the grid."""
+    finite = lam[torch.isfinite(lam)]
+    s = 0.5 + torch.randint(0, 8, (n, p), generator=gen, device="cuda").float() / 16
+    r = (finite[torch.randint(0, finite.numel(), (n, p), generator=gen, device="cuda")] * s).abs()
+    side = torch.rand((n, p), generator=gen, device="cuda") < 0.5
+    return torch.where(side, r, -r), torch.zeros_like(r), s, s.clone()
+
+
+def _k2_grids(lam: torch.Tensor, gen: torch.Generator) -> dict:
+    """The calibration grid and the edge grids of the same length."""
+    num = lam.numel()
+    perm = torch.randperm(num, generator=gen, device="cuda")
+    special = lam[perm].clone()
+    special[:12] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0,
+                                 float("nan"), 0.0, -0.0, float("inf"), -1.5, -0.25, 2.0],
+                                device="cuda")
+    return {
+        "grid": lam,
+        "unsorted": lam[perm],
+        "duplicates": lam[torch.randint(0, num // 4, (num,), generator=gen, device="cuda")],
+        "negative": torch.linspace(-6.0, 6.0, num, device="cuda")[perm],
+        "zeros_nan_inf": special,
+    }
+
+
 def phase_k2(lam) -> dict:
-    """K2 vs plain: equal counts except at exact ties (≤ 1e-5 of the cells)."""
-    g = torch.Generator(device="cuda").manual_seed(2)
+    """K2 vs plain: the same table bit for bit (its counts are integers) and
+    the same bits twice, at the main path's (32, 102400) and L = 1000 on the
+    calibration grid and on edge grids (unsorted, duplicates, negative, ±0
+    with NaN and ±inf), with slopes of both signs, ±0, ±inf and NaN and with
+    exact ties λ·s == r; the same at an odd P, and at L = 20000, whose
+    bins do not fit shared memory. Timed on the calibration grid."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
     n, p = 32, IMAGE * IMAGE
-    pred = torch.rand((n, p), generator=g, device="cuda")
-    label = pred + 0.3 * torch.randn((n, p), generator=g, device="cuda")
-    dl = 0.05 + 0.45 * torch.rand((n, p), generator=g, device="cuda")
-    du = 0.05 + 0.45 * torch.rand((n, p), generator=g, device="cuda")
-    dl[0, :1000] = 0.0  # zero slopes: missed at every λ where the guard passes
-    du[1, :1000] = 0.0
-    got = loss_table.loss_table(pred, label, dl, du, lam)
-    want = loss_table.loss_table_plain(pred, label, dl, du, lam)
-    torch.cuda.synchronize()
-    differ = int((got != want).sum().item())
-    max_err = (got - want).abs().max().item()
-    if differ > 1e-5 * got.numel():
-        raise AssertionError(f"K2 disagrees with its plain version in {differ} cells")
-    ms = time_ms(lambda: loss_table.loss_table(pred, label, dl, du, lam), 10)
+    cases = []
+    for shape in [(n, p), (5, 1001)]:
+        grids = _k2_grids(lam, gen)
+        for name, grid in grids.items():
+            cases.append((shape, name, "default", _k2_maps(*shape, gen, False), grid))
+            cases.append((shape, name, "signed", _k2_maps(*shape, gen, True), grid))
+        cases.append((shape, "grid", "ties", _k2_ties(*shape, grids["grid"], gen), grids["grid"]))
+        cases.append((shape, "negative", "ties", _k2_ties(*shape, grids["negative"], gen),
+                      grids["negative"]))
+    wide = torch.linspace(-3.0, 3.0, 20000, device="cuda")
+    wide = wide[torch.randperm(wide.numel(), generator=gen, device="cuda")]
+    cases.append(((3, 1001), "wide_20000", "signed", _k2_maps(3, 1001, gen, True), wide))
+    for (cn, cp), grid_name, maps_name, maps, grid in cases:
+        got = loss_table.loss_table(*maps, grid)
+        again = loss_table.loss_table(*maps, grid)
+        want = loss_table.loss_table_plain(*maps, grid)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum().item())
+        if differ or not torch.equal(got, again):
+            raise AssertionError(f"K2 at {(cn, cp)}, grid {grid_name}, maps {maps_name}: "
+                                 f"{differ} cells differ from the plain version, "
+                                 f"the same bits twice: {torch.equal(got, again)}")
+        emit("k2", shape=[cn, cp], num_lambdas=int(grid.numel()), grid=grid_name,
+             maps=maps_name, cells_differ=differ, cells=got.numel(), bit_identical=True)
+    pred, label, dl, du = cases[0][3]
+    ms = time_ms(lambda: loss_table.loss_table(pred, label, dl, du, lam), 50)
     plain_ms = time_ms(lambda: loss_table.loss_table_plain(pred, label, dl, du, lam), 2)
     num_lam = int(lam.shape[0])
-    # two multiplies and two compares per (pixel, λ); four maps read, the
-    # table written. No single PyTorch call computes the table: library_ms
-    # is null.
-    result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": None}
-    add_bound(result, 4 * n * p * num_lam, 4 * (4 * n * p + num_lam + n * num_lam))
-    emit("k2", shape=[n, p], num_lambdas=num_lam, cells_differ=differ,
-         cells=got.numel(), max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-         bound_ms=result["bound_ms"])
+    # the four maps read once, the table written once; brute_force_ms: the
+    # first design's two multiplies and two compares per (pixel, λ) at the
+    # f32 peak. No single PyTorch call computes the table: library_ms is null.
+    result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "brute_force_ms": bound(4 * n * p * num_lam, 0)[0]}
+    add_bound(result, 0, 4 * (4 * n * p + num_lam + n * num_lam))
+    emit("k2", shape=[n, p], num_lambdas=num_lam, ms=ms, plain_ms=plain_ms,
+         bound_ms=result["bound_ms"], brute_force_ms=result["brute_force_ms"])
     return close_bound(result)
 
 
@@ -722,6 +801,7 @@ def _conv_probe_case(name: str, shape: tuple, dtype: torch.dtype, gen: torch.Gen
         tol = conv_probe.bf16_tolerance(x, k, want)
     worst = (diff / tol).max().item()
     fields = {"kernel": name, "shape": list(shape), "dtype": _dtype_name(dtype),
+              "path": "tma" if conv_probe.uses_tma(x, k) else "cp_async",
               "max_abs_err": diff.max().item(), "err_over_bar": worst, "bit_identical": True}
     if worst > 1.0:
         raise AssertionError(f"{name} disagrees with its plain version: {fields}")
@@ -773,6 +853,8 @@ def phase_probes() -> dict:
                     dtype == torch.bfloat16 and shape == CONV_PROBE_CLI[name])
                 f = _conv_probe_case(name, shape, dtype, gen, timed)
                 if dtype == torch.bfloat16 and shape == CONV_PROBE_CLI[name]:
+                    if f["path"] != "tma":
+                        raise AssertionError(f"{name} at its CLI shape ran {f['path']}, not tma")
                     results[name] = {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                        "library_ms", "bound_ms", "bound_by")}
     return results
