@@ -742,7 +742,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
 // library links no -lcuda)
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
