@@ -224,15 +224,17 @@ MOMENT_SUM_TOL, MOMENT_MEAN_ATOL, MOMENT_VAR_TOL = 1e-5, 1e-5, 1e-4
 # 5 and Cout 7 take the cp.async path in bf16 too); then ragged cases of
 # the bf16 TMA path: H and W past whole tiles (13 and 70 against tiles of
 # 4 or 8 rows x 64 pixels), Cin and Cout 8, 24 and 200 at batch 2, several
-# N slices (Cout 200 and 40), and every N width the plan picks (16, 32, 64,
-# 96, 128)
+# N slices (Cout 200 and 40), every N width the plan picks (16, 32, 64, 96,
+# 128), and images of one row or one column, smaller than a TMA box
 CONV_PROBE_ODD = [("conv3x3_single", (1, 13, 17, 128, 128)), ("conv3x3_db", (2, 13, 17, 128, 64)),
                   ("conv3x3_l1", (2, 13, 17, 3, 32)), ("conv3x3_l1", (1, 13, 16, 96, 96)),
                   ("conv3x3_l1", (1, 5, 9, 5, 7)), ("conv3x3_c64", (1, 13, 21, 64, 40)),
                   ("conv3x3_l1", (2, 13, 70, 8, 8)), ("conv3x3_l1", (2, 13, 70, 24, 24)),
                   ("conv3x3_l1", (2, 13, 70, 200, 200)), ("conv3x3_l1", (2, 11, 130, 8, 200)),
                   ("conv3x3_single", (2, 11, 70, 128, 200)), ("conv3x3_db", (2, 9, 70, 96, 24)),
-                  ("conv3x3_c64", (2, 13, 70, 64, 8)), ("conv3x3_c64", (2, 13, 70, 64, 128))]
+                  ("conv3x3_c64", (2, 13, 70, 64, 8)), ("conv3x3_c64", (2, 13, 70, 64, 128)),
+                  ("conv3x3_l1", (1, 1, 1, 8, 16)), ("conv3x3_single", (1, 1, 300, 128, 8)),
+                  ("conv3x3_l1", (2, 300, 1, 16, 8))]
 # the shapes at which the probe CLIs (bench_conv3x3.main, bf16) run each
 # wrapper: the main path's
 CONV_PROBE_CLI = {"conv3x3_single": (32, 320, 320, 128, 128), "conv3x3_db": (32, 320, 320, 128, 128),
