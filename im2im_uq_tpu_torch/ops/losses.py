@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "absolute",
     "ae_elem",
     "bucketize_targets",
     "gaussian_nll",
@@ -28,6 +29,25 @@ __all__ = [
     "softmax_cross_entropy",
     "softmax_cross_entropy_elem",
 ]
+
+
+class _Absolute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the derivative of ``jnp.abs``: +1 at ±0 (its JVP is
+    ``where(x >= 0, g, −g)``), where ``Tensor.abs`` has 0. The values are
+    those of ``x.abs()``."""
+    return _Absolute.apply(x)
 
 
 def per_example_mean(elem: torch.Tensor) -> torch.Tensor:
@@ -52,7 +72,7 @@ def se_elem(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def ae_elem(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (pred - target).abs()
+    return absolute(pred - target)
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -67,8 +87,11 @@ def gaussian_nll_elem(
     mean: torch.Tensor, target: torch.Tensor, var: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
     """Elementwise heteroscedastic Gaussian NLL, as torch.nn.GaussianNLLLoss
-    (full=False, eps=1e-6): 0.5·(log max(var, eps) + (target − mean)²/max(var, eps))."""
-    var = torch.clamp(var, min=eps)
+    (full=False, eps=1e-6): 0.5·(log max(var, eps) + (target − mean)²/max(var, eps)).
+
+    The max is ``torch.maximum`` against a tensor, whose gradient at a tie
+    var == eps is 0.5, as ``jnp.maximum``'s; ``torch.clamp``'s is 1."""
+    var = torch.maximum(var, var.new_tensor(eps))
     d = target - mean
     return 0.5 * (torch.log(var) + d * d / var)
 
@@ -85,7 +108,7 @@ def interval_score_elem(
     """relu(target − upper)² + relu(lower − target)² + beta·|upper − lower|."""
     over = F.relu(target - upper)
     under = F.relu(lower - target)
-    return over * over + under * under + beta * (upper - lower).abs()
+    return over * over + under * under + beta * absolute(upper - lower)
 
 
 def interval_score(

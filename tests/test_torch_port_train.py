@@ -126,6 +126,50 @@ def test_gaussian_nll_and_interval_score_match_jax():
         float(jlosses.interval_score(j[3], j[4], j[1], 0.1)), rtol=1e-6)
 
 
+def _grads(tfn, jfn, arrays):
+    """The gradients of Σ tfn and Σ jfn with respect to every array."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    tfn(*ts).sum().backward()
+    want = jax.grad(lambda *a: jfn(*a).sum(), argnums=tuple(range(len(arrays))))(
+        *map(jnp.asarray, arrays))
+    return [t.grad.numpy() for t in ts], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("zero", [0.0, -0.0])
+def test_abs_gradient_at_zero_matches_jax(zero):
+    """jnp.abs has the derivative +1 at ±0; the port's |·| too (Tensor.abs
+    has 0 there): pred = target = ±0 in a (1, 2, 2) map gives d ae_elem /
+    d pred = 1 per element, and the interval score with lower = upper =
+    target = ±0 gives d / d upper = beta. The values are those of abs."""
+    z = np.full((1, 2, 2), zero, np.float32)
+    got, want = _grads(tlosses.ae_elem, jlosses.ae_elem, [z, z.copy()])
+    np.testing.assert_array_equal(got[0], np.ones_like(z))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    got, want = _grads(lambda lo, up, t: tlosses.interval_score_elem(lo, up, t, 0.3),
+                       lambda lo, up, t: jlosses.interval_score_elem(lo, up, t, 0.3),
+                       [z, z.copy(), z.copy()])
+    np.testing.assert_array_equal(got[1], np.full_like(z, np.float32(0.3)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    value = tlosses.absolute(torch.from_numpy(z))
+    assert torch.equal(value, torch.from_numpy(z).abs()) and not value.signbit().any()
+
+
+def test_gaussian_nll_gradient_at_the_eps_tie_matches_jax():
+    """var == eps exactly: jnp.maximum sends half the gradient to var (0.5),
+    torch.clamp would send all of it; below eps none, above all."""
+    mean = np.array([[0.1, 0.2, 0.3]], np.float32)
+    target = np.array([[0.15, 0.1, 0.4]], np.float32)
+    var = np.array([[1e-6, 1e-7, 2e-6]], np.float32)
+    got, want = _grads(tlosses.gaussian_nll_elem, jlosses.gaussian_nll_elem, [mean, target, var])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6)
+    full = 0.5 * (1.0 / 1e-6 - (0.15 - 0.1) ** 2 / 1e-12)
+    np.testing.assert_allclose(got[2][0, 0], 0.5 * full, rtol=1e-5)
+    assert got[2][0, 1] == 0.0
+
+
 @pytest.mark.parametrize("num_classes", [2, 7, 50, 1000])
 def test_bucketize_targets_matches_jax(num_classes):
     r = _rng(2)
