@@ -22,12 +22,14 @@ Phases, one JSON line each on stdout:
               times.
    k7         the max-pool backward kernel against its plain version and
               against autograd of ``F.max_pool2d``, bit for bit, at the four
-              pool inputs of the batch-32 320x320 UNet, odd shapes and tied
+              pool inputs of the batch-32 320x320 UNet and of WNet, odd
+              shapes and tied
               windows, both dtypes, with both times.
    k3..k6     the 3x3 conv kernels (K3 conv, K4 fused conv, K5 wgrad, K6
               dgrad) against their plain versions at every conv shape of a
               batch-32 320x320 UNet train step under ``pallas_fused`` and
-              ``pallas``, odd shapes and batch 1; each run twice, bit for
+              ``pallas``, WNet's step under ``pallas_fused`` (untimed),
+              odd shapes and batch 1; each run twice, bit for
               bit; kernel, plain, library and bound times at the main-path
               shapes, summed per step; then one conv_shape line per
               main-path shape with the K3-K6 times side by side (the stem
@@ -72,10 +74,26 @@ Phases, one JSON line each on stdout:
               against the default config.
 13. router    the router again, on the synthetic experiment with
               ``conv_backend: pallas_fused`` (router_fused).
+14. heads     each of the gaussian, residual_magnitude,
+              residual_magnitude_l1 and softmax (50 classes) heads on the
+              main path's UNet at 320x320, batch 32: 5 train steps, the
+              gradcheck of phase 10 (heads_gradcheck), calibration of the
+              trained model on the 128 images, serving of the 64, and K2 on
+              the head's own interval params against its plain version
+              (heads_k2: 0 cells apart, the same bits twice; zero slopes
+              counted); one ``heads`` line per head with its median step
+              ms, calibration seconds, serving images/s and λ̂.
+15. wnet      WNet + quantile head on 2-channel 320x320 inputs, batch 32:
+              5 train steps under ``xla``, then under ``pallas_fused``
+              (K3-K6 launched; the step and the eval forward against the
+              default config's), calibration and serving under both.
+16. router    the router with ``uncertainty_type: softmax``
+              (router_softmax), whose λ grid and default λ differ.
 
 The kernel launch counters are set to 0 just before each path that a user
-runs (the probe CLIs, calibrate + serve, train, router, and each of them
-under the fused config) and read just after it; the ``kernels`` line
+runs (the probe CLIs, calibrate + serve, train, router, each of them
+under the fused config, and each head's, WNet's and the softmax router's)
+and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -189,6 +207,22 @@ DOUBLE_CONVS = [
     (1024, 512, 256, 40, True), (512, 256, 128, 80, True), (256, 128, 64, 160, True),
     (128, 64, 64, 320, True),
 ]
+# WNet's DoubleConvs at 320x320: two encoders of 32/64/128/256/256 channels,
+# then the UNet's decoder
+WNET_DOUBLE_CONVS = [
+    (1, 32, 32, 320, False), (32, 64, 64, 160, False), (64, 128, 128, 80, False),
+    (128, 256, 256, 40, False), (256, 256, 256, 20, False),
+] * 2 + DOUBLE_CONVS[5:]
+# the inputs of WNet's pools (each encoder's four)
+WNET_POOL_SHAPES = [(32, 32, 320, 320), (32, 64, 160, 160), (32, 128, 80, 80), (32, 256, 40, 40)]
+# the heads of the heads phase, beside the main path's quantiles; softmax
+# with the shipped configs' 50 classes
+HEAD_TYPES = ["gaussian", "residual_magnitude", "residual_magnitude_l1", "softmax"]
+NUM_SOFTMAX = 50
+# train steps of the heads and wnet phases, each timed (CUDA events)
+PATH_STEPS = 5
+# the heads whose gradcheck holds the card to the CPU in f64 (phase_gradcheck)
+F64_GRADCHECK_HEADS = ["gaussian"]
 # (B, Cin, H, W, Cout): Cin 1, 3 and 64, 1x1, 5x7 and 13x17, batch 1
 CONV_ODD_SHAPES = [(2, 1, 1, 1, 8), (1, 3, 5, 7, 16), (2, 64, 13, 17, 24), (1, 1, 13, 17, 64),
                    (1, 64, 5, 7, 64), (1, 128, 160, 160, 128)]
@@ -243,8 +277,9 @@ CONV_PROBE_CLI = {"conv3x3_single": (32, 320, 320, 128, 128), "conv3x3_db": (32,
 CONV_PROBE_TOL = 2e-5
 
 
-def conv_sites(conv_backend: str) -> dict:
-    """The 3x3 conv launches of one train step at batch 32, 320x320 →
+def conv_sites(conv_backend: str, double_convs: list = DOUBLE_CONVS) -> dict:
+    """The 3x3 conv launches of one train step at batch 32, 320x320 of the
+    UNet (or the trunk of ``double_convs``) →
     {kernel: [((B, Cin, H, W, Cout), prologue), ...]}, one entry per launch.
 
     Under ``pallas`` every conv is K3. Under ``pallas_fused`` conv0 is K4
@@ -255,7 +290,7 @@ def conv_sites(conv_backend: str) -> dict:
     b = CONFIG["batch_size"]
     sites: dict = {k: [] for k in CONV_KERNELS}
     fused = conv_backend == "pallas_fused"
-    for cin, mid, cout, side, up in DOUBLE_CONVS:
+    for cin, mid, cout, side, up in double_convs:
         def site(ci, co, prologue=False):
             return (b, ci, side, side, co), prologue
         if up:
@@ -268,14 +303,16 @@ def conv_sites(conv_backend: str) -> dict:
             sites["conv3x3"].append(site(mid, cout))
     if fused:
         sites["wgrad3x3"] = list(sites["conv3x3_bn_act"])
-        sites["dgrad3x3"] = sites["conv3x3_bn_act"][1:]
+        # the stems' inputs need no gradient: WNet has one per encoder
+        sites["dgrad3x3"] = [c for c in sites["conv3x3_bn_act"] if c[0][1] != 1]
     return sites
 
 
-def synthetic(num_examples: int, image_size: int, seed: int):
+def synthetic(num_examples: int, image_size: int, seed: int, num_inputs: int = 1):
     """The router's synthetic dataset, every item made before it is timed."""
     ds = router.build_dataset({"dataset": "synthetic", "num_examples": num_examples,
-                               "image_size": image_size, "seed": seed})
+                               "image_size": image_size, "seed": seed,
+                               "num_inputs": num_inputs})
     for i in range(len(ds)):
         ds[i]
     return ds
@@ -547,7 +584,7 @@ def phase_k7() -> dict:
     bit-identical (it moves values and does no arithmetic)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    cases = [(s, "randn") for s in POOL_SHAPES + POOL_ODD_SHAPES]
+    cases = [(s, "randn") for s in POOL_SHAPES + WNET_POOL_SHAPES + POOL_ODD_SHAPES]
     cases += [((2, 8, 6, 10), "constant"), ((2, 8, 6, 10), "zero_one")]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, kind in cases:
@@ -669,7 +706,8 @@ def phase_conv_kernels() -> dict:
     """K3-K6 against their plain versions on the card, with TF32 off.
 
     Every conv launch of the batch-32 320x320 train step under
-    ``pallas_fused`` and ``pallas`` (``conv_sites``) and the odd shapes,
+    ``pallas_fused`` and ``pallas`` (``conv_sites``), those of WNet's step
+    under ``pallas_fused`` (untimed) and the odd shapes,
     prologue on and off where the kernel has one; each kernel run twice
     must give the same bits (no atomics); K4 without the stats (its eval
     form) must give the same y as with them. At the main-path shapes the
@@ -686,8 +724,10 @@ def phase_conv_kernels() -> dict:
         counts = {backend: collections.Counter(sites[kernel])
                   for backend, sites in steps.items() if sites[kernel]}
         main = list(dict.fromkeys(case for c in counts.values() for case in c))
+        wnet = [c for c in dict.fromkeys(conv_sites("pallas_fused", WNET_DOUBLE_CONVS)[kernel])
+                if c not in main]
         prologues = [False] if kernel == "conv3x3" else [True, False]
-        cases = main + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
+        cases = main + wnet + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
         sums = {backend: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
                 for backend in counts}
         for (shape, prologue) in cases:
@@ -1025,7 +1065,8 @@ def _differ(a: tuple, b: tuple) -> list:
     return [n for part in (1, 2) for n in a[part] if not torch.equal(a[part][n], b[part][n])]
 
 
-def phase_gradcheck(init: dict, cfg: dict) -> None:
+def phase_gradcheck(init: dict, cfg: dict, phase: str = "gradcheck",
+                    card_in_f64: bool = False) -> None:
     """One train step of the same weights (batch 2, 64x64): on the card
     with the kernels, on the card with their plain versions, on the CPU
     (plain versions) in f32 and on the CPU in f64.
@@ -1044,6 +1085,14 @@ def phase_gradcheck(init: dict, cfg: dict) -> None:
       2.7e-3 to 3.1e-3 from the f64 one. A wrong or missing gradient path
       is off by order 1. The running statistics come from the forward
       alone (about 1e-6).
+    - With ``card_in_f64`` the card's step in the second check runs in f64,
+      with the plain versions (the kernels take f32; the first check holds
+      them to the plain versions), against the CPU's f64 step, with the
+      same bars; the f32 steps' distances are reported. For the gaussian
+      head no f32 step meets GRAD_RTOL: its NLL divides by ReLU'd variances
+      just above eps at many pixels at random init, where an f32 conv's
+      rounding is a large share of the variance (the CPU's f32 step lands
+      up to 6.2e-2 per tensor from the f64 one, the card's 1.8e-2).
     """
     ds = synthetic(2, 64, seed=6)
     batch = (np.stack([ds[i][0] for i in range(2)]), np.stack([ds[i][1] for i in range(2)]),
@@ -1056,23 +1105,35 @@ def phase_gradcheck(init: dict, cfg: dict) -> None:
     cpu = _train_step_once(init, cfg, "cpu", torch.float32, batch)
     f64 = _train_step_once(init, cfg, "cpu", torch.float64, batch)
     differ = _differ(kernels, plain) + ([] if kernels[0] == plain[0] else ["loss"])
-    grad_err, stat_err = _rel_errors(gpu[1], cpu[1]), _rel_errors(gpu[2], cpu[2])
-    gpu_f64, cpu_f64 = _rel_errors(gpu[1], f64[1]), _rel_errors(cpu[1], f64[1])
+    held, ref = gpu, cpu
+    if card_in_f64:
+        with plain_versions():
+            held = _train_step_once(init, cfg, DEVICE, torch.float64, batch)
+        ref = f64
+    grad_err, stat_err = _rel_errors(held[1], ref[1]), _rel_errors(held[2], ref[2])
+    gpu_f64, cpu_f64 = _rel_errors(held[1], f64[1]), _rel_errors(cpu[1], f64[1])
     worst_g = max(grad_err, key=grad_err.get)
     worst_s = max(stat_err, key=stat_err.get)
     worst_f64 = max(gpu_f64, key=gpu_f64.get)
-    emit("gradcheck", batch=2, image=64, loss_gpu=gpu[0], loss_cpu=cpu[0], loss_f64=f64[0],
-         kernels_vs_plain_differ=differ, grad_rtol=GRAD_RTOL, max_grad_err=grad_err[worst_g],
-         worst_grad=worst_g, stat_rtol=STAT_RTOL, max_stat_err=stat_err[worst_s],
-         worst_stat=worst_s, max_grad_err_gpu_vs_f64=gpu_f64[worst_f64],
-         worst_grad_gpu_vs_f64=worst_f64, max_grad_err_cpu_vs_f64=max(cpu_f64.values()),
-         grad_err=grad_err, grad_err_gpu_vs_f64=gpu_f64, grad_err_cpu_vs_f64=cpu_f64)
+    f32 = {}
+    if card_in_f64:
+        f32 = {"f32_max_grad_err": max(_rel_errors(gpu[1], cpu[1]).values()),
+               "f32_max_grad_err_gpu_vs_f64": max(_rel_errors(gpu[1], f64[1]).values())}
+    emit(phase, uncertainty_type=cfg["uncertainty_type"], card_dtype="float64" if card_in_f64
+         else "float32", batch=2, image=64, loss_gpu=held[0], loss_cpu=ref[0],
+         loss_f64=f64[0], kernels_vs_plain_differ=differ, grad_rtol=GRAD_RTOL,
+         max_grad_err=grad_err[worst_g], worst_grad=worst_g, stat_rtol=STAT_RTOL,
+         max_stat_err=stat_err[worst_s], worst_stat=worst_s,
+         max_grad_err_gpu_vs_f64=gpu_f64[worst_f64], worst_grad_gpu_vs_f64=worst_f64,
+         max_grad_err_cpu_vs_f64=max(cpu_f64.values()), **f32, grad_err=grad_err,
+         grad_err_gpu_vs_f64=gpu_f64, grad_err_cpu_vs_f64=cpu_f64)
     if differ:
-        raise AssertionError(f"the kernels' train step differs from the plain versions' in {differ}")
+        raise AssertionError(f"{phase}: the kernels' train step differs from the plain "
+                             f"versions' in {differ}")
     if max(grad_err[worst_g], gpu_f64[worst_f64]) > GRAD_RTOL or stat_err[worst_s] > STAT_RTOL:
         raise AssertionError(
-            f"the card's train step is off: {worst_g} {grad_err[worst_g]} against the CPU, "
-            f"{worst_f64} {gpu_f64[worst_f64]} against f64, {worst_s} {stat_err[worst_s]}"
+            f"{phase}: the card's train step is off: {worst_g} {grad_err[worst_g]} against the "
+            f"CPU, {worst_f64} {gpu_f64[worst_f64]} against f64, {worst_s} {stat_err[worst_s]}"
         )
 
 
@@ -1127,10 +1188,11 @@ def phase_router(phase: str = "router", overrides: dict | None = None,
 
 
 def calibrate_and_serve(tag: str, state: UQState, config: dict, calib, serve,
-                        kernels: list) -> tuple[UQState, np.ndarray, dict]:
+                        kernels: list) -> tuple[UQState, np.ndarray, dict, dict]:
     """``calibrate_model`` on ``calib``, then ``infer.main`` on ``serve``
     from the saved checkpoint and a config file of ``config`` → (the
-    calibrated state, the served inputs, the launches). Phases
+    calibrated state, the served inputs, the launches, the calibration
+    seconds and serving images/s). Phases
     ``{tag}calibrate`` and ``{tag}serve``; ``kernels`` must be launched on
     each of the two paths."""
     reset_counts()
@@ -1176,7 +1238,7 @@ def calibrate_and_serve(tag: str, state: UQState, config: dict, calib, serve,
         raise AssertionError(f"unexpected npz keys {sorted(out)}")
     lo, pred, hi = out["lower"], out["prediction"], out["upper"]
     for a in (lo, pred, hi):
-        if a.shape != xs.shape or not np.isfinite(a).all():
+        if a.shape != ys.shape or not np.isfinite(a).all():
             raise AssertionError(f"bad interval map: shape {a.shape}")
     if not ((lo <= pred).all() and (pred <= hi).all()):
         raise AssertionError("intervals not ordered lower <= prediction <= upper")
@@ -1187,7 +1249,8 @@ def calibrate_and_serve(tag: str, state: UQState, config: dict, calib, serve,
          imgs_per_sec=summary["imgs_per_sec"], seconds=summary["seconds"], lam=summary["lam"],
          miscoverage=float(((ys < lo) | (ys > hi)).mean()), launches=serve_counts)
     launches = {k: calib_counts[k] + serve_counts[k] for k in KERNELS}
-    return state, xs, launches
+    return state, xs, launches, {"calibration_s": calib_s,
+                                 "serve_imgs_per_sec": summary["imgs_per_sec"]}
 
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1297,10 +1360,161 @@ def phase_fused(config: dict, calib, serve) -> dict:
         build_trunk(cfg), cfg,
         generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
     )
-    _, _, launches = calibrate_and_serve("fused_", state, cfg, calib, serve,
+    _, _, launches, _ = calibrate_and_serve("fused_", state, cfg, calib, serve,
                                          ["conv3x3", "conv3x3_bn_act"])
     for name in KERNELS:
         launches[name] += train_counts[name] + pallas_counts[name]
+    return launches
+
+
+def timed_steps(step, tensors, n: int) -> tuple[list, list]:
+    """``n`` train steps on one batch, each timed with CUDA events →
+    (losses, step ms)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    events[0].record()
+    for e in events[1:]:
+        losses.append(step(*tensors))
+        e.record()
+    events[-1].synchronize()
+    return [float(v) for v in losses], [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def path_batch(cfg: dict, seed: int = 2) -> tuple:
+    """One batch of the config's batch size at 320x320, with its inputs."""
+    bs = cfg["batch_size"]
+    ds = synthetic(bs, IMAGE, seed=seed, num_inputs=cfg.get("num_inputs", 1))
+    return (np.stack([ds[i][0] for i in range(bs)]), np.stack([ds[i][1] for i in range(bs)]),
+            np.ones((bs,), np.float32))
+
+
+def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list) -> tuple:
+    """PATH_STEPS steps of ``make_train_step`` on ``batch``, counted →
+    (launches, losses, step ms); every loss finite and every first gradient
+    finite and nonzero, ``kernels`` launched."""
+    opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt)
+    tensors = train.put_batch(*batch, torch.device(DEVICE))
+    reset_counts()
+    losses = [float(step(*tensors))]
+    bad = [n for n, p in state.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+    if bad:
+        raise AssertionError(f"{phase}: after step 1, gradients missing, not finite or zero: {bad}")
+    more, step_ms = timed_steps(step, tensors, PATH_STEPS - 1)
+    counts = read_counts()
+    losses += more
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: train losses not finite: {losses}")
+    require_launches(phase, counts, kernels)
+    return counts, losses, step_ms
+
+
+def k2_on_own_params(phase: str, state: UQState, config: dict, calib) -> None:
+    """K2 on the interval params of ``state`` over one calibration batch,
+    at the config's calibration grid: 0 cells apart from the plain version
+    and the same bits twice. Not counted."""
+    bs = config["batch_size"]
+    x = nchw_from_nhwc(np.stack([calib[i][0] for i in range(bs)]), DEVICE)
+    y = nchw_from_nhwc(np.stack([calib[i][1] for i in range(bs)]), DEVICE)
+    params = state.interval_params(state.forward(x))
+    grid = lambda_grid(config)
+    lam = torch.from_numpy((grid - (grid[1] - grid[0])).astype(np.float32)).to(DEVICE)
+    maps = [t.reshape(bs, -1).float().contiguous() for t in (params.pred, y, params.dl, params.du)]
+    got = loss_table.loss_table(*maps, lam)
+    again = loss_table.loss_table(*maps, lam)
+    want = loss_table.loss_table_plain(*maps, lam)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum().item())
+    zero = {k: int((m == 0).sum().item()) for k, m in (("dl", maps[2]), ("du", maps[3]))}
+    emit(phase, uncertainty_type=config["uncertainty_type"], model=config.get("model", "UNet"),
+         conv_backend=config.get("conv_backend", "auto"), shape=list(maps[0].shape),
+         num_lambdas=int(lam.numel()), cells_differ=differ, cells=got.numel(),
+         bit_identical=torch.equal(got, again), zero_slopes=zero, pixels=maps[0].numel())
+    if differ or not torch.equal(got, again):
+        raise AssertionError(f"{phase}: K2 on the {config['uncertainty_type']} head's interval "
+                             f"params: {differ} cells differ from the plain version, the same "
+                             f"bits twice: {torch.equal(got, again)}")
+
+
+def phase_heads(config: dict, calib, serve) -> dict:
+    """The main path for each head of HEAD_TYPES at the main path's config
+    (UNet, 320x320, batch 32, cuDNN): PATH_STEPS train steps from seed-5
+    weights, the gradcheck of phase 10 for that head (the card in f64 for
+    F64_GRADCHECK_HEADS), then
+    calibration of the trained model on ``calib`` and serving of ``serve``
+    (phases heads_{type}_calibrate and heads_{type}_serve), and K2 on the
+    head's own interval params. → launches of the train, calibrate and
+    serve paths."""
+    launches = {k: 0 for k in KERNELS}
+    batch = path_batch(config)
+    for utype in HEAD_TYPES:
+        cfg = dict(config, uncertainty_type=utype, num_softmax=NUM_SOFTMAX)
+        state = add_uncertainty(
+            build_trunk(cfg), cfg,
+            generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
+        )
+        init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        train_counts, losses, step_ms = train_steps(
+            f"heads_{utype}_train", state, cfg, batch,
+            ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"])
+        phase_gradcheck(init, cfg, "heads_gradcheck", utype in F64_GRADCHECK_HEADS)
+        state, _, counts, times = calibrate_and_serve(f"heads_{utype}_", state, cfg, calib,
+                                                      serve, [])
+        k2_on_own_params("heads_k2", state, cfg, calib)
+        median_ms = float(np.median(step_ms))
+        emit("heads", uncertainty_type=utype, batch=cfg["batch_size"], image=IMAGE,
+             steps=PATH_STEPS, median_step_ms=median_ms, imgs_per_sec=1e3 * cfg["batch_size"]
+             / median_ms, step_ms=step_ms, step_losses=losses, lhat=state.lhat, **times,
+             launches={k: train_counts[k] + counts[k] for k in KERNELS})
+        for name in KERNELS:
+            launches[name] += train_counts[name] + counts[name]
+        del state, init
+    return launches
+
+
+def phase_wnet(config: dict) -> dict:
+    """WNet + quantile head on 2-channel 320x320 inputs, batch 32: under
+    ``xla`` and then ``pallas_fused`` from the same seed-5 weights,
+    PATH_STEPS train steps (K3-K6 required under ``pallas_fused``), the
+    fused step and eval forward against the default config's
+    (``_against_default``), then calibration on 128 and serving of 64
+    2-channel images under each. → launches."""
+    cfg = dict(config, model="WNet", num_inputs=2)
+    calib = synthetic(CALIB_N, IMAGE, seed=0, num_inputs=2)
+    serve = synthetic(SERVE_N, IMAGE, seed=1, num_inputs=2)
+    batch = path_batch(cfg)
+    launches = {k: 0 for k in KERNELS}
+    init = None
+    for backend in ("xla", "pallas_fused"):
+        c = dict(cfg, conv_backend=backend)
+        fused = backend == "pallas_fused"
+        state = add_uncertainty(
+            build_trunk(c), c, generator=torch.Generator(device=DEVICE).manual_seed(5),
+            device=DEVICE,
+        )
+        if init is None:
+            init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        train_counts, losses, step_ms = train_steps(
+            f"wnet_{backend}_train", state, c, batch,
+            ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + (CONV_KERNELS if fused else []))
+        median_ms = float(np.median(step_ms))
+        emit("wnet_train", conv_backend=backend, batch=c["batch_size"], image=IMAGE,
+             steps=PATH_STEPS, median_step_ms=median_ms, imgs_per_sec=1e3 * c["batch_size"]
+             / median_ms, step_ms=step_ms, step_losses=losses, launches=train_counts)
+        if fused:
+            trained = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+            xla = dict(cfg, conv_backend="xla")
+            default_step = _train_step_once(init, xla, DEVICE, torch.float32, batch)
+            _against_default("wnet_fused_vs_default", c, xla, init, batch, default_step,
+                             trained, nchw_from_nhwc(batch[0], DEVICE))
+            del default_step, trained
+        state, _, counts, _ = calibrate_and_serve(
+            f"wnet_{backend}_", state, c, calib, serve,
+            ["conv3x3", "conv3x3_bn_act"] if fused else [])
+        for name in KERNELS:
+            launches[name] += train_counts[name] + counts[name]
+        del state
     return launches
 
 
@@ -1332,7 +1546,7 @@ def main() -> int:
         build_trunk(config), config,
         generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
     )
-    state, xs, calib_serve_counts = calibrate_and_serve("", state, config, calib, serve, [])
+    state, xs, calib_serve_counts, _ = calibrate_and_serve("", state, config, calib, serve, [])
 
     # 7. crosscheck: CPU (plain versions) vs the card, fp32, TF32 off
     x2 = nchw_from_nhwc(xs[:2], "cpu")
@@ -1359,8 +1573,12 @@ def main() -> int:
     router_fused_counts = phase_router(
         "router_fused", {"conv_backend": "pallas_fused"},
         DEFAULT_PATH_KERNELS + ["conv3x3_bn_act", "conv3x3", "wgrad3x3", "dgrad3x3"])
+    # 14-16. the other heads, WNet, and the router with the softmax head
+    heads_counts = phase_heads(config, calib, serve)
+    wnet_counts = phase_wnet(config)
+    router_softmax_counts = phase_router("router_softmax", {"uncertainty_type": "softmax"})
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
-                   router_fused_counts):
+                   router_fused_counts, heads_counts, wnet_counts, router_softmax_counts):
         for name, n in counts.items():
             launches[name] += n
 

@@ -2,7 +2,7 @@
 
 :func:`state_dict_from_jax` is the port's copy of the layout mapping of
 ``im2im_uq_tpu/interop/torch_export.py`` (``export_state_dict``) for the
-trunks and heads the port has: it turns the JAX package's
+trunks the port has (UNet, WNet) and every head: it turns the JAX package's
 ``{params, batch_stats}`` (as numpy) into a state dict in the reference's
 layout (``baseModel.*`` / ``last_layer.*``, OIHW conv weights, BatchNorm
 running stats). The port's module names are exactly those keys, so the load
@@ -46,13 +46,8 @@ def _double_conv(out: dict, prefix: str, params: dict, stats: dict) -> None:
         _bn(out, f"{prefix}{b}.", params[f"bn{i}"], stats[f"bn{i}"])
 
 
-def _unet(out: dict, params: dict, stats: dict, prefix: str = "baseModel.") -> None:
-    _double_conv(out, f"{prefix}inc.double_conv.", params["inc"], stats["inc"])
-    for i in (1, 2, 3, 4):
-        _double_conv(
-            out, f"{prefix}down{i}.maxpool_conv.1.double_conv.",
-            params[f"down{i}"]["conv"], stats[f"down{i}"]["conv"],
-        )
+def _decoder(out: dict, params: dict, stats: dict, prefix: str) -> None:
+    """The four ``Up`` blocks and the 1x1 out-conv, which UNet and WNet share."""
     for i in (1, 2, 3, 4):
         _double_conv(
             out, f"{prefix}up{i}.conv.double_conv.",
@@ -61,23 +56,49 @@ def _unet(out: dict, params: dict, stats: dict, prefix: str = "baseModel.") -> N
     _conv(out, f"{prefix}out.conv.", params["out"])
 
 
-def _head(out: dict, head: dict, prefix: str = "last_layer.") -> None:
-    # the port's heads name their convs as the JAX heads do (lower,
-    # prediction, upper, ...); the softmax head's layout comes with its port
-    for name, tree in head.items():
+def _unet(out: dict, params: dict, stats: dict, prefix: str = "baseModel.") -> None:
+    _double_conv(out, f"{prefix}inc.double_conv.", params["inc"], stats["inc"])
+    for i in (1, 2, 3, 4):
+        _double_conv(
+            out, f"{prefix}down{i}.maxpool_conv.1.double_conv.",
+            params[f"down{i}"]["conv"], stats[f"down{i}"]["conv"],
+        )
+    _decoder(out, params, stats, prefix)
+
+
+def _wnet(out: dict, params: dict, stats: dict, prefix: str = "baseModel.") -> None:
+    for tag in ("p1", "p2"):
+        _double_conv(
+            out, f"{prefix}{tag}inc.double_conv.",
+            params[f"{tag}inc"], stats[f"{tag}inc"],
+        )
+        for i in (1, 2, 3, 4):
+            _double_conv(
+                out, f"{prefix}{tag}down{i}.maxpool_conv.1.double_conv.",
+                params[f"{tag}down{i}"]["conv"], stats[f"{tag}down{i}"]["conv"],
+            )
+    _decoder(out, params, stats, prefix)
+
+
+def _head(out: dict, head: dict, uncertainty_type: str, prefix: str = "last_layer.") -> None:
+    if uncertainty_type == "softmax":
+        for name, tree in head.items():  # out{c} → output_layers.{c}
+            c = int(name.removeprefix("out"))
+            _conv(out, f"{prefix}output_layers.{c}.", tree)
+        return
+    for name, tree in head.items():  # lower/prediction/upper, mean/variance, ...
         _conv(out, f"{prefix}{name}.", tree)
 
 
 def state_dict_from_jax(variables_np: dict, model: str, uncertainty_type: str) -> dict:
     """JAX ``{params, batch_stats}`` (numpy) → the port's state dict."""
-    if model != "UNet":
+    trunks = {"UNet": _unet, "WNet": _wnet}
+    if model not in trunks:
         raise NotImplementedError(f"trunk {model!r} is not yet ported")
-    if uncertainty_type == "softmax":
-        raise NotImplementedError("the softmax head is not yet ported")
     params, stats = variables_np["params"], variables_np.get("batch_stats", {})
     out: dict = {}
-    _unet(out, params["trunk"], stats["trunk"])
-    _head(out, params["head"])
+    trunks[model](out, params["trunk"], stats["trunk"])
+    _head(out, params["head"], uncertainty_type)
     return out
 
 

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from im2im_uq_tpu_torch.models.heads import build_head
-from im2im_uq_tpu_torch.models.unet import UNet
+from im2im_uq_tpu_torch.models.unet import UNet, WNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
 
 __all__ = [
@@ -121,8 +121,9 @@ def resolve_remat(params: dict):
 
 
 def build_trunk(params: dict) -> nn.Module:
-    """Trunk factory for the config's ``model``; its parameters are left on
-    the meta device until :func:`add_uncertainty` places and fills them.
+    """Trunk factory for the config's ``model``, "UNet" or "WNet" (ResNet18
+    is not yet ported); its parameters are left on the meta device until
+    :func:`add_uncertainty` places and fills them.
 
     ``conv_backend`` takes the JAX package's values, "auto" (= "xla"),
     "xla", "pallas" and "pallas_fused" (``models/unet.py`` says what each
@@ -145,8 +146,10 @@ def build_trunk(params: dict) -> nn.Module:
         raise NotImplementedError(
             f"compute_dtype {params['compute_dtype']!r} is not yet ported"
         )
-    if name != "UNet":
+    if name == "ResNet18":
         raise NotImplementedError(f"trunk {name!r} is not yet ported")
+    if name not in ("UNet", "WNet"):
+        raise NotImplementedError(f"unknown trunk {name!r}")
     conv_backend = params.get("conv_backend", "auto")
     if conv_backend == "auto":  # as the JAX package resolves it (assembly.py:157-168)
         conv_backend = "xla"
@@ -164,6 +167,8 @@ def build_trunk(params: dict) -> nn.Module:
     if params.get("pool_backend", "xla") not in ("xla", "pallas"):
         raise ValueError(f"unknown pool_backend {params['pool_backend']!r}")
     with torch.device("meta"):
+        if name == "WNet":  # it reads channels 0 and 1 of its input
+            return WNet(n_channels_out=1, conv_backend=conv_backend)
         return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
                     conv_backend=conv_backend)
 
@@ -199,7 +204,7 @@ def add_uncertainty(
     """
     with torch.device("meta"):
         head = build_head(
-            params["uncertainty_type"], trunk.n_channels_middle, trunk.n_channels_out
+            params["uncertainty_type"], trunk.n_channels_middle, trunk.n_channels_out, params
         )
     model = UQModel(trunk, head)
     if generator is not None:

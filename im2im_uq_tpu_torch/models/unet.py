@@ -1,9 +1,10 @@
-"""UNet trunk with a bilinear decoder, NCHW.
+"""UNet and WNet trunks with a bilinear decoder, NCHW.
 
 Counterpart of ``im2im_uq_tpu/models/unet.py`` (``DoubleConv``, ``Down``,
-``Up``, ``UNet``), and of the reference trunk it rebuilds. The submodule
-names are the reference's (``inc.double_conv.0``, ``down1.maxpool_conv.1``,
-``up1.conv``, ``out.conv``), which are exactly the keys of
+``Up``, ``UpNoSkip``, ``UNet``, ``WNet``), and of the reference trunks it
+rebuilds. The submodule names are the reference's (``inc.double_conv.0``,
+``down1.maxpool_conv.1``, ``up1.conv``, ``out.conv``; WNet's encoders
+``p1inc``, ``p2down1``, ...), which are exactly the keys of
 ``interop/from_jax.state_dict_from_jax``, so a JAX model's weights load with
 ``load_state_dict(strict=True)`` under every ``conv_backend``.
 
@@ -38,9 +39,12 @@ from torch import nn
 
 from im2im_uq_tpu_torch.ops.conv import conv3x3, conv3x3_bn_act
 from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
-from im2im_uq_tpu_torch.ops.resize import upsample2x_align_corners
+from im2im_uq_tpu_torch.ops.resize import resize_bilinear_align_corners, upsample2x_align_corners
 
-__all__ = ["CONV_BACKENDS", "DoubleConv", "Down", "OutConv", "UNet", "Up", "fold_batchnorm"]
+__all__ = [
+    "CONV_BACKENDS", "DoubleConv", "Down", "OutConv", "UNet", "Up", "UpNoSkip", "WNet",
+    "fold_batchnorm",
+]
 
 CONV_BACKENDS = ("xla", "pallas", "pallas_fused")
 
@@ -195,6 +199,23 @@ class Up(nn.Module):
         return self.conv((x2, x1))
 
 
+class UpNoSkip(nn.Module):
+    """Bilinear upsample by any integer factor, then DoubleConv, without a
+    skip connection (``unet.py:746``, the reference's unused Up_custom).
+    The resize is K1 where the factor is 2, the per-axis lerps elsewhere
+    (``ops/resize.resize_bilinear_align_corners``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = scale_factor
+        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        s = self.scale_factor
+        return self.conv(resize_bilinear_align_corners(x, (h * s, w * s)))
+
+
 class OutConv(nn.Module):
     """1×1 projection to the trunk's feature channels."""
 
@@ -237,4 +258,45 @@ class UNet(nn.Module):
         x = self.up2(x, x3)
         x = self.up3(x, x2)
         x = self.up4(x, x1)
+        return self.out(x)
+
+
+class WNet(nn.Module):
+    """Dual-encoder UNet for two-channel inputs (``unet.py:882``, reference
+    wnet.py:9-59): input channels 0 and 1 each get their own encoder
+    (DoubleConv 32, then Down 64/128/256/256, as ``p1*`` and ``p2*``); the
+    decoder (Up 256/128/64/64) reads the two encoders' outputs concatenated
+    per level, then a 1×1 out-conv to ``n_channels_middle`` (32) features.
+    Input (B, ≥2, H, W); channels past the second are not read."""
+
+    def __init__(self, n_channels_out: int = 1, n_channels_middle: int = 32,
+                 conv_backend: str = "xla"):
+        super().__init__()
+        self.n_channels_out = n_channels_out
+        self.n_channels_middle = n_channels_middle
+        cb = conv_backend
+        for tag in ("p1", "p2"):
+            setattr(self, f"{tag}inc", DoubleConv(1, 32, conv_backend=cb))
+            for i, (cin, cout) in enumerate(((32, 64), (64, 128), (128, 256), (256, 256)), 1):
+                setattr(self, f"{tag}down{i}", Down(cin, cout, cb))
+        self.up1 = Up(1024, 256, cb)
+        self.up2 = Up(512, 128, cb)
+        self.up3 = Up(256, 64, cb)
+        self.up4 = Up(128, 64, cb)
+        self.out = OutConv(64, n_channels_middle)
+
+    def _encode(self, p: torch.Tensor, tag: str) -> list[torch.Tensor]:
+        feats = [getattr(self, f"{tag}inc")(p)]
+        for i in range(1, 5):
+            feats.append(getattr(self, f"{tag}down{i}")(feats[-1]))
+        return feats
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self._encode(x[:, 0:1], "p1")
+        b = self._encode(x[:, 1:2], "p2")
+        cat = [torch.cat(pair, dim=1) for pair in zip(a, b)]
+        x = self.up1(cat[4], cat[3])
+        x = self.up2(x, cat[2])
+        x = self.up3(x, cat[1])
+        x = self.up4(x, cat[0])
         return self.out(x)

@@ -67,6 +67,25 @@ def _residual_interval_params(output: torch.Tensor) -> IntervalParams:
     return IntervalParams(pred, r, r)
 
 
+@torch.no_grad()
+def _softmax_interval_params(output: torch.Tensor) -> IntervalParams:
+    """Per-pixel classifier over S bins of [0, 1], logits (B, S, ...):
+    pred = the first argmax bin / S; the raw edges count the bins whose
+    cumulative softmax is ≤ 0.05 and ≤ 0.95, over S; an edge equal to pred
+    moves out by one bin; the edges are clipped to [0, 1] and the slopes
+    are the relu'd distances. No gradient, as the JAX package's
+    stop_gradient and the reference's no_grad."""
+    inv_s = 1.0 / output.shape[1]
+    probs = torch.softmax(output, dim=1)
+    cdf = torch.cumsum(probs, dim=1)
+    lower_q = (cdf <= 0.05).to(probs.dtype).sum(dim=1) * inv_s
+    upper_q = (cdf <= 0.95).to(probs.dtype).sum(dim=1) * inv_s
+    pred = torch.argmax(probs, dim=1).to(probs.dtype) * inv_s
+    lower_q = torch.where(pred == lower_q, lower_q - inv_s, lower_q).clamp(0.0, 1.0)
+    upper_q = torch.where(pred == upper_q, upper_q + inv_s, upper_q).clamp(0.0, 1.0)
+    return IntervalParams(pred, torch.relu(pred - lower_q), torch.relu(upper_q - pred))
+
+
 INTERVAL_PARAM_FNS: dict[str, Callable[[torch.Tensor], IntervalParams]] = {
     "quantiles": _quantile_interval_params,
     "quantiles_l1": _quantile_interval_params,
@@ -74,13 +93,12 @@ INTERVAL_PARAM_FNS: dict[str, Callable[[torch.Tensor], IntervalParams]] = {
     "gaussian": _gaussian_interval_params,
     "residual_magnitude": _residual_interval_params,
     "residual_magnitude_l1": _residual_interval_params,
+    "softmax": _softmax_interval_params,
 }
 
 
 def interval_params(output: torch.Tensor, uncertainty_type: str) -> IntervalParams:
     """Factor a head's raw output into λ-independent set geometry."""
-    if uncertainty_type == "softmax":
-        raise NotImplementedError("the softmax head is not yet ported")
     try:
         fn = INTERVAL_PARAM_FNS[uncertainty_type]
     except KeyError:

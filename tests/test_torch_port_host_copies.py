@@ -35,6 +35,7 @@ from im2im_uq_tpu.data import synthetic as jsyn
 from im2im_uq_tpu.data import temca as jtemca
 from im2im_uq_tpu.data import transforms as jtf
 from im2im_uq_tpu.interop.torch_export import export_state_dict
+from im2im_uq_tpu.interop.torch_import import port_state_dict
 from im2im_uq_tpu.models import assembly as jasm
 from im2im_uq_tpu.utils import config as jconfig
 from im2im_uq_tpu.utils import logging as jlog
@@ -211,3 +212,24 @@ def test_weight_carrier_matches_export_state_dict_bit_for_bit():
 
 def test_add_uncertainty_places_on_the_card_unless_asked():
     assert inspect.signature(tasm.add_uncertainty).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("model, utype, count", [
+    ("UNet", "softmax", 130), ("WNet", "gaussian", 202)])
+def test_weight_carrier_matches_export_state_dict_for_every_layout(model, utype, count):
+    """The softmax head's out{c} → output_layers.{c} and WNet's p1*/p2*
+    encoders, bit for bit, and a strict load into the port's model. The
+    JAX variables come from a port model through the JAX package's
+    ``torch_import.port_state_dict`` (no JAX init to compile)."""
+    cfg = {"model": model, "uncertainty_type": utype, "num_softmax": 7}
+    seed = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg,
+                                generator=torch.Generator().manual_seed(4), device="cpu")
+    params, stats = port_state_dict(seed.model.state_dict(), model, utype)
+    variables = {"params": params, "batch_stats": stats}
+    got = state_dict_from_jax(variables, model, utype)
+    want = export_state_dict(variables, model, utype)
+    assert list(got) == list(want) and len(got) == count
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    tstate = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device="cpu")
+    tstate.model.load_state_dict(got, strict=True)

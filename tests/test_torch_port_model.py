@@ -113,7 +113,7 @@ def test_generator_init_is_seeded_torch_default():
 
 
 @pytest.mark.parametrize(
-    "override", [{"model": "WNet"}, {"compute_dtype": "bfloat16"}]
+    "override", [{"model": "ResNet18"}, {"compute_dtype": "bfloat16"}]
 )
 def test_unported_configs_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -140,5 +140,10 @@ def test_remat_is_resolved_as_the_jax_package_resolves_it(remat):
 
 
 def test_unported_head_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tasm.add_uncertainty(tasm.build_trunk(CFG), dict(CFG, uncertainty_type="gaussian"))
+    """Every head type is ported; an unknown one raises as the JAX package's
+    ``build_head`` does."""
+    cfg = dict(CFG, uncertainty_type="bogus")
+    with pytest.raises(NotImplementedError, match="unknown uncertainty_type 'bogus'"):
+        jasm.add_uncertainty(jasm.build_trunk(cfg), cfg)
+    with pytest.raises(NotImplementedError, match="unknown uncertainty_type 'bogus'"):
+        tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device="cpu")

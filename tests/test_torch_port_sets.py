@@ -98,8 +98,15 @@ def test_sets_miss_and_fraction_match_jax(lam):
 
 
 def test_softmax_head_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tsets.interval_params(torch.zeros(1, 50, 2, 2, 1), "softmax")
+    """The softmax head is ported now (``test_torch_port_heads.py``); what
+    stays refused is an unknown type, with the JAX package's error."""
+    out = np.zeros((1, 50, 2, 2, 1), np.float32)
+    with pytest.raises(NotImplementedError, match="unknown uncertainty_type 'bogus'"):
+        jsets.interval_params(jnp.asarray(out), "bogus")
+    with pytest.raises(NotImplementedError, match="unknown uncertainty_type 'bogus'"):
+        tsets.interval_params(torch.from_numpy(out), "bogus")
+    params = tsets.interval_params(torch.from_numpy(out), "softmax")
+    assert [tuple(p.shape) for p in params] == [(1, 2, 2, 1)] * 3
 
 
 def test_critical_lambdas_match_jax():

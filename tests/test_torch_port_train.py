@@ -197,13 +197,17 @@ def test_softmax_cross_entropy_matches_jax():
         float(jlosses.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))), rtol=1e-6)
 
 
-@pytest.mark.parametrize("utype", ["quantiles", "quantiles_l1", "inn"])
+@pytest.mark.parametrize("utype", ["quantiles", "quantiles_l1", "inn", "gaussian",
+                                   "residual_magnitude", "residual_magnitude_l1", "softmax"])
 def test_head_losses_match_jax(utype):
-    """The port's head output is (B, K, C, H, W), the JAX one (B, K, H, W, C)."""
+    """The port's head output is (B, K, C, H, W), the JAX one (B, K, H, W, C);
+    the softmax head's K is its 3 classes here. Gaussian variances below
+    eps are clamped."""
     r = _rng(4)
     pred = r.randn(3, 3, 2, 5, 6).astype(np.float32)  # (B, K, C, H, W)
     target = r.rand(3, 2, 5, 6).astype(np.float32)  # (B, C, H, W)
-    params = dict(DEFAULTS, q_lo_weight=0.7, q_hi_weight=1.3, mse_weight=2.0, beta=0.3)
+    params = dict(DEFAULTS, q_lo_weight=0.7, q_hi_weight=1.3, mse_weight=2.0, beta=0.3,
+                  num_softmax=3)
     got = theads.head_loss_pe_fn(utype)(torch.from_numpy(pred), torch.from_numpy(target), params)
     want = jheads.head_loss_pe_fn(utype)(
         jnp.asarray(np.moveaxis(pred, 2, -1)), jnp.asarray(np.moveaxis(target, 1, -1)), params
@@ -213,8 +217,11 @@ def test_head_losses_match_jax(utype):
 
 
 def test_unported_head_loss_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        theads.head_loss_pe_fn("gaussian")
+    """Every head's loss is ported; an unknown type raises as the JAX
+    package's ``head_loss_pe_fn`` does."""
+    for fn in (jheads.head_loss_pe_fn, theads.head_loss_pe_fn):
+        with pytest.raises(NotImplementedError, match="unknown uncertainty_type 'bogus'"):
+            fn("bogus")
 
 
 # ----------------------------------------------------------- train step
