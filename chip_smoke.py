@@ -934,6 +934,35 @@ class RecordLog:
         self.records.append(dict(record))
 
 
+def timed_steps(step, tensors, n: int) -> tuple[list, list]:
+    """``n`` train steps on one batch, each timed with CUDA events →
+    (losses, step ms)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    events[0].record()
+    for e in events[1:]:
+        losses.append(step(*tensors))
+        e.record()
+    events[-1].synchronize()
+    return [float(v) for v in losses], [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def check_first_gradients(phase: str, model: torch.nn.Module) -> None:
+    """Every parameter's gradient present, finite and nonzero."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+    if bad:
+        raise AssertionError(f"{phase}: after step 1, gradients missing, not finite or zero: {bad}")
+
+
+def path_batch(cfg: dict, seed: int = 2) -> tuple:
+    """One batch of the config's batch size at 320x320, with its inputs."""
+    bs = cfg["batch_size"]
+    ds = synthetic(bs, IMAGE, seed=seed, num_inputs=cfg.get("num_inputs", 1))
+    return (np.stack([ds[i][0] for i in range(bs)]), np.stack([ds[i][1] for i in range(bs)]),
+            np.ones((bs,), np.float32))
+
+
 def phase_train(config: dict) -> tuple[dict, dict, dict]:
     """One epoch of ``train_net`` at 320x320, batch 32 → (launches, the
     initial state dict, the train config).
@@ -960,19 +989,10 @@ def phase_train(config: dict) -> tuple[dict, dict, dict]:
     opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
     step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt)
     losses = [float(step(*batch))]
-    bad = [n for n, p in state.model.named_parameters()
-           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
-    if bad:
-        raise AssertionError(f"after step 1, gradients missing, not finite or zero: {bad}")
+    check_first_gradients("train", state.model)
     for _ in range(WARMUP_STEPS - 1):
         losses.append(float(step(*batch)))
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-    events[0].record()
-    for e in events[1:]:
-        step(*batch)
-        e.record()
-    events[-1].synchronize()
-    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    _, step_ms = timed_steps(step, batch, TIMED_STEPS)
     losses.append(float(step(*batch)))
     state.model.load_state_dict(init)
     del opt, step, batch
@@ -1298,9 +1318,7 @@ def phase_fused(config: dict, calib, serve) -> dict:
     weights of phases 5-6. → launches."""
     cfg = dict(config, conv_backend="pallas_fused")
     bs = cfg["batch_size"]
-    ds = synthetic(bs, IMAGE, seed=2)
-    batch = (np.stack([ds[i][0] for i in range(bs)]), np.stack([ds[i][1] for i in range(bs)]),
-             np.ones((bs,), np.float32))
+    batch = path_batch(cfg)
     state = add_uncertainty(
         build_trunk(cfg), cfg,
         generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
@@ -1314,20 +1332,11 @@ def phase_fused(config: dict, calib, serve) -> dict:
     t0 = time.perf_counter()
     losses = [float(step(*tensors))]
     first_s = time.perf_counter() - t0
-    bad = [n for n, p in state.model.named_parameters()
-           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
-    if bad:
-        raise AssertionError(f"fused: after step 1, gradients missing, not finite or zero: {bad}")
+    check_first_gradients("fused", state.model)
     for _ in range(WARMUP_STEPS - 1):
         losses.append(float(step(*tensors)))
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-    events[0].record()
-    for e in events[1:]:
-        step(*tensors)
-        e.record()
-    events[-1].synchronize()
+    _, step_ms = timed_steps(step, tensors, TIMED_STEPS)
     train_counts = read_counts()
-    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     if not np.isfinite(losses).all():
         raise AssertionError(f"fused train losses not finite: {losses}")
     require_launches("fused_train", train_counts,
@@ -1367,27 +1376,6 @@ def phase_fused(config: dict, calib, serve) -> dict:
     return launches
 
 
-def timed_steps(step, tensors, n: int) -> tuple[list, list]:
-    """``n`` train steps on one batch, each timed with CUDA events →
-    (losses, step ms)."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    losses = []
-    events[0].record()
-    for e in events[1:]:
-        losses.append(step(*tensors))
-        e.record()
-    events[-1].synchronize()
-    return [float(v) for v in losses], [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-
-
-def path_batch(cfg: dict, seed: int = 2) -> tuple:
-    """One batch of the config's batch size at 320x320, with its inputs."""
-    bs = cfg["batch_size"]
-    ds = synthetic(bs, IMAGE, seed=seed, num_inputs=cfg.get("num_inputs", 1))
-    return (np.stack([ds[i][0] for i in range(bs)]), np.stack([ds[i][1] for i in range(bs)]),
-            np.ones((bs,), np.float32))
-
-
 def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list) -> tuple:
     """PATH_STEPS steps of ``make_train_step`` on ``batch``, counted →
     (launches, losses, step ms); every loss finite and every first gradient
@@ -1397,10 +1385,7 @@ def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list) -> 
     tensors = train.put_batch(*batch, torch.device(DEVICE))
     reset_counts()
     losses = [float(step(*tensors))]
-    bad = [n for n, p in state.model.named_parameters()
-           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
-    if bad:
-        raise AssertionError(f"{phase}: after step 1, gradients missing, not finite or zero: {bad}")
+    check_first_gradients(phase, state.model)
     more, step_ms = timed_steps(step, tensors, PATH_STEPS - 1)
     counts = read_counts()
     losses += more
