@@ -21,10 +21,21 @@
 // The TPU kernel's shape gates (W%8, C>=32, row tiles) and its banded
 // W-axis matmul were Mosaic workarounds and are gone: every shape runs.
 //
-// Numerics: f32 arithmetic with one rounding at the store. The lerps use
-// explicitly rounded intrinsics, so no multiply-add is contracted and the
-// result is bit-identical to the plain PyTorch version (which runs the same
-// subtract, multiply and add as separate f32 operations).
+// Numerics, float32: f32 arithmetic with one rounding at the store. The
+// lerps use explicitly rounded intrinsics, so no multiply-add is contracted
+// and the result is bit-identical to the plain PyTorch version (which runs
+// the same subtract, multiply and add as separate f32 operations).
+//
+// Numerics, bfloat16: the TPU kernel's function (pallas_resize.py:158-181).
+// The H-axis lerps run in bf16, each subtract, multiply and add rounded to
+// bf16 (done in f32 and rounded: f32's 24 bits are more than twice bf16's 8
+// plus 2, so the double rounding is exact), with the phase weights rounded
+// to bf16 and zero rows beyond the edges. The W axis is the TPU kernel's
+// matmul against the bf16 entries of `_col_transpose_matrix(W)`: each output
+// column has two taps, whose products of two bf16 values are exact in f32,
+// added once in f32 and rounded once to bf16, so the order of the taps
+// cannot change the bits. For bf16 the W table holds those four tap
+// weights per input column (already rounded to bf16) instead of fe/fo.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,17 +52,13 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // a + (b - a) * f, rounded after every operation (no FMA contraction).
 __device__ __forceinline__ float lerp(float a, float b, float f) {
   return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), f));
 }
 
-template <typename T>
-__global__ void upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y,
+__global__ void upsample2x_kernel(const float* __restrict__ x, float* __restrict__ y,
                                   const float* __restrict__ wh,  // fe_h[h], fo_h[h]
                                   const float* __restrict__ ww,  // fe_w[w], fo_w[w]
                                   int64_t planes, int h, int w) {
@@ -64,10 +71,10 @@ __global__ void upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y,
     const int i = static_cast<int>(t % h);
     const int64_t plane = t / h;
 
-    const T* xp = x + plane * h * w;
-    const T* row_m = xp + static_cast<int64_t>(i > 0 ? i - 1 : 0) * w;
-    const T* row_c = xp + static_cast<int64_t>(i) * w;
-    const T* row_p = xp + static_cast<int64_t>(i < h - 1 ? i + 1 : h - 1) * w;
+    const float* xp = x + plane * h * w;
+    const float* row_m = xp + static_cast<int64_t>(i > 0 ? i - 1 : 0) * w;
+    const float* row_c = xp + static_cast<int64_t>(i) * w;
+    const float* row_p = xp + static_cast<int64_t>(i < h - 1 ? i + 1 : h - 1) * w;
     const int jm = j > 0 ? j - 1 : 0;
     const int jp = j < w - 1 ? j + 1 : w - 1;
 
@@ -87,32 +94,86 @@ __global__ void upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y,
     }
 
     // W pass: output columns 2j (phase even) and 2j+1 (phase odd).
-    T* out = y + plane * 4 * h * w + static_cast<int64_t>(2 * i) * (2 * w) + 2 * j;
+    float* out = y + plane * 4 * h * w + static_cast<int64_t>(2 * i) * (2 * w) + 2 * j;
     store_pair(out, lerp(even[0], even[1], few), lerp(even[1], even[2], fow));
     store_pair(out + 2 * w, lerp(odd[0], odd[1], few), lerp(odd[1], odd[2], fow));
+  }
+}
+
+// bf16 value of v, as a float (round to nearest even)
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a + (b - a) * f in bf16: every operation rounded to bf16.
+__device__ __forceinline__ float lerp_bf16(float a, float b, float f) {
+  return bf16r(__fadd_rn(a, bf16r(__fmul_rn(bf16r(__fsub_rn(b, a)), f))));
+}
+
+// p * a + q * b of bf16 values: both products exact in f32, one f32 add, one
+// rounding to bf16.
+__device__ __forceinline__ float taps_bf16(float p, float a, float q, float b) {
+  return bf16r(__fadd_rn(__fmul_rn(p, a), __fmul_rn(q, b)));
+}
+
+__global__ void upsample2x_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                       __nv_bfloat16* __restrict__ y,
+                                       const float* __restrict__ wh,  // fe_h[h], fo_h[h], bf16
+                                       const float* __restrict__ ww,  // 4 taps x w, bf16
+                                       int64_t planes, int h, int w) {
+  const int64_t total = planes * h * w;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       idx < total; idx += stride) {
+    const int j = static_cast<int>(idx % w);
+    const int64_t t = idx / w;
+    const int i = static_cast<int>(t % h);
+    const int64_t plane = t / h;
+
+    const __nv_bfloat16* row_c = x + (plane * h + i) * w;
+    const int jm = j > 0 ? j - 1 : 0;
+    const int jp = j < w - 1 ? j + 1 : w - 1;
+    const float feh = wh[i], foh = wh[h + i];
+
+    // H pass at the three input columns jm, j, jp; zero rows past the edges
+    float even[3], odd[3];
+    const int cols[3] = {jm, j, jp};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float m = i > 0 ? load_f32(row_c - w + cols[k]) : 0.0f;
+      const float c = load_f32(row_c + cols[k]);
+      const float p = i < h - 1 ? load_f32(row_c + w + cols[k]) : 0.0f;
+      even[k] = lerp_bf16(m, c, feh);
+      odd[k] = lerp_bf16(c, p, foh);
+    }
+
+    // W pass: column 2j reads columns j - 1 and j, column 2j + 1 reads j and
+    // j + 1; a tap past the edge has weight 0
+    const float ep = ww[j], ec = ww[w + j], oc = ww[2 * w + j], on = ww[3 * w + j];
+    __nv_bfloat16* out = y + plane * 4 * h * w + static_cast<int64_t>(2 * i) * (2 * w) + 2 * j;
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(
+        taps_bf16(ep, even[0], ec, even[1]), taps_bf16(oc, even[1], on, even[2]));
+    *reinterpret_cast<__nv_bfloat162*>(out + 2 * w) = __floats2bfloat162_rn(
+        taps_bf16(ep, odd[0], ec, odd[1]), taps_bf16(oc, odd[1], on, odd[2]));
   }
 }
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;  // grid-stride loop covers the rest
 
-template <typename T>
-int launch(const void* x, void* y, const void* wh, const void* ww, int64_t planes,
-           int h, int w, cudaStream_t stream) {
-  const int64_t total = planes * h * w;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  upsample2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const float*>(wh),
-      static_cast<const float*>(ww), planes, h, w);
-  return static_cast<int>(cudaGetLastError());
+inline unsigned blocks_for(int64_t total) {
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
 }  // namespace
 
 // x: (planes, h, w) contiguous; y: (planes, 2h, 2w) contiguous, same dtype.
-// wh: (2h,) f32 device table [fe_h | fo_h]; ww: (2w,) f32 [fe_w | fo_w].
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
+// dtype 0 = float32: wh (2h,) f32 device table [fe_h | fo_h], ww (2w,)
+// [fe_w | fo_w]. dtype 1 = bfloat16: wh (2h,) the same weights rounded to
+// bf16, ww (4w,) the W taps per input column j, rounded to bf16: [weight of
+// j - 1 in column 2j | of j in 2j | of j in 2j + 1 | of j + 1 in 2j + 1].
+// Returns a cudaError_t value (0 = ok).
 extern "C" int im2im_upsample2x(const void* x, void* y, const void* wh, const void* ww,
                                 long long planes, int h, int w, int dtype, int device,
                                 void* stream) {
@@ -120,7 +181,17 @@ extern "C" int im2im_upsample2x(const void* x, void* y, const void* wh, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   if (planes <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, wh, ww, planes, h, w, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, wh, ww, planes, h, w, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = blocks_for(planes * h * w);
+  const auto* whf = static_cast<const float*>(wh);
+  const auto* wwf = static_cast<const float*>(ww);
+  if (dtype == 0)
+    upsample2x_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), whf, wwf, planes, h, w);
+  else if (dtype == 1)
+    upsample2x_bf16_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), whf, wwf, planes,
+        h, w);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }

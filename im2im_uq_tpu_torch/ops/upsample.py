@@ -24,6 +24,7 @@ from im2im_uq_tpu_torch import _build
 
 __all__ = [
     "Upsample2x",
+    "col_transpose_matrix",
     "phase_weights",
     "transpose_weights",
     "upsample2x",
@@ -78,9 +79,51 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def col_transpose_matrix(w: int) -> np.ndarray:
+    """(2W, W) f32 matrix M of the W axis, output column j = Σ_v M[j, v]·x[v]
+    (``pallas_resize._col_transpose_matrix``): column 2v reads v − 1 and v,
+    column 2v + 1 reads v and v + 1, and the taps past the edges are
+    absent. ``1 − fe``, ``1 − fo`` are taken in f32."""
+    ge, go = phase_weights(w)
+    mat = np.zeros((2 * w, w), np.float32)
+    for v in range(w):
+        mat[2 * v, v] += ge[v]
+        mat[2 * v + 1, v] += 1.0 - go[v]
+        if v + 1 < w:
+            mat[2 * v + 2, v] += 1.0 - ge[v + 1]
+        if v >= 1:
+            mat[2 * v - 1, v] += go[v - 1]
+    return mat
+
+
+def _bf16_weights(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _upsample2x_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's bf16 function (``_upsample2x_fwd_raw``): the H-axis
+    lerps in bf16, each operation rounded, with bf16 phase weights and zero
+    rows past the edges; then the W axis as an f32 product with the bf16
+    entries of :func:`col_transpose_matrix`, rounded once."""
+    h, w = x.shape[-2:]
+    fe, fo = (_bf16_weights(f).to(x.device)[:, None] for f in phase_weights(h))
+    zero = torch.zeros_like(x.narrow(-2, 0, 1))
+    xm1 = torch.cat([zero, x.narrow(-2, 0, h - 1)], -2)
+    xp1 = torch.cat([x.narrow(-2, 1, h - 1), zero], -2)
+    even = xm1 + (x - xm1) * fe
+    odd = x + (xp1 - x) * fo
+    rows = torch.stack([even, odd], -2).flatten(-3, -2)  # (…, 2H, W)
+    m = _bf16_weights(col_transpose_matrix(w)).to(x.device).float()
+    return torch.einsum("...v,jv->...j", rows.float(), m).to(torch.bfloat16)
+
+
 def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: lerp along H, then W, in f32 (f64 for an f64
-    input); one rounding at the end."""
+    """K1's plain version. bf16: the TPU kernel's rounding
+    (:func:`_upsample2x_bf16_plain`). Otherwise the lerp along H, then W, in
+    f32 (f64 for an f64 input), one rounding at the end."""
+    if x.dtype == torch.bfloat16:
+        return _upsample2x_bf16_plain(x)
     y = x.to(_compute_dtype(x.dtype))
     y = upsample2x_axis_plain(y, x.ndim - 2)
     y = upsample2x_axis_plain(y, x.ndim - 1)
@@ -134,6 +177,20 @@ def _weight_table(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
+def _bf16_tables(h: int, w: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's f32 tables on ``device``, kept per size: (2h,)
+    [fe | fo] rounded to bf16, and (4w,) the W taps of
+    :func:`col_transpose_matrix` per input column v rounded to bf16, [M[2v,
+    v − 1] | M[2v, v] | M[2v + 1, v] | M[2v + 1, v + 1]], 0 past the edges."""
+    m = np.pad(col_transpose_matrix(w), ((0, 0), (1, 1)))  # column v of M is v + 1
+    v = np.arange(w)
+    taps = np.concatenate([m[2 * v, v], m[2 * v, v + 1], m[2 * v + 1, v + 1],
+                           m[2 * v + 1, v + 2]])
+    wh = _bf16_weights(np.concatenate(phase_weights(h))).float()
+    return wh.to(device), _bf16_weights(taps).float().to(device)
+
+
+@functools.lru_cache(maxsize=64)
 def _transpose_table(n: int, device: torch.device) -> torch.Tensor:
     """(4n,) f32 table [a0 | a1 | a2 | a3] on ``device``, kept per size."""
     return torch.from_numpy(np.concatenate(transpose_weights(n))).to(device)
@@ -154,7 +211,10 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y
-    wh, ww = _weight_table(h, x.device), _weight_table(w, x.device)
+    if x.dtype == torch.bfloat16:
+        wh, ww = _bf16_tables(h, w, x.device)
+    else:
+        wh, ww = _weight_table(h, x.device), _weight_table(w, x.device)
     err = _build.library().im2im_upsample2x(
         x.data_ptr(), y.data_ptr(), wh.data_ptr(), ww.data_ptr(),
         b * c, h, w, _KERNEL_DTYPES[x.dtype], x.device.index,

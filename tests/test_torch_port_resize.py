@@ -74,11 +74,32 @@ def test_phase_weights_match_jax():
             np.testing.assert_array_equal(got, want)
 
 
-def test_bf16_plain_rounds_once():
-    x = torch.from_numpy(_x((2, 4, 6, 5), seed=3)).to(torch.bfloat16)
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 6, 5), (2, 3, 1, 1), (1, 5, 1, 7), (3, 7, 9, 1)])
+def test_bf16_plain_rounds_once(shape):
+    """The bf16 plain version is the TPU kernel's rounding, in the form the
+    CUDA kernel computes it from its tables: each H-axis operation rounded
+    to bf16 (zero rows past the edges), then per output column two W taps
+    whose bf16 products are exact in f32, added once and rounded once."""
+    x = torch.from_numpy(_x(shape, seed=3)).to(torch.bfloat16)
     got = tup.upsample2x_plain(x)
     assert got.dtype == torch.bfloat16
-    want = tup.upsample2x_plain(x.float()).to(torch.bfloat16)
+    h, w = shape[-2:]
+    wh, ww = tup._bf16_tables(h, w, torch.device("cpu"))
+    xf = x.float()
+    zero = torch.zeros_like(xf[..., :1, :])
+    m, p = torch.cat([zero, xf[..., :-1, :]], -2), torch.cat([xf[..., 1:, :], zero], -2)
+    even = _bf16(m + _bf16(_bf16(xf - m) * wh[:h, None]))
+    odd = _bf16(xf + _bf16(_bf16(p - xf) * wh[h:, None]))
+    rows = torch.stack([even, odd], -2).flatten(-3, -2)
+    left = rows[..., torch.clamp(torch.arange(w) - 1, min=0)]
+    right = rows[..., torch.clamp(torch.arange(w) + 1, max=w - 1)]
+    col_even = _bf16(ww[:w] * left + ww[w : 2 * w] * rows)
+    col_odd = _bf16(ww[2 * w : 3 * w] * rows + ww[3 * w :] * right)
+    want = torch.stack([col_even, col_odd], -1).flatten(-2).to(torch.bfloat16)
     assert torch.equal(got, want)
 
 
