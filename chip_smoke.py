@@ -10,7 +10,9 @@ Phases, one JSON line each on stdout:
 2. build      compile ``im2im_uq_tpu_torch/csrc/*.cu`` (timed).
 3. k1         the upsample kernel against its plain PyTorch version on the
               card, at the four decoder shapes of a batch-32 320x320 UNet
-              and some odd shapes, in f32 and bf16, with both times.
+              and some odd shapes, in f32 and bf16 (0 outputs apart: the
+              TPU kernel's bf16 rounding), with both times; the bf16 sums
+              on a k1_bf16_sums line (so k1b and k7).
    k1b        the upsample's backward kernel against its plain version at
               the four decoder cotangent shapes and the odd shapes, both
               dtypes, with both times.
@@ -34,6 +36,13 @@ Phases, one JSON line each on stdout:
               shapes, summed per step; then one conv_shape line per
               main-path shape with the K3-K6 times side by side (the stem
               marked).
+   conv3x3_bf16, conv3x3_bn_act_bf16
+              the bf16 instances of K3 and K4 against their plain versions
+              at every conv launch of the bf16 paths (the ``pallas`` train
+              step's forward, the ``pallas_fused`` eval forward) and the
+              odd shapes, within ``conv_probe.bf16_tolerance``, the same
+              bits twice; kernel, plain, library (``F.conv2d`` in bf16)
+              and bound times.
    probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
               conv), the ports of the Pallas probes of ``benchmarks/``,
               against their plain versions in f32 and bf16 at the probes'
@@ -89,6 +98,14 @@ Phases, one JSON line each on stdout:
               default config's), calibration and serving under both.
 16. router    the router with ``uncertainty_type: softmax``
               (router_softmax), whose λ grid and default λ differ.
+17. bf16      ``compute_dtype: bfloat16`` on the main path's model at
+              320x320, batch 32: 5 train steps, calibration and serving
+              under ``xla`` and ``pallas``; calibration and serving under
+              ``pallas_fused`` of weights trained in f32; the eval forward
+              of those weights under each backend against the f32 one.
+18. bf16_models one bf16 eval forward of each other head and of WNet
+              under each backend, against the f32 forward.
+19. router    the router in bf16 (router_bf16).
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
@@ -187,6 +204,9 @@ KERNELS = {
     "maxpool2x2_bwd": pool.max_pool2x2_bwd,
     "conv3x3": conv.conv3x3,
     "conv3x3_bn_act": conv.conv3x3_bn_act,
+    # the bf16 instances of K3 and K4, counted apart
+    "conv3x3_bf16": conv.conv3x3.bf16,
+    "conv3x3_bn_act_bf16": conv.conv3x3_bn_act.bf16,
     "wgrad3x3": conv_bwd.wgrad3x3,
     "dgrad3x3": conv_bwd.dgrad3x3,
     "moments": moments.moments,
@@ -242,6 +262,14 @@ PEAK_F32_TC_FLOPS = 495e12 / 3
 # bf16 products on the tensor cores, f32 accumulation (H100 SXM data sheet,
 # dense)
 PEAK_BF16_TC_FLOPS = 989e12
+# a bf16 model's eval output against the f32 model's on the same weights,
+# relative L2: bf16 rounding through 20 layers (3e-3 on the CPU at 128²,
+# tests/test_torch_port_bf16.py)
+BF16_EVAL_RTOL = 2e-2
+# the kernel launches that each bf16 path must make, beside K2 and K1f on
+# calibration and serving
+BF16_KERNELS = {"xla": [], "pallas": ["conv3x3_bf16"],
+                "pallas_fused": ["conv3x3_bf16", "conv3x3_bn_act_bf16"]}
 # (B, Cin, H, W, Cout) of the Pallas probes' defaults: P1's x
 # (benchmarks/bench_moments.py:28), P2-P5's conv
 # (benchmarks/bench_pallas_conv.py:377-389)
@@ -389,11 +417,25 @@ def phase_build() -> None:
          ptxas=usage)
 
 
+def _dtype_sums() -> dict:
+    """Per-dtype sums of the main-path shapes' times and bounds."""
+    return {dtype: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+            for dtype in (torch.float32, torch.bfloat16)}
+
+
+def _emit_bf16_sums(phase: str, sums: dict) -> None:
+    """The bf16 sums of a kernel over its main-path shapes, one line."""
+    emit(f"{phase}_bf16_sums", dtype="bfloat16", **close_bound(sums[torch.bfloat16]))
+
+
 def phase_k1() -> dict:
-    """K1 vs plain: f32 within 1e-6·max|x|; bf16 within one bf16 ulp of the
-    plain result computed in f32 from the same bf16 input and rounded once."""
+    """K1 vs plain: f32 within 1e-6·max|x|; bf16 bit for bit (0 outputs
+    differ): the plain version is the TPU kernel's bf16 function, with its
+    per-operation rounding, and the kernel computes the same operations.
+    → the f32 sums (the kernels line's); the bf16 sums on a k1_bf16_sums
+    line."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    sums = _dtype_sums()
     for dtype in (torch.float32, torch.bfloat16):
         for shape in DECODER_SHAPES + ODD_SHAPES:
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -401,33 +443,34 @@ def phase_k1() -> dict:
             want = upsample.upsample2x_plain(x)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
+            differ = int((got != want).sum().item())
             if dtype == torch.float32:
                 tol = 1e-6 * x.abs().max().item()
                 ok = diff.max().item() <= tol
             else:
-                tol = conv_probe.bf16_ulp(want)
-                ok = bool((diff <= tol).all())
-                tol = tol.max().item()
+                tol = 0.0
+                ok = differ == 0
             if not ok:
                 raise AssertionError(
                     f"K1 disagrees with its plain version at {shape} {dtype}: "
-                    f"max abs err {diff.max().item()} > tol {tol}"
+                    f"max abs err {diff.max().item()} > tol {tol}, {differ} outputs differ"
                 )
             fields = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                      "max_abs_err": diff.max().item(), "tol": tol}
+                      "max_abs_err": diff.max().item(), "tol": tol, "outputs_differ": differ}
             if shape in DECODER_SHAPES:
                 fields["ms"] = time_ms(lambda: upsample.upsample2x(x), 20)
                 fields["plain_ms"] = time_ms(lambda: upsample.upsample2x_plain(x), 5)
                 fields["library_ms"] = time_ms(lambda: F.interpolate(
                     x, scale_factor=2, mode="bilinear", align_corners=True), 20)
-                if dtype == torch.float32:  # the main path's dtype
-                    result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    for k in ("ms", "plain_ms", "library_ms"):
-                        result[k] += fields[k]
-                    # 3 lerps of 2 operations per output; x read, y written
-                    add_bound(result, 6 * 4 * x.numel(), 4 * 5 * x.numel())
+                result = sums[dtype]
+                result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms", "library_ms"):
+                    result[k] += fields[k]
+                # 3 lerps of 2 operations per output; x read, y written
+                add_bound(result, 6 * 4 * x.numel(), x.element_size() * 5 * x.numel())
             emit("k1", **fields)
-    return close_bound(result)
+    _emit_bf16_sums("k1", sums)
+    return close_bound(sums[torch.float32])
 
 
 def _k2_maps(n: int, p: int, gen: torch.Generator, signed: bool) -> tuple:
@@ -530,7 +573,7 @@ def phase_k1b() -> dict:
     within one bf16 ulp of the plain result computed in f32 and rounded
     once. Shapes are those of dx (the upsample's input)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    sums = _dtype_sums()
     for dtype in (torch.float32, torch.bfloat16):
         for b, c, h, w in DECODER_SHAPES + ODD_SHAPES:
             g = torch.randn((b, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
@@ -559,14 +602,15 @@ def phase_k1b() -> dict:
                 fields["library_ms"] = time_ms(
                     lambda: torch.ops.aten.upsample_bilinear2d_backward(
                         g, [2 * h, 2 * w], [b, c, h, w], True), 20)
-                if dtype == torch.float32:  # the main path's dtype
-                    result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    for k in ("ms", "plain_ms", "library_ms"):
-                        result[k] += fields[k]
-                    # each cotangent element feeds 4 inputs: 4 multiply-adds
-                    add_bound(result, 8 * g.numel(), 4 * (g.numel() + b * c * h * w))
+                result = sums[dtype]
+                result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms", "library_ms"):
+                    result[k] += fields[k]
+                # each cotangent element feeds 4 inputs: 4 multiply-adds
+                add_bound(result, 8 * g.numel(), g.element_size() * (g.numel() + b * c * h * w))
             emit("k1b", **fields)
-    return close_bound(result)
+    _emit_bf16_sums("k1b", sums)
+    return close_bound(sums[torch.float32])
 
 
 def torch_pool_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -583,7 +627,7 @@ def phase_k7() -> dict:
     """K7 vs its plain version and vs torch's autograd of F.max_pool2d:
     bit-identical (it moves values and does no arithmetic)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    sums = _dtype_sums()
     cases = [(s, "randn") for s in POOL_SHAPES + WNET_POOL_SHAPES + POOL_ODD_SHAPES]
     cases += [((2, 8, 6, 10), "constant"), ((2, 8, 6, 10), "zero_one")]
     for dtype in (torch.float32, torch.bfloat16):
@@ -617,14 +661,15 @@ def phase_k7() -> dict:
                 fields["library_ms"] = time_ms(
                     lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                         g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx), 20)
-                if dtype == torch.float32:
-                    result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
-                    for k in ("ms", "plain_ms", "library_ms"):
-                        result[k] += fields[k]
-                    # three compares per window; x and g read, dx written
-                    add_bound(result, 3 * g.numel(), 4 * (2 * x.numel() + g.numel()))
+                result = sums[dtype]
+                result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms", "library_ms"):
+                    result[k] += fields[k]
+                # three compares per window; x and g read, dx written
+                add_bound(result, 3 * g.numel(), x.element_size() * (2 * x.numel() + g.numel()))
             emit("k7", **fields)
-    return close_bound(result)
+    _emit_bf16_sums("k7", sums)
+    return close_bound(sums[torch.float32])
 
 
 def _conv_case(b: int, cin: int, h: int, w: int, cout: int, gen: torch.Generator) -> dict:
@@ -776,6 +821,117 @@ def phase_conv_kernels() -> dict:
     for (shape, prologue), times in per_shape.items():
         emit("conv_shape", shape=list(shape), prologue=prologue, stem=shape[1] == 1,
              **{f"{k}_ms": times.get(k) for k in CONV_PHASES.values()})
+    return results
+
+
+def bf16_bar(a: torch.Tensor, w: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """The per-output bar of a bf16 conv against its plain version ``want``
+    (``conv_probe.bf16_tolerance`` in NCHW): one bf16 ulp of ``want`` plus
+    the worst-case difference of two f32 sums of the 9·Cin products of the
+    activation ``a`` and the kernel ``w`` in different orders."""
+    mass = conv.conv3x3_plain(a.float().abs(), w.float().abs())
+    return conv_probe.bf16_ulp(want) + 2.0 * 9 * a.shape[1] * 2.0**-24 * mass
+
+
+def bf16_conv_sites() -> dict:
+    """The bf16 K3 and K4 launches of the bf16 main paths at batch 32,
+    320x320 → {kernel: {path: Counter of ((B, Cin, H, W, Cout), prologue)}}:
+    K3 in the forward of the ``pallas`` train step (every conv) and in the
+    ``pallas_fused`` eval forward (an Up's conv0 halves); K4 in the
+    ``pallas_fused`` eval forward (conv0 without the prologue, conv1 with
+    it, no stats)."""
+    fused = conv_sites("pallas_fused")
+    return {
+        "conv3x3_bf16": {"pallas": collections.Counter(conv_sites("pallas")["conv3x3"]),
+                         "pallas_fused": collections.Counter(fused["conv3x3"])},
+        "conv3x3_bn_act_bf16": {"pallas_fused": collections.Counter(fused["conv3x3_bn_act"])},
+    }
+
+
+def phase_conv_kernels_bf16() -> dict:
+    """The bf16 instances of K3 and K4 against their plain versions on the
+    card, at every conv launch of the bf16 paths (``bf16_conv_sites``) and
+    the odd shapes, prologue on and off for K4: y within ``bf16_bar``; K4's
+    stats within what that bar lets Σy and Σy² move plus SUM_TOL of Σ|y| and
+    Σy² (the f32 sums' order); each run twice, the same bits; K4 without the
+    stats the same y as with them. At the main-path shapes the kernel (K4
+    without the stats, as serving runs it), plain and library (``F.conv2d``
+    in bf16) times and the bound (bf16 tensor-core rate, 2-byte tensors),
+    summed per ``pallas`` train step for K3 and per ``pallas_fused`` eval
+    forward for K4 (the kernels line's); K3's sums over the fused eval
+    forward on a ``k3_bf16_fused_eval`` line."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+    for kernel, paths in bf16_conv_sites().items():
+        main = list(dict.fromkeys(case for c in paths.values() for case in c))
+        prologues = [False] if kernel == "conv3x3_bf16" else [True, False]
+        cases = main + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
+        sums = {path: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+                for path in paths}
+        for shape, prologue in cases:
+            b, cin, h, w, cout = shape
+            c = _conv_case(b, cin, h, w, cout, gen)
+            x, wt, bias = (c[k].to(torch.bfloat16) for k in ("x", "w", "bias"))
+            sc, sh = c["scale"], c["shift"]
+            if kernel == "conv3x3_bf16":
+                run = lambda: (conv.conv3x3_fwd(x, wt, bias),)  # noqa: E731
+                plain = lambda: (conv.conv3x3_plain(x, wt, bias),)  # noqa: E731
+                timed = run
+            else:
+                run = lambda: conv.conv3x3_bn_act_fwd(x, wt, bias, sc, sh, prologue, True)  # noqa: E731
+                plain = lambda: conv.conv3x3_bn_act_plain(x, wt, bias, sc, sh, prologue, True)  # noqa: E731
+                timed = lambda: conv.conv3x3_bn_act_fwd(x, wt, bias, sc, sh, prologue, False)  # noqa: E731
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{kernel} {shape} prologue={prologue}: two runs differ")
+            act = conv_bwd.prologue_activation(x.float(), sc, sh, prologue).to(torch.bfloat16)
+            bar = bf16_bar(act, wt, want[0])
+            diff = (got[0].float() - want[0].float()).abs()
+            over = int((diff > bar).sum().item())
+            fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
+                      "max_abs_err": diff.max().item(), "outputs_over_bar": over,
+                      "outputs_over_one_ulp": int((diff > conv_probe.bf16_ulp(want[0])).sum()),
+                      "bit_identical": True}
+            if kernel == "conv3x3_bn_act_bf16":
+                yf = want[0].float()
+                st_bar = torch.stack([bar.sum((2, 3)) + SUM_TOL * yf.abs().sum((2, 3)),
+                                      (bar * (2 * yf.abs() + bar)).sum((2, 3))
+                                      + SUM_TOL * (yf * yf).sum((2, 3))], 1)
+                st_over = int(((got[1] - want[1]).abs() > st_bar).sum().item())
+                fields["stats_over_bar"] = st_over
+                y_eval, _ = timed()
+                if not torch.equal(y_eval, got[0]):
+                    raise AssertionError(f"K4 bf16 {shape}: y without the stats differs")
+                over += st_over
+            if over:
+                raise AssertionError(f"{kernel} {shape} prologue={prologue} disagrees with its "
+                                     f"plain version: {fields}")
+            if (shape, prologue) in main:
+                fields["launches"] = {p: n[(shape, prologue)] for p, n in paths.items()
+                                      if n[(shape, prologue)]}
+                fields["ms"] = time_ms(timed, 5)
+                fields["plain_ms"] = time_ms(plain, 2)
+                fields["library_ms"] = time_ms(lambda: F.conv2d(x, wt, bias, padding=1), 5)
+                nbytes = 2 * (x.numel() + wt.numel() + bias.numel() + b * cout * h * w)
+                if prologue:
+                    nbytes += 8 * cin
+                fields["bound_ms"], fields["bound_by"], _ = conv_bound(shape, nbytes,
+                                                                       PEAK_BF16_TC_FLOPS)
+                for path, n in fields["launches"].items():
+                    result = sums[path]
+                    result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
+                    for k in ("ms", "plain_ms", "library_ms"):
+                        result[k] += n * fields[k]
+                    add_bound(result, 2.0 * b * h * w * cin * cout, nbytes, n, PEAK_BF16_TC_FLOPS)
+            emit(kernel, **fields)
+            del c, x, got, again, want, act, bar, diff
+        if kernel == "conv3x3_bf16":
+            emit("k3_bf16_fused_eval", launches_per_forward=sum(paths["pallas_fused"].values()),
+                 **close_bound(sums["pallas_fused"]))
+            results[kernel] = close_bound(sums["pallas"])
+        else:
+            results[kernel] = close_bound(sums["pallas_fused"])
     return results
 
 
@@ -1503,6 +1659,115 @@ def phase_wnet(config: dict) -> dict:
     return launches
 
 
+def eval_against_f32(phase: str, cfg: dict, weights: dict, x: torch.Tensor,
+                     kernels: list) -> dict:
+    """The eval forward of ``weights`` under ``cfg`` in bf16 against the
+    same under ``cfg`` in f32 (uncounted): float32 output, finite, within
+    BF16_EVAL_RTOL relative L2; the bf16 forward counted, ``kernels``
+    launched. → its launches."""
+    outs = []
+    for dtype in ("float32", "bfloat16"):
+        c = dict(cfg, compute_dtype=dtype)
+        st = add_uncertainty(build_trunk(c), c, device=DEVICE)
+        st.model.load_state_dict(weights)
+        reset_counts()
+        outs.append(st.forward(x))
+        torch.cuda.synchronize()
+        del st
+    counts = read_counts()
+    err = _rel_l2(outs[1], outs[0])
+    emit(phase, model=cfg.get("model", "UNet"), uncertainty_type=cfg["uncertainty_type"],
+         conv_backend=cfg.get("conv_backend", "auto"), batch=x.shape[0], image=x.shape[-1],
+         rel_l2_vs_f32=err, rtol=BF16_EVAL_RTOL, launches=counts)
+    if outs[1].dtype != torch.float32 or not bool(torch.isfinite(outs[1]).all()):
+        raise AssertionError(f"{phase}: the bf16 output is not finite float32")
+    if err > BF16_EVAL_RTOL:
+        raise AssertionError(f"{phase}: bf16 eval output {err} from the f32 one")
+    require_launches(phase, counts, ["upsample2x"] + kernels)
+    return counts
+
+
+def phase_bf16(config: dict, calib, serve) -> dict:
+    """``compute_dtype: bfloat16`` on the main path's UNet + quantile head at
+    320x320, batch 32: under ``xla`` and ``pallas``, PATH_STEPS train steps
+    from seed-5 weights (every first gradient finite and nonzero; step
+    times), then calibration and serving of the trained model (phases
+    bf16_{backend}_calibrate, _serve); under ``pallas_fused``, calibration
+    and serving of weights trained in f32 (PATH_STEPS steps of the default
+    config), and the eval forward of those weights under each backend
+    against the f32 one (bf16_vs_f32). → launches."""
+    launches = {k: 0 for k in KERNELS}
+    batch = path_batch(config)
+    for backend in ("xla", "pallas"):
+        cfg = dict(config, conv_backend=backend, compute_dtype="bfloat16")
+        state = add_uncertainty(
+            build_trunk(cfg), cfg,
+            generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
+        )
+        train_counts, losses, step_ms = train_steps(
+            f"bf16_{backend}_train", state, cfg, batch,
+            ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + BF16_KERNELS[backend])
+        state, _, counts, times = calibrate_and_serve(f"bf16_{backend}_", state, cfg, calib,
+                                                      serve, BF16_KERNELS[backend])
+        median_ms = float(np.median(step_ms))
+        emit("bf16", conv_backend=backend, batch=cfg["batch_size"], image=IMAGE,
+             steps=PATH_STEPS, median_step_ms=median_ms,
+             imgs_per_sec=1e3 * cfg["batch_size"] / median_ms, step_ms=step_ms,
+             step_losses=losses, lhat=state.lhat, **times,
+             launches={k: train_counts[k] + counts[k] for k in KERNELS})
+        for name in KERNELS:
+            launches[name] += train_counts[name] + counts[name]
+        del state
+
+    f32 = add_uncertainty(
+        build_trunk(config), config,
+        generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
+    )
+    train_steps("bf16_f32_weights", f32, config, batch, [])
+    trained = {k: v.detach().clone() for k, v in f32.model.state_dict().items()}
+    del f32
+    cfg = dict(config, conv_backend="pallas_fused", compute_dtype="bfloat16")
+    state = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    state.model.load_state_dict(trained)
+    state, _, counts, times = calibrate_and_serve("bf16_pallas_fused_", state, cfg, calib,
+                                                  serve, BF16_KERNELS["pallas_fused"])
+    emit("bf16", conv_backend="pallas_fused", weights="trained in f32", lhat=state.lhat,
+         **times, launches=counts)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    del state
+    x = nchw_from_nhwc(batch[0], DEVICE)
+    for backend in ("xla", "pallas", "pallas_fused"):
+        counts = eval_against_f32("bf16_vs_f32", dict(config, conv_backend=backend), trained, x,
+                                  BF16_KERNELS[backend])
+        for name in KERNELS:
+            launches[name] += counts[name]
+    return launches
+
+
+def phase_bf16_models(config: dict) -> dict:
+    """One bf16 eval forward of each other head (seed-5 weights, cuDNN) on
+    the main path's UNet and of WNet + quantile head under each conv
+    backend, at 320x320, batch 32, each against the f32 forward of the same
+    weights (``eval_against_f32``). → launches."""
+    launches = {k: 0 for k in KERNELS}
+    cases = [dict(config, uncertainty_type=u, num_softmax=NUM_SOFTMAX) for u in HEAD_TYPES]
+    cases += [dict(config, model="WNet", num_inputs=2, conv_backend=b)
+              for b in ("xla", "pallas", "pallas_fused")]
+    for cfg in cases:
+        st = add_uncertainty(build_trunk(cfg), cfg,
+                             generator=torch.Generator(device=DEVICE).manual_seed(5),
+                             device=DEVICE)
+        weights = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        del st
+        x = nchw_from_nhwc(path_batch(cfg)[0], DEVICE)
+        counts = eval_against_f32("bf16_models", cfg, weights, x,
+                                  BF16_KERNELS[cfg.get("conv_backend", "xla")])
+        for name in KERNELS:
+            launches[name] += counts[name]
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -1518,6 +1783,7 @@ def main() -> int:
         "loss_table": phase_k2(lam),
         "maxpool2x2_bwd": phase_k7(),
         **phase_conv_kernels(),
+        **phase_conv_kernels_bf16(),
     }
     measured.update(phase_probes())
     launches = phase_probe_cli()
@@ -1562,8 +1828,14 @@ def main() -> int:
     heads_counts = phase_heads(config, calib, serve)
     wnet_counts = phase_wnet(config)
     router_softmax_counts = phase_router("router_softmax", {"uncertainty_type": "softmax"})
+    # 17-19. compute_dtype bfloat16: the main path, the other heads and WNet,
+    # the router
+    bf16_counts = phase_bf16(config, calib, serve)
+    bf16_model_counts = phase_bf16_models(config)
+    router_bf16_counts = phase_router("router_bf16", {"compute_dtype": "bfloat16"})
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
-                   router_fused_counts, heads_counts, wnet_counts, router_softmax_counts):
+                   router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
+                   bf16_counts, bf16_model_counts, router_bf16_counts):
         for name, n in counts.items():
             launches[name] += n
 
@@ -1574,6 +1846,8 @@ def main() -> int:
         "maxpool2x2_bwd": ("maxpool2x2_bwd.cu", "im2im_uq_tpu/ops/pallas_pool.py:114"),
         "conv3x3": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
         "conv3x3_bn_act": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
+        "conv3x3_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
+        "conv3x3_bn_act_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
         "moments": ("moments.cu", "benchmarks/bench_moments.py:51"),

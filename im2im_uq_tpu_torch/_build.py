@@ -67,11 +67,13 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
-    # K3 and K4: (x, weight, bias, scale, shift, y, part, stats, b, cin, cout, h, w,
-    #      prologue, with_stats, device, stream)
-    "im2im_conv3x3_fused": ([_P] * 8 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    # K3 and K4: (x, weight, bias, scale, shift, y, part, stats, packed, b, cin,
+    #      cout, h, w, prologue, with_stats, dtype, device, stream)
+    "im2im_conv3x3_fused": ([_P] * 9 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
     # floats of K4's stats scratch: (b, cout, h, w)
     "im2im_conv3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # 32-bit words of the bf16 instances' packed operands: (b, cin, cout, h, w)
+    "im2im_conv3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
     # K5: (x, g, scale, shift, scratch, dw, db, b, cin, cout, h, w, prologue,
     #      device, stream)
     "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),

@@ -1,6 +1,6 @@
 // K3 and K4: the 3x3 same-padding convolution + bias, and its fused form
 // with a BatchNorm+ReLU prologue and a per-channel stats epilogue; NCHW,
-// float32, for sm_90a.
+// float32 and bfloat16, for sm_90a.
 //
 // Replaces the TPU kernels im2im_uq_tpu/ops/pallas_conv.py
 //   K3 `conv3x3_pallas_raw` (`_conv_kernel_db`): y = conv3x3(x) + bias;
@@ -40,10 +40,27 @@
 // = 9 to 72 and was slower there on an H100: at (32, 1, 320, 320, 64), 0.99
 // ms against the stem's 0.69 with the stats, 0.87 against 0.39 without
 // (scripts/compare_conv_builds.py --gemm-stem).
+//
+// bfloat16 (x, weight, bias and y bf16; scale, shift and stats f32): the TPU
+// kernel's function, the sum over taps and channels of bf16 products in
+// float32, plus the bias, rounded once to bf16; the prologue
+// relu(f32(x) * scale + shift) in float32, rounded to bf16 before the
+// products; the stats over the stored bf16 values, in float32. The bound
+// counts the Winograd limit at the tensor cores' bf16 rate, 989 TFLOP/s.
+// Two small kernels pack the operands first (pack_pairs: x, with the
+// prologue applied, as words of channel pairs; pack_weights: each (channel
+// tile, chunk)'s B tiles as one run), then the bf16 GEMM of
+// conv3x3_tc.cuh runs with this file's epilogue: one wgmma.m64n32k16 per
+// tap and m64 instance, no 3xTF32 split. The packing pass moves x once
+// more (read, and written as words) in exchange for a GEMM that stages its
+// box with the float32 GEMM's copies. The stem (Cin = 1) runs bf16 through
+// its FFMA kernel: a product of two bf16 values is exact in float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "conv3x3_tc.cuh"
 
@@ -51,16 +68,47 @@ namespace {
 
 using namespace conv3x3;
 
-template <bool kPrologue, bool kStats>
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v rounded to T, as a float
+template <typename T>
+__device__ __forceinline__ float round_as(float v) {
+  if constexpr (std::is_same_v<T, float>)
+    return v;
+  else
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v rounded to T and stored; returns the stored value as a float
+__device__ __forceinline__ float store(float* p, float v) {
+  *p = v;
+  return v;
+}
+__device__ __forceinline__ float store(__nv_bfloat16* p, float v) {
+  const __nv_bfloat16 r = __float2bfloat16_rn(v);
+  *p = r;
+  return __bfloat162float(r);
+}
+
+// K3/K4 on the GEMM: float32 (x, weight; the prologue in the GEMM) or bf16
+// (packed_x, packed_w: x with the prologue applied and the weights, packed
+// by pack_pairs and pack_weights).
+template <typename T, bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(kThreads, 2)
     conv3x3_fwd_kernel(Grid g, const float* __restrict__ x, const float* __restrict__ weight,
-                       const float* __restrict__ bias, const float* __restrict__ scale,
-                       const float* __restrict__ shift, float* __restrict__ y,
-                       float* __restrict__ part, int cin) {
+                       const uint32_t* __restrict__ packed_x,
+                       const uint32_t* __restrict__ packed_w, const T* __restrict__ bias,
+                       const float* __restrict__ scale, const float* __restrict__ shift,
+                       T* __restrict__ y, float* __restrict__ part, int cin) {
   extern __shared__ __align__(16) float smem[];
   const Place at = place(g);
   float acc[kMt][kNt][4];
-  gemm<false, kPrologue>(geo(g, at, x, weight, scale, shift, cin), smem, acc);
+  if constexpr (std::is_same_v<T, float>)
+    gemm<false, kPrologue>(geo(g, at, x, weight, scale, shift, cin), smem, acc);
+  else
+    gemm_bf16(geo_bf16(g, at, packed_x, packed_w, (cin + 1) / 2),
+              reinterpret_cast<uint32_t*>(smem), acc);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -74,7 +122,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = at.n0 + 8 * j + 2 * tig + e;
-      bv[j][e] = bias != nullptr && c < cout ? bias[c] : 0.0f;
+      bv[j][e] = bias != nullptr && c < cout ? to_f32(bias[c]) : 0.0f;
       s[j][e] = q[j][e] = 0.0f;
     }
 #pragma unroll
@@ -90,8 +138,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 2; ++e) {
           const int c = at.n0 + 8 * j + 2 * tig + e;
           if (c >= cout) continue;
-          const float v = __fadd_rn(acc[i][j][2 * u + e], bv[j][e]);
-          y[(static_cast<int64_t>(at.b) * cout + c) * hw + yy * w + xx] = v;
+          const float v = store(y + (static_cast<int64_t>(at.b) * cout + c) * hw + yy * w + xx,
+                                __fadd_rn(acc[i][j][2 * u + e], bv[j][e]));
           if (kStats) {  // over the stored values, as the TPU kernel
             s[j][e] += v;
             q[j][e] = fmaf(v, v, q[j][e]);
@@ -137,12 +185,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// The stem, Cin = 1: a thread per pixel of the box, all output channels.
-template <bool kPrologue, bool kStats>
+// The stem, Cin = 1: a thread per pixel of the box, all output channels. In
+// bf16 the prologue's activation is rounded to bf16 before the products.
+template <typename T, bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(kThreads)
-    conv3x3_fwd_stem_kernel(const float* __restrict__ x, const float* __restrict__ weight,
-                            const float* __restrict__ bias, const float* __restrict__ scale,
-                            const float* __restrict__ shift, float* __restrict__ y,
+    conv3x3_fwd_stem_kernel(const T* __restrict__ x, const T* __restrict__ weight,
+                            const T* __restrict__ bias, const float* __restrict__ scale,
+                            const float* __restrict__ shift, T* __restrict__ y,
                             float* __restrict__ part, int cout, int h, int w, int th, int tw) {
   __shared__ float red[kWarps][32][2];
   const int b = blockIdx.y, box = blockIdx.x;
@@ -152,27 +201,27 @@ __global__ void __launch_bounds__(kThreads)
   const int yy = (box / nbx) * th + tid / tw, xx = (box % nbx) * tw + tid % tw;
   const bool in = tid < th * tw && yy < h && xx < w;
   const int64_t hw = static_cast<int64_t>(h) * w;
-  const float* xb = x + static_cast<int64_t>(b) * hw;
+  const T* xb = x + static_cast<int64_t>(b) * hw;
   const float sc = kPrologue ? scale[0] : 0.0f, sh = kPrologue ? shift[0] : 0.0f;
   float a[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
     const int ty = yy + t / 3 - 1, tx = xx + t % 3 - 1;
     const bool ok = in && ty >= 0 && ty < h && tx >= 0 && tx < w;
-    const float v = ok ? xb[ty * w + tx] : 0.0f;
-    a[t] = kPrologue && ok ? affine_relu(v, sc, sh) : v;
+    const float v = ok ? to_f32(xb[ty * w + tx]) : 0.0f;
+    a[t] = kPrologue && ok ? round_as<T>(affine_relu(v, sc, sh)) : v;
   }
-  float* out = y + static_cast<int64_t>(b) * cout * hw + yy * w + xx;
+  T* out = y + static_cast<int64_t>(b) * cout * hw + yy * w + xx;
   for (int c0 = 0; c0 < cout; c0 += 32) {
     const int nc = cout - c0 < 32 ? cout - c0 : 32;
     for (int c_l = 0; c_l < nc; ++c_l) {
       const int c = c0 + c_l;
-      const float* wc = weight + c * 9;  // the same address in the whole block
-      float acc = __fmul_rn(wc[0], a[0]);
+      const T* wc = weight + c * 9;  // the same address in the whole block
+      float acc = __fmul_rn(to_f32(wc[0]), a[0]);
 #pragma unroll
-      for (int t = 1; t < 9; ++t) acc = fmaf(wc[t], a[t], acc);
-      const float v = __fadd_rn(acc, bias != nullptr ? bias[c] : 0.0f);
-      if (in) out[c * hw] = v;
+      for (int t = 1; t < 9; ++t) acc = fmaf(to_f32(wc[t]), a[t], acc);
+      float v = __fadd_rn(acc, bias != nullptr ? to_f32(bias[c]) : 0.0f);
+      if (in) v = store(out + c * hw, v);
       if (kStats) {
         float sv = in ? v : 0.0f, qv = sv * sv;
 #pragma unroll
@@ -204,19 +253,124 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPrologue, bool kStats>
-cudaError_t launch(const Grid& g, int b, int cin, const float* x, const float* weight,
-                   const float* bias, const float* scale, const float* shift, float* y,
-                   float* part, cudaStream_t s) {
+// bf16 x (b, cin, h, w) → (b, ceil(cin / 2), h, w) words of channel pairs,
+// channel 2 p in the low half; with kPrologue each value is relu(x * scale
+// + shift) in float32 rounded to bf16; 0 past the channels.
+template <bool kPrologue>
+__global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift, uint32_t* __restrict__ out,
+                                  int64_t words, int cin, int64_t hw) {
+  const int pairs = (cin + 1) / 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+       i += stride) {
+    const int64_t px = i % hw, bp = i / hw;
+    const int k = 2 * static_cast<int>(bp % pairs);
+    const __nv_bfloat16* src = x + ((bp / pairs) * cin + k) * hw + px;
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      v[e] = k + e < cin ? __bfloat162float(src[e * hw]) : 0.0f;
+      if (kPrologue && k + e < cin) v[e] = affine_relu(v[e], scale[k + e], shift[k + e]);
+    }
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);  // .x, the low half: v[0]
+    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+}
+
+// bf16 weight (cout, cin, 3, 3) → for each (channel tile of kBn, chunk of
+// 16 channels) its run of kChunkWords words in the stage's order
+// (conv3x3::b_word), 0 past the channels.
+__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
+                                    uint32_t* __restrict__ out, int64_t words, int cin,
+                                    int cout, int chunks) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+       i += stride) {
+    const int64_t run = i / kChunkWords;
+    const int r = static_cast<int>(i - run * kChunkWords);
+    const int tile = static_cast<int>(run / chunks), chunk = static_cast<int>(run % chunks);
+    // invert b_word: r = t * 256 + ng * 64 + pg * 32 + n7 * 4 + p3
+    const int t = r / kTapWords, q = r % kTapWords;
+    const int n_l = (q >> 6) * 8 + ((q >> 2) & 7), p = ((q >> 5) & 1) * 4 + (q & 3);
+    const int n = tile * kBn + n_l, k = chunk * 2 * kPairs + 2 * p;
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      v[e] = n < cout && k + e < cin
+                 ? __bfloat162float(weight[(static_cast<int64_t>(n) * cin + k + e) * 9 + t])
+                 : 0.0f;
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
+    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+}
+
+inline unsigned grid_stride_blocks(int64_t n) {
+  const int64_t blocks = (n + 255) / 256;
+  return static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
+}
+
+// Words of the packed operands of a bf16 launch: x's pairs, rounded up to 4
+// words so that the weights after them are 16-byte aligned, then the weights.
+inline int64_t packed_x_words(int b, int cin, int h, int w) {
+  return (static_cast<int64_t>(b) * ((cin + 1) / 2) * h * w + 3) & ~int64_t{3};
+}
+inline int64_t packed_w_words(int cin, int cout) {
+  return static_cast<int64_t>((cout + kBn - 1) / kBn) * ((cin + 2 * kPairs - 1) / (2 * kPairs)) *
+         kChunkWords;
+}
+
+template <typename T, bool kPrologue, bool kStats>
+cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, const T* bias,
+                   const float* scale, const float* shift, T* y, float* part, uint32_t* packed,
+                   cudaStream_t s) {
   if (cin == 1) {
     if (b > 65535) return cudaErrorInvalidValue;
     const dim3 grid(static_cast<unsigned>(g.boxes), static_cast<unsigned>(b));
-    conv3x3_fwd_stem_kernel<kPrologue, kStats><<<grid, kThreads, 0, s>>>(
+    conv3x3_fwd_stem_kernel<T, kPrologue, kStats><<<grid, kThreads, 0, s>>>(
         x, weight, bias, scale, shift, y, part, g.nc, g.h, g.w, g.box.th, g.box.tw);
     return cudaGetLastError();
   }
-  return launch_grid(conv3x3_fwd_kernel<kPrologue, kStats>, g, b, s, x, weight, bias, scale,
-                     shift, y, part, cin);
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_grid(conv3x3_fwd_kernel<float, kPrologue, kStats>, g, b, s, x, weight,
+                       static_cast<const uint32_t*>(nullptr), static_cast<const uint32_t*>(nullptr),
+                       bias, scale, shift, y, part, cin);
+  } else {
+    const int64_t hw = static_cast<int64_t>(g.h) * g.w;
+    const int64_t xw = static_cast<int64_t>(b) * ((cin + 1) / 2) * hw;
+    const int64_t ww = packed_w_words(cin, g.nc);
+    uint32_t* px = packed;
+    uint32_t* pw = packed + packed_x_words(b, cin, g.h, g.w);
+    pack_pairs_kernel<kPrologue><<<grid_stride_blocks(xw), 256, 0, s>>>(x, scale, shift, px, xw,
+                                                                         cin, hw);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    pack_weights_kernel<<<grid_stride_blocks(ww), 256, 0, s>>>(
+        weight, pw, ww, cin, g.nc, (cin + 2 * kPairs - 1) / (2 * kPairs));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_grid_bytes(conv3x3_fwd_kernel<T, false, kStats>, g, b, s,
+                             smem_bytes_bf16(g.plane), static_cast<const float*>(nullptr),
+                             static_cast<const float*>(nullptr),
+                             static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(pw),
+                             bias, scale, shift, y, part, cin);
+  }
+}
+
+template <typename T>
+cudaError_t launch_all(const Grid& g, int b, int cin, const void* x, const void* weight,
+                       const void* bias, const float* sc, const float* sh, void* y, float* pf,
+                       uint32_t* packed, int prologue, int with_stats, cudaStream_t s) {
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wt = static_cast<const T*>(weight);
+  const auto* bt = static_cast<const T*>(bias);
+  auto* yt = static_cast<T*>(y);
+  if (prologue && with_stats)
+    return launch<T, true, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
+  if (prologue) return launch<T, true, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
+  if (with_stats) return launch<T, false, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
+  return launch<T, false, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
 }
 
 }  // namespace
@@ -226,37 +380,40 @@ extern "C" long long im2im_conv3x3_scratch(int b, int cout, int h, int w) {
   return static_cast<long long>(b) * make_grid(h, w, cout).boxes * 2 * cout;
 }
 
+// 32-bit words of the packed operands that a bf16 im2im_conv3x3_fused needs
+// (0 for the stem, Cin = 1).
+extern "C" long long im2im_conv3x3_packed_words(int b, int cin, int cout, int h, int w) {
+  return cin == 1 ? 0 : packed_x_words(b, cin, h, w) + packed_w_words(cin, cout);
+}
+
 // K3 and K4. x (b, cin, h, w), weight (cout, cin, 3, 3), bias (cout) or
-// null, y (b, cout, h, w); float32, contiguous. scale, shift (cin) feed
-// the prologue, read when prologue != 0; with with_stats != 0, part
-// (im2im_conv3x3_scratch floats) and stats (b, 2, cout) are written:
-// stats[i][0] = sum of y[i], stats[i][1] = sum of y[i]^2 per channel. K3 is
-// the call with neither. Returns a cudaError_t value.
+// null, y (b, cout, h, w): dtype 0 float32, 1 bfloat16, contiguous; scale,
+// shift (cin) float32 feed the prologue, read when prologue != 0; with
+// with_stats != 0, part (im2im_conv3x3_scratch floats) and stats (b, 2,
+// cout) float32 are written: stats[i][0] = sum of y[i], stats[i][1] = sum of
+// y[i]^2 per channel, over the stored values. K3 is the call with neither.
+// packed: im2im_conv3x3_packed_words words of scratch for bf16 (unread for
+// float32). Returns a cudaError_t value.
 extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void* bias,
                                    const void* scale, const void* shift, void* y, void* part,
-                                   void* stats, int b, int cin, int cout, int h, int w,
-                                   int prologue, int with_stats, int device, void* stream) {
+                                   void* stats, void* packed, int b, int cin, int cout, int h,
+                                   int w, int prologue, int with_stats, int dtype, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0)
+  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Grid g = make_grid(h, w, cout);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wf = static_cast<const float*>(weight);
-  const auto* bf = static_cast<const float*>(bias);
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
-  auto* yf = static_cast<float*>(y);
   auto* pf = static_cast<float*>(part);
+  auto* pk = static_cast<uint32_t*>(packed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (prologue && with_stats)
-    err = launch<true, true>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
-  else if (prologue)
-    err = launch<true, false>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
-  else if (with_stats)
-    err = launch<false, true>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
+  if (dtype == 0)
+    err = launch_all<float>(g, b, cin, x, weight, bias, sc, sh, y, pf, pk, prologue, with_stats, s);
   else
-    err = launch<false, false>(g, b, cin, xf, wf, bf, sc, sh, yf, pf, s);
+    err = launch_all<__nv_bfloat16>(g, b, cin, x, weight, bias, sc, sh, y, pf, pk, prologue,
+                                    with_stats, s);
   if (err != cudaSuccess || !with_stats) return static_cast<int>(err);
   return static_cast<int>(
       launch_reduce_rows(pf, static_cast<float*>(stats), b, g.boxes, 2LL * cout, s));

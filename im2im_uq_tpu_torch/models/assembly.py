@@ -22,7 +22,8 @@ from im2im_uq_tpu_torch.models.unet import UNet, WNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
 
 __all__ = [
-    "UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc", "resolve_remat",
+    "UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc", "resolve_dtype",
+    "resolve_remat",
 ]
 
 
@@ -120,7 +121,23 @@ def resolve_remat(params: dict):
     )
 
 
-def build_trunk(params: dict) -> nn.Module:
+def resolve_dtype(params: dict, dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """Compute dtype from the config's ``compute_dtype``, as the JAX
+    package's ``resolve_dtype``: None, "float32" and "f32" give float32,
+    "bfloat16" and "bf16" bfloat16, anything else raises; an explicit
+    ``dtype`` wins. The parameters and BatchNorm statistics stay float32
+    either way."""
+    if dtype is not None:
+        return dtype
+    name = params.get("compute_dtype")
+    if name in (None, "float32", "f32"):
+        return torch.float32
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown compute_dtype {name!r}")
+
+
+def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Trunk factory for the config's ``model``, "UNet" or "WNet" (ResNet18
     is not yet ported); its parameters are left on the meta device until
     :func:`add_uncertainty` places and fills them.
@@ -136,16 +153,15 @@ def build_trunk(params: dict) -> nn.Module:
     with ``pallas_fused``, whose kernels fold their own BatchNorm, they are
     refused as the JAX package refuses them. ``remat`` is validated as the
     JAX package's ``resolve_remat`` does (:func:`resolve_remat`); a mode
-    other than off is not yet ported.
+    other than off is not yet ported. The compute dtype is
+    :func:`resolve_dtype`'s; under ``pallas_fused`` a bf16 model serves,
+    and its training is refused by ``training/train.py``.
     """
     remat = resolve_remat(params)
     if remat:
         raise NotImplementedError(f"remat {remat!r} is not yet ported")
+    dtype = resolve_dtype(params, dtype)
     name = params.get("model", "UNet")
-    if params.get("compute_dtype") not in (None, "float32", "f32"):
-        raise NotImplementedError(
-            f"compute_dtype {params['compute_dtype']!r} is not yet ported"
-        )
     if name == "ResNet18":
         raise NotImplementedError(f"trunk {name!r} is not yet ported")
     if name not in ("UNet", "WNet"):
@@ -168,9 +184,9 @@ def build_trunk(params: dict) -> nn.Module:
         raise ValueError(f"unknown pool_backend {params['pool_backend']!r}")
     with torch.device("meta"):
         if name == "WNet":  # it reads channels 0 and 1 of its input
-            return WNet(n_channels_out=1, conv_backend=conv_backend)
+            return WNet(n_channels_out=1, conv_backend=conv_backend, dtype=dtype)
         return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
-                    conv_backend=conv_backend)
+                    conv_backend=conv_backend, dtype=dtype)
 
 
 def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:
@@ -194,9 +210,11 @@ def add_uncertainty(
     *,
     generator: Optional[torch.Generator] = None,
     device: torch.device | str = "cuda",
+    dtype: Optional[torch.dtype] = None,
 ) -> UQState:
     """Wrap a trunk with the configured head and place it on ``device``
-    (the card unless the caller asks for the CPU).
+    (the card unless the caller asks for the CPU). The head computes in the
+    config's compute dtype (:func:`resolve_dtype`, ``dtype`` winning).
 
     With a ``generator`` the weights get torch's default init drawn from it
     (on the generator's device, then moved). Without one they are left
@@ -204,7 +222,8 @@ def add_uncertainty(
     """
     with torch.device("meta"):
         head = build_head(
-            params["uncertainty_type"], trunk.n_channels_middle, trunk.n_channels_out, params
+            params["uncertainty_type"], trunk.n_channels_middle, trunk.n_channels_out, params,
+            resolve_dtype(params, dtype),
         )
     model = UQModel(trunk, head)
     if generator is not None:

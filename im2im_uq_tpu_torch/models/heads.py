@@ -8,7 +8,9 @@ serves ``quantiles``, ``quantiles_l1`` and ``inn``, the residual head both
 component either way, and the per-example means reduce over all of an
 example's pixels. The softmax head's K is its ``num_softmax`` classes.
 Each head runs its sibling convs, which read the same trunk features, as
-one conv over their concatenated weights and biases (``heads.py:42-65``).
+one conv over their concatenated weights and biases (``heads.py:42-65``),
+in the compute dtype ``dtype``; its output is float32 (``heads.py:87, 104,
+124, 149``), so the losses and the calibration see float32.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from im2im_uq_tpu_torch.models.unet import compute_cast
 from im2im_uq_tpu_torch.ops import losses as L
 
 __all__ = [
@@ -44,12 +47,12 @@ def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
 
 
-def _fused_conv3x3(x: torch.Tensor, convs) -> torch.Tensor:
-    """The sibling convs as one conv: their outputs concatenated along the
-    channels, in the order given."""
-    weight = torch.cat([c.weight for c in convs], dim=0)
-    bias = torch.cat([c.bias for c in convs], dim=0)
-    return F.conv2d(x, weight, bias, padding=1)
+def _fused_conv3x3(x: torch.Tensor, convs, dtype: torch.dtype) -> torch.Tensor:
+    """The sibling convs as one conv in ``dtype``: their outputs
+    concatenated along the channels, in the order given."""
+    weight = compute_cast(torch.cat([c.weight for c in convs], dim=0), dtype)
+    bias = compute_cast(torch.cat([c.bias for c in convs], dim=0), dtype)
+    return F.conv2d(compute_cast(x, dtype), weight, bias, padding=1)
 
 
 def _components(y: torch.Tensor, k: int) -> torch.Tensor:
@@ -62,14 +65,16 @@ class QuantileHead(nn.Module):
     """Three conv3x3 heads: lower quantile, prediction, upper quantile.
     Output: (B, 3, C, H, W) float32, components lower/prediction/upper."""
 
-    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1):
+    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.lower = _conv3x3(n_channels_middle, n_channels_out)
         self.prediction = _conv3x3(n_channels_middle, n_channels_out)
         self.upper = _conv3x3(n_channels_middle, n_channels_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _fused_conv3x3(x, (self.lower, self.prediction, self.upper))
+        y = _fused_conv3x3(x, (self.lower, self.prediction, self.upper), self.dtype)
         return _components(y, 3).float()
 
 
@@ -77,13 +82,15 @@ class GaussianHead(nn.Module):
     """Mean and ReLU-rectified variance (``heads.py:90``).
     Output: (B, 2, C, H, W) float32, components mean/variance."""
 
-    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1):
+    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.mean = _conv3x3(n_channels_middle, n_channels_out)
         self.variance = _conv3x3(n_channels_middle, n_channels_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _components(_fused_conv3x3(x, (self.mean, self.variance)), 2)
+        y = _components(_fused_conv3x3(x, (self.mean, self.variance), self.dtype), 2)
         return torch.stack([y[:, 0], F.relu(y[:, 1])], dim=1).float()
 
 
@@ -92,13 +99,15 @@ class ResidualMagnitudeHead(nn.Module):
     ``jnp.abs``'s derivative (``ops/losses.absolute``).
     Output: (B, 2, C, H, W) float32, components prediction/magnitude."""
 
-    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1):
+    def __init__(self, n_channels_middle: int = 32, n_channels_out: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.prediction = _conv3x3(n_channels_middle, n_channels_out)
         self.residual_magnitude = _conv3x3(n_channels_middle, n_channels_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _components(_fused_conv3x3(x, (self.prediction, self.residual_magnitude)), 2)
+        y = _components(_fused_conv3x3(x, (self.prediction, self.residual_magnitude), self.dtype), 2)
         return torch.stack([y[:, 0], L.absolute(y[:, 1])], dim=1).float()
 
 
@@ -109,39 +118,43 @@ class SoftmaxHead(nn.Module):
     export writes for its ``out{c}`` convs). Output: (B, S, C, H, W)
     float32 logits; the JAX head's are (B, S, H, W, C)."""
 
-    def __init__(self, num_softmax: int, n_channels_middle: int = 32, n_channels_out: int = 1):
+    def __init__(self, num_softmax: int, n_channels_middle: int = 32, n_channels_out: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.output_layers = nn.ModuleList(
             _conv3x3(n_channels_middle, num_softmax) for _ in range(n_channels_out)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # channel-major concatenation: (B, C·S, H, W) → (B, C, S, H, W)
-        y = _components(_fused_conv3x3(x, self.output_layers), len(self.output_layers))
+        y = _components(_fused_conv3x3(x, self.output_layers, self.dtype), len(self.output_layers))
         return y.transpose(1, 2).float()
 
 
-HEAD_BUILDERS: dict[str, Callable[[int, int, dict], nn.Module]] = {
-    "quantiles": lambda mid, out, p: QuantileHead(mid, out),
-    "quantiles_l1": lambda mid, out, p: QuantileHead(mid, out),
-    "inn": lambda mid, out, p: QuantileHead(mid, out),
-    "gaussian": lambda mid, out, p: GaussianHead(mid, out),
-    "residual_magnitude": lambda mid, out, p: ResidualMagnitudeHead(mid, out),
-    "residual_magnitude_l1": lambda mid, out, p: ResidualMagnitudeHead(mid, out),
-    "softmax": lambda mid, out, p: SoftmaxHead(int(p["num_softmax"]), mid, out),
+HEAD_BUILDERS: dict[str, Callable[[int, int, dict, torch.dtype], nn.Module]] = {
+    "quantiles": lambda mid, out, p, dt: QuantileHead(mid, out, dt),
+    "quantiles_l1": lambda mid, out, p, dt: QuantileHead(mid, out, dt),
+    "inn": lambda mid, out, p, dt: QuantileHead(mid, out, dt),
+    "gaussian": lambda mid, out, p, dt: GaussianHead(mid, out, dt),
+    "residual_magnitude": lambda mid, out, p, dt: ResidualMagnitudeHead(mid, out, dt),
+    "residual_magnitude_l1": lambda mid, out, p, dt: ResidualMagnitudeHead(mid, out, dt),
+    "softmax": lambda mid, out, p, dt: SoftmaxHead(int(p["num_softmax"]), mid, out, dt),
 }
 
 
 def build_head(
-    uncertainty_type: str, n_channels_middle: int, n_channels_out: int, params: dict
+    uncertainty_type: str, n_channels_middle: int, n_channels_out: int, params: dict,
+    dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
     """Head factory (reference add_uncertainty.py:51-87); ``params`` is the
-    config, which gives the softmax head its ``num_softmax``."""
+    config, which gives the softmax head its ``num_softmax``; ``dtype`` the
+    compute dtype of its convs."""
     try:
         builder = HEAD_BUILDERS[uncertainty_type]
     except KeyError:
         raise NotImplementedError(f"unknown uncertainty_type {uncertainty_type!r}") from None
-    return builder(n_channels_middle, n_channels_out, params)
+    return builder(n_channels_middle, n_channels_out, params, dtype)
 
 
 _pe = L.per_example_mean

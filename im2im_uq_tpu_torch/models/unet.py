@@ -21,6 +21,15 @@ in every case:
   only bn1's affine + ReLU runs as elementwise work; K5 and K6 are the
   backward. The folded BatchNorm is :func:`fold_batchnorm`.
 
+``dtype`` is the compute dtype, float32 or bfloat16 (``compute_dtype`` of
+the config), as the JAX modules' ``dtype`` is: the parameters and the
+BatchNorm running statistics stay float32, and each conv casts its input,
+weight and bias to ``dtype`` first (the JAX ``promote_dtype`` calls,
+``unet.py:440-518,863-873``), so the activations between the convs are
+``dtype``. In bfloat16, BatchNorm is :func:`batch_norm_low_precision`,
+flax's: statistics reduced in float32, the affine in float32, one rounding.
+Under ``pallas_fused`` the folded scale and shift stay float32.
+
 An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
 ``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
 the kernel, so the concatenation is never built (``unet.py:615-629,
@@ -43,7 +52,7 @@ from im2im_uq_tpu_torch.ops.resize import resize_bilinear_align_corners, upsampl
 
 __all__ = [
     "CONV_BACKENDS", "DoubleConv", "Down", "OutConv", "UNet", "Up", "UpNoSkip", "WNet",
-    "fold_batchnorm",
+    "batch_norm_low_precision", "compute_cast", "fold_batchnorm",
 ]
 
 CONV_BACKENDS = ("xla", "pallas", "pallas_fused")
@@ -58,6 +67,41 @@ def _bn(features: int) -> nn.BatchNorm2d:
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
+
+
+def compute_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in the compute dtype: cast to bf16 for a bf16 model; a float32
+    model casts nothing, so that the whole model can run in f64."""
+    return t if dtype == torch.float32 else t.to(dtype)
+
+
+def batch_norm_low_precision(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """BatchNorm of a bf16 ``x`` as the JAX ``TorchBatchNorm`` computes it
+    through flax's ``_compute_stats`` and ``_normalize`` (``unet.py:39-117``),
+    with ``bn``'s float32 parameters and running statistics.
+
+    Train: mean = E[x], var = max(0, E[x²] − mean²) (flax's fast variance),
+    reduced in float32 from the bf16 values; the running statistics move in
+    place, without gradient, by torch's momentum with the unbiased variance
+    var·n/(n−1), and ``num_batches_tracked`` counts the step. Eval: the
+    running statistics. Then ((x − mean)·(rsqrt(var + ε)·γ) + β) in float32,
+    in flax's order, rounded once to ``x.dtype``."""
+    xf = x.float()
+    if train:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            bessel = n / (n - 1) if n > 1 else 1.0
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var * bessel)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - _per_channel(mean)) * _per_channel(mul) + _per_channel(bn.bias)
+    return y.to(x.dtype)
 
 
 def fold_batchnorm(
@@ -93,16 +137,18 @@ class DoubleConv(nn.Module):
     """(conv3x3 → BN → ReLU) × 2, run by ``conv_backend`` (module docstring).
 
     Its input is a tensor, or the pair (skip, upsampled) of an ``Up``,
-    which stands for their concatenation along the channels.
+    which stands for their concatenation along the channels. Each conv runs
+    in ``dtype`` (module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: Optional[int] = None,
-                 conv_backend: str = "xla"):
+                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32):
         super().__init__()
         if conv_backend not in CONV_BACKENDS:
             raise ValueError(f"unknown conv_backend {conv_backend!r}")
         mid = mid_channels if mid_channels is not None else out_channels
         self.conv_backend = conv_backend
+        self.dtype = dtype
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, kernel_size=3, padding=1),
             _bn(mid),
@@ -119,22 +165,37 @@ class DoubleConv(nn.Module):
             return self._pallas(x)
         if isinstance(x, tuple):
             x = torch.cat(x, dim=1)
-        return self.double_conv(x)
+        conv0, bn0, _, conv1, bn1, _ = self.double_conv
+        y = self._bn_relu(bn0, F.conv2d(compute_cast(x, self.dtype), *self._params(conv0),
+                                        padding=1))
+        return self._bn_relu(bn1, F.conv2d(y, *self._params(conv1), padding=1))
+
+    def _params(self, conv: nn.Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
+        """A conv's weight and bias in the compute dtype."""
+        return compute_cast(conv.weight, self.dtype), compute_cast(conv.bias, self.dtype)
+
+    def _bn_relu(self, bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+        """BatchNorm (torch's in f32, flax's in bf16), then ReLU in place on
+        its fresh output, which neither backward reads."""
+        if self.dtype == torch.float32:
+            return F.relu(bn(y), inplace=True)
+        return F.relu(batch_norm_low_precision(bn, y, self.training), inplace=True)
 
     def _conv0_k3(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         """conv0 through K3; over a pair, one K3 call per half of the
         kernel, the bias in the first."""
-        conv = self.double_conv[0]
+        weight, bias = self._params(self.double_conv[0])
         if not isinstance(x, tuple):
-            return conv3x3(x, conv.weight, conv.bias)
+            return conv3x3(compute_cast(x, self.dtype), weight, bias)
         a, b = x
         ca = a.shape[1]
-        return conv3x3(a, conv.weight[:, :ca], conv.bias) + conv3x3(b, conv.weight[:, ca:])
+        return (conv3x3(compute_cast(a, self.dtype), weight[:, :ca], bias)
+                + conv3x3(compute_cast(b, self.dtype), weight[:, ca:]))
 
     def _pallas(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         _, bn0, _, conv1, bn1, _ = self.double_conv
-        y = F.relu(bn0(self._conv0_k3(x)))
-        return F.relu(bn1(conv3x3(y, conv1.weight, conv1.bias)))
+        y = self._bn_relu(bn0, self._conv0_k3(x))
+        return self._bn_relu(bn1, conv3x3(y, *self._params(conv1)))
 
     def _fused(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         conv0, bn0, _, conv1, bn1, _ = self.double_conv
@@ -142,22 +203,24 @@ class DoubleConv(nn.Module):
         s0 = q0 = None
         if isinstance(x, tuple):
             # Σ(y_a + y_b)² is not a sum of per-half stats, so the halves
-            # run K3 and the stats are reduced here (unet.py:615-629)
+            # run K3 and the stats are reduced here, in f32 (unet.py:615-629)
             y0 = self._conv0_k3(x)
             if train:
-                s0, q0 = y0.sum((0, 2, 3)), (y0 * y0).sum((0, 2, 3))
+                y0f = y0.to(torch.promote_types(y0.dtype, torch.float32))
+                s0, q0 = y0f.sum((0, 2, 3)), (y0f * y0f).sum((0, 2, 3))
         else:
-            y0, st0 = conv3x3_bn_act(x, conv0.weight, conv0.bias, None, None,
+            y0, st0 = conv3x3_bn_act(compute_cast(x, self.dtype), *self._params(conv0), None, None,
                                      prologue=False, stats=train)
             if train:
                 s0, q0 = st0[:, 0].sum(0), st0[:, 1].sum(0)
         n = y0.shape[0] * y0.shape[2] * y0.shape[3]
         scale0, shift0 = fold_batchnorm(bn0, s0, q0, n, train)
-        y1, st1 = conv3x3_bn_act(y0, conv1.weight, conv1.bias, scale0, shift0,
+        y1, st1 = conv3x3_bn_act(y0, *self._params(conv1), scale0, shift0,
                                  prologue=True, stats=train)
         s1, q1 = (st1[:, 0].sum(0), st1[:, 1].sum(0)) if train else (None, None)
         scale1, shift1 = fold_batchnorm(bn1, s1, q1, n, train)
-        return F.relu(y1 * _per_channel(scale1) + _per_channel(shift1))
+        # the affine in f32 (a bf16 y1 promotes), rounded to y1's dtype
+        return F.relu(y1 * _per_channel(scale1) + _per_channel(shift1)).to(y1.dtype)
 
 
 class Down(nn.Module):
@@ -167,10 +230,12 @@ class Down(nn.Module):
     ``maxpool_conv.1.*``.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla"):
+    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
-            MaxPool2x2(), DoubleConv(in_channels, out_channels, conv_backend=conv_backend)
+            MaxPool2x2(),
+            DoubleConv(in_channels, out_channels, conv_backend=conv_backend, dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -181,10 +246,11 @@ class Up(nn.Module):
     """2x bilinear upsample, centre pad to the skip's size, then DoubleConv
     over [skip, up] along the channels."""
 
-    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla"):
+    def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = DoubleConv(in_channels, out_channels, in_channels // 2,
-                               conv_backend=conv_backend)
+                               conv_backend=conv_backend, dtype=dtype)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         # the kernel takes NCHW-contiguous input; this copies only a
@@ -205,10 +271,11 @@ class UpNoSkip(nn.Module):
     The resize is K1 where the factor is 2, the per-axis lerps elsewhere
     (``ops/resize.resize_bilinear_align_corners``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, scale_factor: int = 2):
+    def __init__(self, in_channels: int, out_channels: int, scale_factor: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.scale_factor = scale_factor
-        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2)
+        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
@@ -217,36 +284,43 @@ class UpNoSkip(nn.Module):
 
 
 class OutConv(nn.Module):
-    """1×1 projection to the trunk's feature channels."""
+    """1×1 projection to the trunk's feature channels, in ``dtype``; its
+    output stays in ``dtype`` for the head (``unet.py:863-875``)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return F.conv2d(*(compute_cast(t, self.dtype)
+                          for t in (x, self.conv.weight, self.conv.bias)))
 
 
 class UNet(nn.Module):
     """4-down/4-up UNet, encoder 64/128/256/512/512, decoder 256/128/64/64,
-    1×1 out-conv to ``n_channels_middle`` (32) features. Input (B, C, H, W)."""
+    1×1 out-conv to ``n_channels_middle`` (32) features. Input (B, C, H, W);
+    the features come out in ``dtype``."""
 
     def __init__(self, n_channels_in: int = 1, n_channels_out: int = 1,
-                 n_channels_middle: int = 32, conv_backend: str = "xla"):
+                 n_channels_middle: int = 32, conv_backend: str = "xla",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
-        cb = conv_backend
-        self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb)
-        self.down1 = Down(64, 128, cb)
-        self.down2 = Down(128, 256, cb)
-        self.down3 = Down(256, 512, cb)
-        self.down4 = Down(512, 512, cb)
-        self.up1 = Up(1024, 256, cb)
-        self.up2 = Up(512, 128, cb)
-        self.up3 = Up(256, 64, cb)
-        self.up4 = Up(128, 64, cb)
-        self.out = OutConv(64, n_channels_middle)
+        self.conv_backend = conv_backend
+        self.dtype = dtype
+        cb, dt = conv_backend, dtype
+        self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb, dtype=dt)
+        self.down1 = Down(64, 128, cb, dt)
+        self.down2 = Down(128, 256, cb, dt)
+        self.down3 = Down(256, 512, cb, dt)
+        self.down4 = Down(512, 512, cb, dt)
+        self.up1 = Up(1024, 256, cb, dt)
+        self.up2 = Up(512, 128, cb, dt)
+        self.up3 = Up(256, 64, cb, dt)
+        self.up4 = Up(128, 64, cb, dt)
+        self.out = OutConv(64, n_channels_middle, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.inc(x)
@@ -267,23 +341,26 @@ class WNet(nn.Module):
     (DoubleConv 32, then Down 64/128/256/256, as ``p1*`` and ``p2*``); the
     decoder (Up 256/128/64/64) reads the two encoders' outputs concatenated
     per level, then a 1×1 out-conv to ``n_channels_middle`` (32) features.
-    Input (B, ≥2, H, W); channels past the second are not read."""
+    Input (B, ≥2, H, W); channels past the second are not read. The
+    features come out in ``dtype``."""
 
     def __init__(self, n_channels_out: int = 1, n_channels_middle: int = 32,
-                 conv_backend: str = "xla"):
+                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
-        cb = conv_backend
+        self.conv_backend = conv_backend
+        self.dtype = dtype
+        cb, dt = conv_backend, dtype
         for tag in ("p1", "p2"):
-            setattr(self, f"{tag}inc", DoubleConv(1, 32, conv_backend=cb))
+            setattr(self, f"{tag}inc", DoubleConv(1, 32, conv_backend=cb, dtype=dt))
             for i, (cin, cout) in enumerate(((32, 64), (64, 128), (128, 256), (256, 256)), 1):
-                setattr(self, f"{tag}down{i}", Down(cin, cout, cb))
-        self.up1 = Up(1024, 256, cb)
-        self.up2 = Up(512, 128, cb)
-        self.up3 = Up(256, 64, cb)
-        self.up4 = Up(128, 64, cb)
-        self.out = OutConv(64, n_channels_middle)
+                setattr(self, f"{tag}down{i}", Down(cin, cout, cb, dt))
+        self.up1 = Up(1024, 256, cb, dt)
+        self.up2 = Up(512, 128, cb, dt)
+        self.up3 = Up(256, 64, cb, dt)
+        self.up4 = Up(128, 64, cb, dt)
+        self.out = OutConv(64, n_channels_middle, dt)
 
     def _encode(self, p: torch.Tensor, tag: str) -> list[torch.Tensor]:
         feats = [getattr(self, f"{tag}inc")(p)]

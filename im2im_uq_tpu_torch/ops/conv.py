@@ -15,15 +15,19 @@ Counterpart of ``im2im_uq_tpu/ops/pallas_conv.py``:
 
 Layout NCHW, weights in ``nn.Conv2d``'s (Cout, Cin, 3, 3). On a CUDA tensor
 the forward wrappers :func:`conv3x3_fwd` and :func:`conv3x3_bn_act_fwd`
-launch the kernels of ``csrc/conv3x3.cu`` (float32 only); on a CPU tensor
-they run :func:`conv3x3_plain` and :func:`conv3x3_bn_act_plain`; any other
-device raises. The JAX package's channel padding to 128 lanes, its row
+launch the kernels of ``csrc/conv3x3.cu``; on a CPU tensor they run
+:func:`conv3x3_plain` and :func:`conv3x3_bn_act_plain`; any other device
+raises. x, weight, bias and y are float32 or bfloat16 (the TPU kernels'
+dtypes), scale, shift and the stats float32. A bf16 instance counts its
+launches apart, on ``conv3x3.bf16`` and ``conv3x3_bn_act.bf16``. K4's
+backward (K5, K6) takes float32 only. The JAX package's channel padding to 128 lanes, its row
 tiles and its XLA fallbacks for ineligible shapes have no counterpart: the
 kernels take every shape.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Optional
 
 import torch
@@ -42,12 +46,10 @@ __all__ = [
 ]
 
 
-def conv3x3_plain(
-    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """K3's plain version: the nine shifted matrix products of the TPU
-    kernel (``pallas_conv.py:104-114``) over the zero-padded input, then the
-    bias."""
+def _conv3x3_taps(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The nine shifted matrix products of the TPU kernel
+    (``pallas_conv.py:104-114``) over the zero-padded input, then the bias."""
     h, w = x.shape[-2:]
     xp = F.pad(x, (1, 1, 1, 1))
     y = None
@@ -59,17 +61,36 @@ def conv3x3_plain(
     return y if bias is None else y + bias[:, None, None]
 
 
+def conv3x3_plain(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K3's plain version: the taps' products summed, then the bias. A bf16
+    input is computed in f32 from its bf16 operands and rounded once, as
+    the TPU kernel's f32 accumulator is (``pallas_conv.py:104-115``)."""
+    if x.dtype != torch.bfloat16:
+        return _conv3x3_taps(x, weight, bias)
+    return _conv3x3_taps(x.float(), weight.float(),
+                         None if bias is None else bias.float()).to(x.dtype)
+
+
 def conv3x3_bn_act_plain(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     scale: Optional[torch.Tensor], shift: Optional[torch.Tensor], prologue: bool, stats: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's plain version. The prologue is applied before the zero padding,
-    so the padded frame stays 0 whatever ``shift`` is."""
-    a = conv_bwd.prologue_activation(x, scale, shift, prologue)
+    so the padded frame stays 0 whatever ``shift`` is. In bf16 the
+    prologue's activation is computed in f32 and rounded to bf16 before the
+    products (``pallas_conv.py:155-161``); the stats, f32, are taken over the
+    rounded output."""
+    if x.dtype == torch.bfloat16:
+        a = conv_bwd.prologue_activation(x.float(), scale, shift, prologue).to(x.dtype)
+    else:
+        a = conv_bwd.prologue_activation(x, scale, shift, prologue)
     y = conv3x3_plain(a, weight, bias)
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 → f32, f64 stays
     if not stats:
-        return y, y.new_zeros((y.shape[0], 2, y.shape[1]))
-    return y, torch.stack([y.sum((2, 3)), (y * y).sum((2, 3))], 1)
+        return y, yf.new_zeros((y.shape[0], 2, y.shape[1]))
+    return y, torch.stack([yf.sum((2, 3)), (yf * yf).sum((2, 3))], 1)
 
 
 def _check_conv(kernel: str, x, weight, bias) -> tuple[int, int, int, int, int]:
@@ -82,33 +103,51 @@ def _check_conv(kernel: str, x, weight, bias) -> tuple[int, int, int, int, int]:
     return b, cin, weight.shape[0], h, w
 
 
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_dtypes(kernel: str, x, weight, bias, scale, shift, prologue: bool) -> None:
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {x.dtype}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f"{kernel} kernel takes {name} in x's dtype {x.dtype}, got {t.dtype}")
+    conv_bwd.check_tensors(kernel, x.device, scale=scale if prologue else None,
+                           shift=shift if prologue else None)
+    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if t is not None and (not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"{kernel} kernel takes contiguous tensors on x's device, not {name}")
+
+
 def _launch(wrapper, x, weight, bias, scale, shift, prologue: bool,
             st: Optional[torch.Tensor]) -> torch.Tensor:
-    """One launch of ``im2im_conv3x3_fused``, counted on ``wrapper``; the
-    stats go to ``st`` unless it is None. K3 is its instance with neither
-    the prologue nor the stats."""
+    """One launch of ``im2im_conv3x3_fused``, counted on ``wrapper`` (on
+    ``wrapper.bf16`` for a bf16 input); the stats go to ``st`` unless it is
+    None. K3 is its instance with neither the prologue nor the stats."""
     name = wrapper.__name__
-    conv_bwd.check_tensors(name, x.device, x=x, weight=weight, bias=bias,
-                           scale=scale if prologue else None,
-                           shift=shift if prologue else None)
+    _check_dtypes(name, x, weight, bias, scale, shift, prologue)
     b, cin, cout, h, w = _check_conv(name, x, weight, bias)
     if prologue:
         conv_bwd.check_prologue(name, scale, shift, cin)
-    y = torch.empty((b, cout, h, w), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _build.library()
     scratch = (torch.empty((lib.im2im_conv3x3_scratch(b, cout, h, w),), dtype=torch.float32,
                            device=x.device) if st is not None else None)
+    bf16 = x.dtype == torch.bfloat16
+    packed = (torch.empty((lib.im2im_conv3x3_packed_words(b, cin, cout, h, w),),
+                          dtype=torch.int32, device=x.device) if bf16 else None)
     err = lib.im2im_conv3x3_fused(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
         scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
         y.data_ptr(), scratch.data_ptr() if st is not None else None,
         st.data_ptr() if st is not None else None,
-        b, cin, cout, h, w, int(prologue), int(st is not None), x.device.index,
-        conv_bwd.stream_of(x),
+        packed.data_ptr() if packed is not None and packed.numel() else None,
+        b, cin, cout, h, w, int(prologue), int(st is not None), _KERNEL_DTYPES[x.dtype],
+        x.device.index, conv_bwd.stream_of(x),
     )
-    wrapper.launches += 1
+    (wrapper.bf16 if bf16 else wrapper).launches += 1
     _build.check(err, name)
     return y
 
@@ -210,5 +249,8 @@ def conv3x3_bn_act(
                                prologue, stats)
 
 
-conv3x3.launches = 0  # K3 kernel launches since the last reset
-conv3x3_bn_act.launches = 0  # K4 kernel launches since the last reset
+conv3x3.launches = 0  # K3 kernel launches since the last reset (f32)
+conv3x3_bn_act.launches = 0  # K4 kernel launches since the last reset (f32)
+# the launches of the bf16 instances, counted apart
+conv3x3.bf16 = types.SimpleNamespace(launches=0)
+conv3x3_bn_act.bf16 = types.SimpleNamespace(launches=0)

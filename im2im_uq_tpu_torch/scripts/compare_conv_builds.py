@@ -89,8 +89,9 @@ def _fwd(lib, c: dict, prologue: bool, stats: bool):
     part = torch.empty((lib.im2im_conv3x3_scratch(b, cout, h, wd),), device="cuda")
     _build.check(lib.im2im_conv3x3_fused(
         x.data_ptr(), w.data_ptr(), c["bias"].data_ptr(), c["scale"].data_ptr(),
-        c["shift"].data_ptr(), y.data_ptr(), part.data_ptr(), st.data_ptr(), b, cin, cout, h, wd,
-        int(prologue), int(stats), x.device.index, torch.cuda.current_stream().cuda_stream),
+        c["shift"].data_ptr(), y.data_ptr(), part.data_ptr(), st.data_ptr(), None, b, cin, cout,
+        h, wd, int(prologue), int(stats), 0, x.device.index,
+        torch.cuda.current_stream().cuda_stream),
         "conv3x3")
     return y, st
 

@@ -112,9 +112,7 @@ def test_generator_init_is_seeded_torch_default():
             assert torch.equal(m.running_var, torch.ones_like(m.running_var))
 
 
-@pytest.mark.parametrize(
-    "override", [{"model": "ResNet18"}, {"compute_dtype": "bfloat16"}]
-)
+@pytest.mark.parametrize("override", [{"model": "ResNet18"}])
 def test_unported_configs_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tasm.build_trunk(dict(CFG, **override))
