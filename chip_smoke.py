@@ -43,6 +43,12 @@ Phases, one JSON line each on stdout:
               odd shapes, within ``conv_probe.bf16_tolerance``, the same
               bits twice; kernel, plain, library (``F.conv2d`` in bf16)
               and bound times.
+   k5_bf16, k6_bf16
+              the bf16 instances of K5 and K6 against their plain versions
+              at every K5/K6 launch of the bf16 ``pallas_fused`` train step
+              and the odd shapes, prologue on and off, the same bits twice;
+              kernel, plain, library (``torch.nn.grad.conv2d_weight`` /
+              ``conv2d_input`` in bf16) and bound times.
    probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
               conv), the ports of the Pallas probes of ``benchmarks/``,
               against their plain versions in f32 and bf16 at the probes'
@@ -100,17 +106,26 @@ Phases, one JSON line each on stdout:
               (router_softmax), whose λ grid and default λ differ.
 17. bf16      ``compute_dtype: bfloat16`` on the main path's model at
               320x320, batch 32: 5 train steps, calibration and serving
-              under ``xla`` and ``pallas``; calibration and serving under
-              ``pallas_fused`` of weights trained in f32; the eval forward
-              of those weights under each backend against the f32 one.
-18. bf16_models one bf16 eval forward of each other head and of WNet
+              under ``xla``, ``pallas`` and ``pallas_fused`` (K5/K6 in
+              bf16); calibration and serving under ``pallas_fused`` of
+              weights trained in f32; the eval forward of those weights
+              under each backend against the f32 one.
+18. bf16_gradcheck one bf16 ``pallas_fused`` train step at batch 2, 64x64
+              with the kernels against the plain versions on the card, and
+              both against the CPU's f64 step.
+19. bf16_models one bf16 eval forward of each other head and of WNet
               under each backend, against the f32 forward.
-19. router    the router in bf16 (router_bf16).
+20. router    the router in bf16 (router_bf16), and in bf16 under
+              ``pallas_fused`` (router_bf16_fused).
+21. remat     ``remat`` full, conv and bn at 320x320, batch 32, under
+              ``xla`` in f32 and ``pallas_fused`` in bf16: one step's loss,
+              gradients and statistics against remat off, the peak of
+              device memory and the step time beside remat off's.
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
-under the fused config, and each head's, WNet's and the softmax router's)
-and read just after it; the ``kernels`` line
+under the fused config, each head's, WNet's and the softmax router's, the
+bf16 paths and the remat steps) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -204,11 +219,13 @@ KERNELS = {
     "maxpool2x2_bwd": pool.max_pool2x2_bwd,
     "conv3x3": conv.conv3x3,
     "conv3x3_bn_act": conv.conv3x3_bn_act,
-    # the bf16 instances of K3 and K4, counted apart
+    # the bf16 instances of K3-K6, counted apart
     "conv3x3_bf16": conv.conv3x3.bf16,
     "conv3x3_bn_act_bf16": conv.conv3x3_bn_act.bf16,
     "wgrad3x3": conv_bwd.wgrad3x3,
     "dgrad3x3": conv_bwd.dgrad3x3,
+    "wgrad3x3_bf16": conv_bwd.wgrad3x3.bf16,
+    "dgrad3x3_bf16": conv_bwd.dgrad3x3.bf16,
     "moments": moments.moments,
     "conv3x3_single": conv_probe.conv3x3_single,
     "conv3x3_db": conv_probe.conv3x3_db,
@@ -266,10 +283,23 @@ PEAK_BF16_TC_FLOPS = 989e12
 # relative L2: bf16 rounding through 20 layers (3e-3 on the CPU at 128²,
 # tests/test_torch_port_bf16.py)
 BF16_EVAL_RTOL = 2e-2
-# the kernel launches that each bf16 path must make, beside K2 and K1f on
-# calibration and serving
+# the kernel launches that each bf16 eval path (calibration, serving) must
+# make, beside K2 and K1f
 BF16_KERNELS = {"xla": [], "pallas": ["conv3x3_bf16"],
                 "pallas_fused": ["conv3x3_bf16", "conv3x3_bn_act_bf16"]}
+# ... and each bf16 train path, beside K1f, K1b and K7: under pallas_fused
+# the backward of every K4 is K5 and K6 in bf16
+BF16_TRAIN_KERNELS = dict(BF16_KERNELS, pallas_fused=BF16_KERNELS["pallas_fused"]
+                          + ["wgrad3x3_bf16", "dgrad3x3_bf16"])
+# a bf16 train step with the kernels against the same step with their plain
+# versions on the card (phase_bf16_gradcheck), relative: the loss, the whole
+# gradient (L2 over every tensor) and each running statistic; the bars of
+# tests/test_torch_port_bf16.py for the port's bf16 step against the JAX
+# package's. The two round the same values to bf16 but sum in f32 in other
+# orders, so an output one bf16 ulp apart moves what follows it.
+BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_STAT_RTOL = 2e-3, 3e-1, 5e-3
+# remat modes of the UNet (phase_remat), each against remat off
+REMAT_MODES = ["full", "conv", "bn"]
 # (B, Cin, H, W, Cout) of the Pallas probes' defaults: P1's x
 # (benchmarks/bench_moments.py:28), P2-P5's conv
 # (benchmarks/bench_pallas_conv.py:377-389)
@@ -834,17 +864,20 @@ def bf16_bar(a: torch.Tensor, w: torch.Tensor, want: torch.Tensor) -> torch.Tens
 
 
 def bf16_conv_sites() -> dict:
-    """The bf16 K3 and K4 launches of the bf16 main paths at batch 32,
-    320x320 → {kernel: {path: Counter of ((B, Cin, H, W, Cout), prologue)}}:
-    K3 in the forward of the ``pallas`` train step (every conv) and in the
+    """The bf16 K3-K6 launches of the bf16 main paths at batch 32, 320x320
+    → {kernel: {path: Counter of ((B, Cin, H, W, Cout), prologue)}}: K3 in
+    the forward of the ``pallas`` train step (every conv) and in the
     ``pallas_fused`` eval forward (an Up's conv0 halves); K4 in the
     ``pallas_fused`` eval forward (conv0 without the prologue, conv1 with
-    it, no stats)."""
+    it, no stats); K5 and K6 in the backward of the ``pallas_fused`` train
+    step (the backward of every K4; K6 not for the stem's)."""
     fused = conv_sites("pallas_fused")
     return {
         "conv3x3_bf16": {"pallas": collections.Counter(conv_sites("pallas")["conv3x3"]),
                          "pallas_fused": collections.Counter(fused["conv3x3"])},
         "conv3x3_bn_act_bf16": {"pallas_fused": collections.Counter(fused["conv3x3_bn_act"])},
+        "wgrad3x3_bf16": {"pallas_fused": collections.Counter(fused["wgrad3x3"])},
+        "dgrad3x3_bf16": {"pallas_fused": collections.Counter(fused["dgrad3x3"])},
     }
 
 
@@ -862,7 +895,9 @@ def phase_conv_kernels_bf16() -> dict:
     forward on a ``k3_bf16_fused_eval`` line."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     results = {}
-    for kernel, paths in bf16_conv_sites().items():
+    sites = bf16_conv_sites()
+    for kernel in ("conv3x3_bf16", "conv3x3_bn_act_bf16"):
+        paths = sites[kernel]
         main = list(dict.fromkeys(case for c in paths.values() for case in c))
         prologues = [False] if kernel == "conv3x3_bf16" else [True, False]
         cases = main + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
@@ -932,6 +967,106 @@ def phase_conv_kernels_bf16() -> dict:
             results[kernel] = close_bound(sums["pallas"])
         else:
             results[kernel] = close_bound(sums["pallas_fused"])
+    return results
+
+
+def _bwd_bf16_calls(kernel: str, c: dict, prologue: bool):
+    """(kernel call, plain call, library call, bytes moved, the activation
+    or cotangent mass) of K5 or K6 in bf16 on the inputs ``c`` (x, g and
+    the weight rounded to bf16, scale and shift f32). The library call
+    computes the conv part alone, on bf16 tensors."""
+    x, g, w = (c[k].to(torch.bfloat16) for k in ("x", "g", "w"))
+    sc, sh = c["scale"], c["shift"]
+    cin = x.shape[1]
+    if kernel == "wgrad3x3_bf16":
+        a = conv_bwd.prologue_activation(x.float(), sc, sh, prologue).to(torch.bfloat16)
+        return (lambda: conv_bwd.wgrad3x3(x, g, sc, sh, prologue),
+                lambda: conv_bwd.wgrad3x3_plain(x, g, sc, sh, prologue),
+                lambda: torch.nn.grad.conv2d_weight(a, w.shape, g, padding=1),
+                2 * (x.numel() + g.numel()) + 4 * (w.numel() + g.shape[1] + 2 * cin), None)
+    # the mass of each dx: Σ|g||w| over its 9·Cout products
+    mass = conv_bwd.dgrad3x3_plain(g.float().abs(), x.float(), w.float().abs(), None, None,
+                                   False)[0]
+    return (lambda: conv_bwd.dgrad3x3(g, x, w, sc, sh, prologue),
+            lambda: conv_bwd.dgrad3x3_plain(g, x, w, sc, sh, prologue),
+            lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=1),
+            2 * (g.numel() + w.numel() + 2 * x.numel()) + 4 * 4 * cin, mass)
+
+
+def phase_conv_bwd_bf16() -> dict:
+    """The bf16 instances of K5 and K6 against their plain versions on the
+    card, at every K5/K6 launch of the bf16 ``pallas_fused`` train step
+    (``bf16_conv_sites``) and the odd shapes, prologue on and off; each run
+    twice, the same bits.
+
+    Bars: both sides sum exact bf16 products in f32, in other orders. dW,
+    db and K6's reductions are f32 sums over B·H·W terms, held as the f32
+    kernels' are: relative L2 and max|error| / max|plain| ≤ SUM_TOL. dx is
+    rounded once to bf16: within one bf16 ulp of the plain value plus what
+    the f32 order can move, 2·K·2^-24·Σ|g||w| (K = 9·Cout) times the
+    scale. Kernel and plain version round x·scale + shift alike (no FMA on
+    either side), so no mask or activation flips at ties: none is allowed.
+    At the main-path shapes the kernel, plain and library
+    (``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` on bf16 tensors)
+    times and the bound (the bf16 tensor-core rate, 2-byte x and g), summed
+    over the step's launches: the kernels line's."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    results = {}
+    for kernel, paths in bf16_conv_sites().items():
+        if kernel not in ("wgrad3x3_bf16", "dgrad3x3_bf16"):
+            continue
+        counts = paths["pallas_fused"]
+        main = list(counts)
+        cases = main + [(shape, p) for shape in CONV_ODD_SHAPES for p in (True, False)]
+        sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        phase = "k5_bf16" if kernel == "wgrad3x3_bf16" else "k6_bf16"
+        for shape, prologue in cases:
+            b, cin, h, w, cout = shape
+            c = _conv_case(b, cin, h, w, cout, gen)
+            run, plain, library, nbytes, mass = _bwd_bf16_calls(kernel, c, prologue)
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{kernel} {shape} prologue={prologue}: two runs differ")
+            if got[0].dtype != (torch.float32 if phase == "k5_bf16" else torch.bfloat16):
+                raise AssertionError(f"{kernel}: output dtype {got[0].dtype}")
+            sums_at = [0, 1] if phase == "k5_bf16" else ([1] if prologue else [])
+            errs = [_conv_errors(got[i], want[i]) for i in sums_at]
+            fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
+                      "max_abs_err": max([e[0] for e in errs], default=0.0),
+                      "sum_rel_l2_err": [e[1] for e in errs],
+                      "sum_rel_max_err": [e[2] for e in errs], "sum_bar": SUM_TOL,
+                      "bit_identical": True}
+            over = sum(max(e[1], e[2]) > SUM_TOL for e in errs)
+            if phase == "k6_bf16":
+                scale = c["scale"][:, None, None] if prologue else 1.0
+                bar = conv_probe.bf16_ulp(want[0]) + 2.0 * 9 * cout * 2.0**-24 * mass * scale
+                diff = (got[0].float() - want[0].float()).abs()
+                fields["max_abs_err"] = max(fields["max_abs_err"], diff.max().item())
+                fields["dx_over_bar"] = int((diff > bar).sum().item())
+                fields["dx_over_one_ulp"] = int((diff > conv_probe.bf16_ulp(want[0])).sum())
+                over += fields["dx_over_bar"]
+                if not prologue and got[1].any():
+                    over += 1
+                del bar, diff
+            if over:
+                raise AssertionError(f"{kernel} {shape} prologue={prologue} disagrees with its "
+                                     f"plain version: {fields}")
+            if (shape, prologue) in main:
+                n = counts[(shape, prologue)]
+                fields["launches_per_step"] = n
+                fields["ms"] = time_ms(run, 5)
+                fields["plain_ms"] = time_ms(plain, 2)
+                fields["library_ms"] = time_ms(library, 5)
+                fields["bound_ms"], fields["bound_by"], _ = conv_bound(shape, nbytes,
+                                                                       PEAK_BF16_TC_FLOPS)
+                sums["max_abs_err"] = max(sums["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms", "library_ms"):
+                    sums[k] += n * fields[k]
+                add_bound(sums, 2.0 * b * h * w * cin * cout, nbytes, n, PEAK_BF16_TC_FLOPS)
+            emit(phase, **fields)
+            del c, got, again, want, mass
+        results[kernel] = close_bound(sums)
     return results
 
 
@@ -1689,16 +1824,17 @@ def eval_against_f32(phase: str, cfg: dict, weights: dict, x: torch.Tensor,
 
 def phase_bf16(config: dict, calib, serve) -> dict:
     """``compute_dtype: bfloat16`` on the main path's UNet + quantile head at
-    320x320, batch 32: under ``xla`` and ``pallas``, PATH_STEPS train steps
-    from seed-5 weights (every first gradient finite and nonzero; step
-    times), then calibration and serving of the trained model (phases
-    bf16_{backend}_calibrate, _serve); under ``pallas_fused``, calibration
-    and serving of weights trained in f32 (PATH_STEPS steps of the default
-    config), and the eval forward of those weights under each backend
-    against the f32 one (bf16_vs_f32). → launches."""
+    320x320, batch 32: under ``xla``, ``pallas`` and ``pallas_fused``
+    (K3/K4 forward, K5/K6 backward in bf16), PATH_STEPS train steps from
+    seed-5 weights (every first gradient finite and nonzero; step times),
+    then calibration and serving of the trained model (phases
+    bf16_{backend}_calibrate, _serve); under ``pallas_fused`` also
+    calibration and serving of weights trained in f32 (PATH_STEPS steps of
+    the default config), and the eval forward of those weights under each
+    backend against the f32 one (bf16_vs_f32). → launches."""
     launches = {k: 0 for k in KERNELS}
     batch = path_batch(config)
-    for backend in ("xla", "pallas"):
+    for backend in ("xla", "pallas", "pallas_fused"):
         cfg = dict(config, conv_backend=backend, compute_dtype="bfloat16")
         state = add_uncertainty(
             build_trunk(cfg), cfg,
@@ -1706,7 +1842,7 @@ def phase_bf16(config: dict, calib, serve) -> dict:
         )
         train_counts, losses, step_ms = train_steps(
             f"bf16_{backend}_train", state, cfg, batch,
-            ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + BF16_KERNELS[backend])
+            ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + BF16_TRAIN_KERNELS[backend])
         state, _, counts, times = calibrate_and_serve(f"bf16_{backend}_", state, cfg, calib,
                                                       serve, BF16_KERNELS[backend])
         median_ms = float(np.median(step_ms))
@@ -1729,8 +1865,8 @@ def phase_bf16(config: dict, calib, serve) -> dict:
     cfg = dict(config, conv_backend="pallas_fused", compute_dtype="bfloat16")
     state = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
     state.model.load_state_dict(trained)
-    state, _, counts, times = calibrate_and_serve("bf16_pallas_fused_", state, cfg, calib,
-                                                  serve, BF16_KERNELS["pallas_fused"])
+    state, _, counts, times = calibrate_and_serve("bf16_pallas_fused_f32_weights_", state, cfg,
+                                                  calib, serve, BF16_KERNELS["pallas_fused"])
     emit("bf16", conv_backend="pallas_fused", weights="trained in f32", lhat=state.lhat,
          **times, launches=counts)
     for name in KERNELS:
@@ -1742,6 +1878,154 @@ def phase_bf16(config: dict, calib, serve) -> dict:
                                   BF16_KERNELS[backend])
         for name in KERNELS:
             launches[name] += counts[name]
+    return launches
+
+
+@contextlib.contextmanager
+def plain_conv_versions():
+    """K3-K6's plain versions in place of their wrappers, on the card. Nothing
+    is counted."""
+    names = [(conv, "conv3x3_fwd", conv.conv3x3_plain),
+             (conv, "conv3x3_bn_act_fwd", conv.conv3x3_bn_act_plain),
+             (conv_bwd, "wgrad3x3", conv_bwd.wgrad3x3_plain),
+             (conv_bwd, "dgrad3x3", conv_bwd.dgrad3x3_plain)]
+    saved = [getattr(m, n) for m, n, _ in names]
+    for m, n, fn in names:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
+def _tree_rel(got: dict, want: dict) -> float:
+    """Relative L2 error over every tensor of ``want`` together."""
+    num = sum(float((got[n] - w).square().sum()) for n, w in want.items())
+    return (num / sum(float(w.square().sum()) for w in want.values())) ** 0.5
+
+
+def phase_bf16_gradcheck(config: dict) -> None:
+    """One bf16 ``pallas_fused`` train step of seed-5 weights at batch 2,
+    64x64: on the card with the kernels against the card with their plain
+    versions (K1, K3-K7), and both against the CPU's f64 step of the same
+    weights (the f32 config in f64, plain versions).
+
+    Bars: the kernels and the plain versions round the same values to bf16
+    but sum in f32 in other orders, so a value one bf16 ulp apart moves what
+    follows it, through ReLU masks and train-mode BatchNorm: the loss within
+    BF16_LOSS_RTOL, the whole gradient within BF16_GRAD_RTOL and each
+    running statistic within BF16_STAT_RTOL relative L2; and the kernels'
+    step no farther from f64 (whole gradient, worst statistic) than twice
+    the plain versions' step is."""
+    cfg = dict(config, conv_backend="pallas_fused", compute_dtype="bfloat16")
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+    init = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+    del st
+    ds = synthetic(2, 64, seed=6)
+    batch = (np.stack([ds[i][0] for i in range(2)]), np.stack([ds[i][1] for i in range(2)]),
+             np.ones((2,), np.float32))
+    with deterministic_cudnn():
+        kernels = _train_step_once(init, cfg, DEVICE, torch.float32, batch)
+        with plain_versions(), plain_conv_versions():
+            plain = _train_step_once(init, cfg, DEVICE, torch.float32, batch)
+    f64 = _train_step_once(init, dict(cfg, compute_dtype="float32"), "cpu", torch.float64, batch)
+    loss_err = abs(kernels[0] - plain[0]) / abs(plain[0])
+    grad_err = _tree_rel(kernels[1], plain[1])
+    stat_err = _rel_errors(kernels[2], plain[2])
+    worst_s = max(stat_err, key=stat_err.get)
+    vs64 = {"kernels_grad": _tree_rel(kernels[1], f64[1]), "plain_grad": _tree_rel(plain[1], f64[1]),
+            "kernels_stat": max(_rel_errors(kernels[2], f64[2]).values()),
+            "plain_stat": max(_rel_errors(plain[2], f64[2]).values())}
+    emit("bf16_gradcheck", conv_backend="pallas_fused", batch=2, image=64,
+         loss_kernels=kernels[0], loss_plain=plain[0], loss_f64=f64[0], loss_rel_err=loss_err,
+         loss_rtol=BF16_LOSS_RTOL, grad_rel_err=grad_err, grad_rtol=BF16_GRAD_RTOL,
+         max_stat_err=stat_err[worst_s], worst_stat=worst_s, stat_rtol=BF16_STAT_RTOL,
+         vs_f64=vs64)
+    if (loss_err > BF16_LOSS_RTOL or grad_err > BF16_GRAD_RTOL
+            or stat_err[worst_s] > BF16_STAT_RTOL
+            or vs64["kernels_grad"] > 2 * vs64["plain_grad"]
+            or vs64["kernels_stat"] > 2 * vs64["plain_stat"]):
+        raise AssertionError(f"bf16_gradcheck: the kernels' bf16 step is off the plain versions': "
+                             f"loss {loss_err}, gradient {grad_err}, {worst_s} "
+                             f"{stat_err[worst_s]}, against f64 {vs64}")
+
+
+def _remat_step(cfg: dict, init: dict, tensors: tuple) -> dict:
+    """One train step of ``init`` under ``cfg`` with cuDNN held to
+    deterministic algorithms (loss, gradients, running statistics), then
+    PATH_STEPS timed steps with its default ones, the peak of device memory
+    over those."""
+    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    st.model.load_state_dict(init)
+    opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt)
+    with deterministic_cudnn():
+        loss = step(*tensors)
+    out = {"loss": loss.detach().clone(),
+           "grads": {n: p.grad.detach().clone() for n, p in st.model.named_parameters()},
+           "stats": {n: b.detach().clone() for n, b in st.model.named_buffers()}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, step_ms = timed_steps(step, tensors, PATH_STEPS)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms"] = float(np.median(step_ms))
+    del st, opt, step
+    return out
+
+
+def _max_diffs(a: dict, b: dict) -> dict:
+    """max |a - b| per tensor of the loss, the gradients and the statistics."""
+    out = {"loss": (a["loss"] - b["loss"]).abs().item()}
+    for part in ("grads", "stats"):
+        for n, t in a[part].items():
+            out[n] = (t.double() - b[part][n].double()).abs().max().item() if t.numel() else 0.0
+    return out
+
+
+def phase_remat(config: dict) -> dict:
+    """``remat`` full, conv and bn on the main path's UNet at 320x320, batch
+    32, under ``xla`` in f32 and ``pallas_fused`` in bf16, each beside remat
+    off from the same seed-5 weights and batch: the peak of device memory
+    and the median step ms over PATH_STEPS steps; the first step's loss,
+    gradients and running statistics (cuDNN deterministic) within the
+    difference between two remat-off steps, per tensor (0 where every op is
+    deterministic). → the launches of the remat steps."""
+    launches = {k: 0 for k in KERNELS}
+    tensors = train.put_batch(*path_batch(config), torch.device(DEVICE))
+    for backend, dtype in (("xla", "float32"), ("pallas_fused", "bfloat16")):
+        base = dict(config, conv_backend=backend, compute_dtype=dtype)
+        st = add_uncertainty(build_trunk(base), base,
+                             generator=torch.Generator(device=DEVICE).manual_seed(5),
+                             device=DEVICE)
+        init = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        del st
+        off = _remat_step(base, init, tensors)
+        spread = _max_diffs(_remat_step(base, init, tensors), off)
+        for mode in REMAT_MODES:
+            reset_counts()
+            got = _remat_step(dict(base, remat=mode), init, tensors)
+            counts = read_counts()
+            diff = _max_diffs(got, off)
+            over = [n for n, d in diff.items() if d > spread[n]]
+            emit("remat", remat=mode, conv_backend=backend, compute_dtype=dtype,
+                 batch=config["batch_size"], image=IMAGE, peak_mib=got["peak_bytes"] / 2**20,
+                 off_peak_mib=off["peak_bytes"] / 2**20, step_ms=got["step_ms"],
+                 off_step_ms=off["step_ms"], loss=got["loss"].item(), off_loss=off["loss"].item(),
+                 max_diff=max(diff.values()), max_off_spread=max(spread.values()),
+                 tensors_over_spread=over, launches=counts)
+            if over:
+                raise AssertionError(f"remat {mode} under {backend} {dtype} is off remat off "
+                                     f"beyond two remat-off steps' difference: {over}")
+            if backend == "pallas_fused":
+                require_launches(f"remat_{mode}", counts,
+                                 ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
+                                 + BF16_TRAIN_KERNELS["pallas_fused"])
+            for name in KERNELS:
+                launches[name] += counts[name]
+            del got
+        del off, init
     return launches
 
 
@@ -1784,6 +2068,7 @@ def main() -> int:
         "maxpool2x2_bwd": phase_k7(),
         **phase_conv_kernels(),
         **phase_conv_kernels_bf16(),
+        **phase_conv_bwd_bf16(),
     }
     measured.update(phase_probes())
     launches = phase_probe_cli()
@@ -1828,14 +2113,21 @@ def main() -> int:
     heads_counts = phase_heads(config, calib, serve)
     wnet_counts = phase_wnet(config)
     router_softmax_counts = phase_router("router_softmax", {"uncertainty_type": "softmax"})
-    # 17-19. compute_dtype bfloat16: the main path, the other heads and WNet,
-    # the router
+    # 17-21. compute_dtype bfloat16: the main path, the gradcheck of the fused
+    # step, the other heads and WNet, the router under xla and pallas_fused
     bf16_counts = phase_bf16(config, calib, serve)
+    phase_bf16_gradcheck(config)
     bf16_model_counts = phase_bf16_models(config)
     router_bf16_counts = phase_router("router_bf16", {"compute_dtype": "bfloat16"})
+    router_bf16_fused_counts = phase_router(
+        "router_bf16_fused", {"compute_dtype": "bfloat16", "conv_backend": "pallas_fused"},
+        DEFAULT_PATH_KERNELS + BF16_TRAIN_KERNELS["pallas_fused"])
+    # 22. remat
+    remat_counts = phase_remat(config)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
-                   bf16_counts, bf16_model_counts, router_bf16_counts):
+                   bf16_counts, bf16_model_counts, router_bf16_counts, router_bf16_fused_counts,
+                   remat_counts):
         for name, n in counts.items():
             launches[name] += n
 
@@ -1850,6 +2142,8 @@ def main() -> int:
         "conv3x3_bn_act_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "wgrad3x3_bf16": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
+        "dgrad3x3_bf16": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
         "moments": ("moments.cu", "benchmarks/bench_moments.py:51"),
         "conv3x3_single": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:51"),
         "conv3x3_db": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),

@@ -74,16 +74,20 @@ _SIGNATURES = {
     "im2im_conv3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
     # 32-bit words of the bf16 instances' packed operands: (b, cin, cout, h, w)
     "im2im_conv3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    # K5: (x, g, scale, shift, scratch, dw, db, b, cin, cout, h, w, prologue,
-    #      device, stream)
-    "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    # K5: (x, g, scale, shift, scratch, packed, dw, db, b, cin, cout, h, w,
+    #      prologue, dtype, device, stream)
+    "im2im_wgrad3x3": ([_P] * 8 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
     # floats of K5's split-K scratch: (b, cin, cout, h, w)
     "im2im_wgrad3x3_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    # K6: (g, weight, x, scale, shift, dx, part, red, b, cin, cout, h, w,
-    #      prologue, device, stream)
-    "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    # 32-bit words of K5's bf16 packed operands: (b, cin, cout, h, w)
+    "im2im_wgrad3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # K6: (g, weight, x, scale, shift, dx, part, red, packed, b, cin, cout, h,
+    #      w, prologue, dtype, device, stream)
+    "im2im_dgrad3x3": ([_P] * 9 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
     # floats of K6's reduction scratch: (b, cin, h, w)
     "im2im_dgrad3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # 32-bit words of K6's bf16 packed operands: (b, cin, cout, h, w)
+    "im2im_dgrad3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
     # P1: blocks of the partial buffer for (n rows, device)
     "im2im_moments_blocks": ([ctypes.c_longlong, ctypes.c_int], ctypes.c_int),
     # P1: (x, part, sums, n, c, blocks, dtype, vec, device, stream)

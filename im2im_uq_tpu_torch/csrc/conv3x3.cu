@@ -47,9 +47,9 @@
 // relu(f32(x) * scale + shift) in float32, rounded to bf16 before the
 // products; the stats over the stored bf16 values, in float32. The bound
 // counts the Winograd limit at the tensor cores' bf16 rate, 989 TFLOP/s.
-// Two small kernels pack the operands first (pack_pairs: x, with the
-// prologue applied, as words of channel pairs; pack_weights: each (channel
-// tile, chunk)'s B tiles as one run), then the bf16 GEMM of
+// Two small kernels of conv3x3_tc.cuh pack the operands first (pack_pairs:
+// x, with the prologue applied, as words of channel pairs; pack_weights:
+// each (channel tile, chunk)'s B tiles as one run), then the bf16 GEMM of
 // conv3x3_tc.cuh runs with this file's epilogue: one wgmma.m64n32k16 per
 // tap and m64 instance, no 3xTF32 split. The packing pass moves x once
 // more (read, and written as words) in exchange for a GEMM that stages its
@@ -67,29 +67,6 @@
 namespace {
 
 using namespace conv3x3;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// v rounded to T, as a float
-template <typename T>
-__device__ __forceinline__ float round_as(float v) {
-  if constexpr (std::is_same_v<T, float>)
-    return v;
-  else
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// v rounded to T and stored; returns the stored value as a float
-__device__ __forceinline__ float store(float* p, float v) {
-  *p = v;
-  return v;
-}
-__device__ __forceinline__ float store(__nv_bfloat16* p, float v) {
-  const __nv_bfloat16 r = __float2bfloat16_rn(v);
-  *p = r;
-  return __bfloat162float(r);
-}
 
 // K3/K4 on the GEMM: float32 (x, weight; the prologue in the GEMM) or bf16
 // (packed_x, packed_w: x with the prologue applied and the weights, packed
@@ -253,74 +230,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16 x (b, cin, h, w) → (b, ceil(cin / 2), h, w) words of channel pairs,
-// channel 2 p in the low half; with kPrologue each value is relu(x * scale
-// + shift) in float32 rounded to bf16; 0 past the channels.
-template <bool kPrologue>
-__global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
-                                  const float* __restrict__ scale,
-                                  const float* __restrict__ shift, uint32_t* __restrict__ out,
-                                  int64_t words, int cin, int64_t hw) {
-  const int pairs = (cin + 1) / 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t px = i % hw, bp = i / hw;
-    const int k = 2 * static_cast<int>(bp % pairs);
-    const __nv_bfloat16* src = x + ((bp / pairs) * cin + k) * hw + px;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      v[e] = k + e < cin ? __bfloat162float(src[e * hw]) : 0.0f;
-      if (kPrologue && k + e < cin) v[e] = affine_relu(v[e], scale[k + e], shift[k + e]);
-    }
-    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);  // .x, the low half: v[0]
-    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
-  }
-}
-
-// bf16 weight (cout, cin, 3, 3) → for each (channel tile of kBn, chunk of
-// 16 channels) its run of kChunkWords words in the stage's order
-// (conv3x3::b_word), 0 past the channels.
-__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
-                                    uint32_t* __restrict__ out, int64_t words, int cin,
-                                    int cout, int chunks) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t run = i / kChunkWords;
-    const int r = static_cast<int>(i - run * kChunkWords);
-    const int tile = static_cast<int>(run / chunks), chunk = static_cast<int>(run % chunks);
-    // invert b_word: r = t * 256 + ng * 64 + pg * 32 + n7 * 4 + p3
-    const int t = r / kTapWords, q = r % kTapWords;
-    const int n_l = (q >> 6) * 8 + ((q >> 2) & 7), p = ((q >> 5) & 1) * 4 + (q & 3);
-    const int n = tile * kBn + n_l, k = chunk * 2 * kPairs + 2 * p;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      v[e] = n < cout && k + e < cin
-                 ? __bfloat162float(weight[(static_cast<int64_t>(n) * cin + k + e) * 9 + t])
-                 : 0.0f;
-    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
-    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
-  }
-}
-
-inline unsigned grid_stride_blocks(int64_t n) {
-  const int64_t blocks = (n + 255) / 256;
-  return static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
-}
-
-// Words of the packed operands of a bf16 launch: x's pairs, rounded up to 4
-// words so that the weights after them are 16-byte aligned, then the weights.
-inline int64_t packed_x_words(int b, int cin, int h, int w) {
-  return (static_cast<int64_t>(b) * ((cin + 1) / 2) * h * w + 3) & ~int64_t{3};
-}
-inline int64_t packed_w_words(int cin, int cout) {
-  return static_cast<int64_t>((cout + kBn - 1) / kBn) * ((cin + 2 * kPairs - 1) / (2 * kPairs)) *
-         kChunkWords;
-}
-
 template <typename T, bool kPrologue, bool kStats>
 cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, const T* bias,
                    const float* scale, const float* shift, T* y, float* part, uint32_t* packed,
@@ -337,18 +246,10 @@ cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, c
                        static_cast<const uint32_t*>(nullptr), static_cast<const uint32_t*>(nullptr),
                        bias, scale, shift, y, part, cin);
   } else {
-    const int64_t hw = static_cast<int64_t>(g.h) * g.w;
-    const int64_t xw = static_cast<int64_t>(b) * ((cin + 1) / 2) * hw;
-    const int64_t ww = packed_w_words(cin, g.nc);
     uint32_t* px = packed;
     uint32_t* pw = packed + packed_x_words(b, cin, g.h, g.w);
-    pack_pairs_kernel<kPrologue><<<grid_stride_blocks(xw), 256, 0, s>>>(x, scale, shift, px, xw,
-                                                                         cin, hw);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    pack_weights_kernel<<<grid_stride_blocks(ww), 256, 0, s>>>(
-        weight, pw, ww, cin, g.nc, (cin + 2 * kPairs - 1) / (2 * kPairs));
-    err = cudaGetLastError();
+    cudaError_t err = pack_operands<kPrologue, false>(x, weight, scale, shift, packed, b, cin,
+                                                      g.nc, g.h, g.w, s);
     if (err != cudaSuccess) return err;
     return launch_grid_bytes(conv3x3_fwd_kernel<T, false, kStats>, g, b, s,
                              smem_bytes_bf16(g.plane), static_cast<const float*>(nullptr),

@@ -1,9 +1,10 @@
 // The shared core of the 3x3 same-padding convolution kernels, NCHW,
 // float32, for sm_90a: the implicit GEMM on the tensor cores that K3/K4
-// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate, its bf16 form for K3/K4
-// on bf16 tensors (gemm_bf16, at the end), and the prologue and the
-// fixed-order cross-block sums that K3-K6 share (K5, wgrad3x3.cu, takes
-// affine_relu and reduce_rows).
+// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate, its bf16 form for K3/K4/K6
+// on bf16 tensors (gemm_bf16 and its packing kernels, at the end), and the
+// prologue, the dtype helpers and the fixed-order cross-block sums that
+// K3-K6 share (K5, wgrad3x3.cu, takes affine_relu, round_as and
+// reduce_rows).
 //
 // The GEMM. A block owns M = the pixels of a box of one image (at most 256,
 // flattened) x N = 32 channels, and walks K = 9 taps x the K channels in
@@ -55,9 +56,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
@@ -67,6 +70,29 @@ namespace conv3x3 {
 __device__ __forceinline__ float affine_relu(float v, float scale, float shift) {
   // rounded as the plain version's x * scale + shift (no FMA contraction)
   return fmaxf(__fadd_rn(__fmul_rn(v, scale), shift), 0.0f);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v rounded to T, as a float
+template <typename T>
+__device__ __forceinline__ float round_as(float v) {
+  if constexpr (std::is_same_v<T, float>)
+    return v;
+  else
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v rounded to T and stored; returns the stored value as a float
+__device__ __forceinline__ float store(float* p, float v) {
+  *p = v;
+  return v;
+}
+__device__ __forceinline__ float store(__nv_bfloat16* p, float v) {
+  const __nv_bfloat16 r = __float2bfloat16_rn(v);
+  *p = r;
+  return __bfloat162float(r);
 }
 
 // out[g * cols + i] = sum over r < rows of part[(g * rows + r) * cols + i],
@@ -409,11 +435,11 @@ __device__ __forceinline__ void gemm(const Geo& ge, float* smem, float (&acc)[kM
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 GEMM (K3/K4 on bf16 tensors): the same blocks, boxes and
+// The bf16 GEMM (K3/K4/K6 on bf16 tensors): the same blocks, boxes and
 // fragments, K in chunks of 16 channels x 9 taps, one wgmma.m64n32k16 with
 // bf16 operands and float32 accumulation per tap and m64 instance where the
-// float32 GEMM issues three m64n32k8 in 3xTF32. Its inputs are packed by
-// conv3x3.cu first: the activation as 32-bit words of channel pairs
+// float32 GEMM issues three m64n32k8 in 3xTF32. Its inputs are packed
+// first (pack_operands): the activation as 32-bit words of channel pairs
 // (channel 2 p in the low half, 2 p + 1 in the high half; the prologue
 // already applied and rounded to bf16; 0 past the channels), so that a
 // word is an A register of the bf16 fragment and the box is staged with the
@@ -444,6 +470,100 @@ inline int smem_bytes_bf16(int plane) {
 // bytes apart, n groups 256 bytes apart.
 __host__ __device__ __forceinline__ int b_word(int t, int n_l, int p) {
   return t * kTapWords + (n_l >> 3) * 64 + (p >> 2) * 32 + (n_l & 7) * 4 + (p & 3);
+}
+
+// bf16 x (b, cin, h, w) → (b, ceil(cin / 2), h, w) words of channel pairs,
+// channel 2 p in the low half; with kPrologue each value is relu(x * scale
+// + shift) in float32 rounded to bf16; 0 past the channels. K6 packs its
+// cotangent (cin = Cout) the same way, without the prologue.
+template <bool kPrologue>
+__global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift, uint32_t* __restrict__ out,
+                                  int64_t words, int cin, int64_t hw) {
+  const int pairs = (cin + 1) / 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+       i += stride) {
+    const int64_t px = i % hw, bp = i / hw;
+    const int k = 2 * static_cast<int>(bp % pairs);
+    const __nv_bfloat16* src = x + ((bp / pairs) * cin + k) * hw + px;
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      v[e] = k + e < cin ? __bfloat162float(src[e * hw]) : 0.0f;
+      if (kPrologue && k + e < cin) v[e] = affine_relu(v[e], scale[k + e], shift[k + e]);
+    }
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);  // .x, the low half: v[0]
+    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+}
+
+// A bf16 weight → for each (channel tile of kBn N channels, chunk of 16 K
+// channels) its run of kChunkWords words in the stage's order (b_word), 0
+// past the channels: B[(k, t), n] = weight[n][k][t] of a (N, K, 3, 3)
+// forward weight, or, under kFlip (K6), weight[k][n][8 - t] of the (K, N,
+// 3, 3) forward weight, transposed and flipped.
+template <bool kFlip>
+__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
+                                    uint32_t* __restrict__ out, int64_t words, int kdim,
+                                    int ndim, int chunks) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+       i += stride) {
+    const int64_t run = i / kChunkWords;
+    const int r = static_cast<int>(i - run * kChunkWords);
+    const int tile = static_cast<int>(run / chunks), chunk = static_cast<int>(run % chunks);
+    // invert b_word: r = t * 256 + ng * 64 + pg * 32 + n7 * 4 + p3
+    const int t = r / kTapWords, q = r % kTapWords;
+    const int n_l = (q >> 6) * 8 + ((q >> 2) & 7), p = ((q >> 5) & 1) * 4 + (q & 3);
+    const int n = tile * kBn + n_l, k = chunk * 2 * kPairs + 2 * p;
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t src = kFlip ? (static_cast<int64_t>(k + e) * ndim + n) * 9 + 8 - t
+                                : (static_cast<int64_t>(n) * kdim + k + e) * 9 + t;
+      v[e] = n < ndim && k + e < kdim ? __bfloat162float(weight[src]) : 0.0f;
+    }
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
+    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+}
+
+inline unsigned grid_stride_blocks(int64_t n) {
+  const int64_t blocks = (n + 255) / 256;
+  return static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
+}
+
+// Words of the packed operands of a bf16 GEMM: the activation's pairs over K
+// channels, rounded up to 4 words so that the weights after them are
+// 16-byte aligned, then the weights of K x N channels.
+inline int64_t packed_x_words(int b, int kdim, int h, int w) {
+  return (static_cast<int64_t>(b) * ((kdim + 1) / 2) * h * w + 3) & ~int64_t{3};
+}
+inline int64_t packed_w_words(int kdim, int ndim) {
+  return static_cast<int64_t>((ndim + kBn - 1) / kBn) * ((kdim + 2 * kPairs - 1) / (2 * kPairs)) *
+         kChunkWords;
+}
+
+// Pack a bf16 GEMM's operands into `packed` (packed_x_words(b, kdim, ...) +
+// packed_w_words(kdim, ndim) words): `in` (b, kdim, h, w) as pair words (the
+// prologue applied with kPrologue), the weight in the stage's order.
+template <bool kPrologue, bool kFlip>
+cudaError_t pack_operands(const __nv_bfloat16* in, const __nv_bfloat16* weight,
+                          const float* scale, const float* shift, uint32_t* packed, int b,
+                          int kdim, int ndim, int h, int w, cudaStream_t s) {
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t xw = static_cast<int64_t>(b) * ((kdim + 1) / 2) * hw;
+  const int64_t ww = packed_w_words(kdim, ndim);
+  pack_pairs_kernel<kPrologue><<<grid_stride_blocks(xw), 256, 0, s>>>(in, scale, shift, packed,
+                                                                       xw, kdim, hw);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pack_weights_kernel<kFlip><<<grid_stride_blocks(ww), 256, 0, s>>>(
+      weight, packed + packed_x_words(b, kdim, h, w), ww, kdim, ndim,
+      (kdim + 2 * kPairs - 1) / (2 * kPairs));
+  return cudaGetLastError();
 }
 
 struct GeoBf16 {

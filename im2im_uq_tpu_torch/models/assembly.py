@@ -151,15 +151,12 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
     ``bn_backend`` takes "auto"
     and "flax": the JAX package's "dot" and "barrier" are not ported, and
     with ``pallas_fused``, whose kernels fold their own BatchNorm, they are
-    refused as the JAX package refuses them. ``remat`` is validated as the
-    JAX package's ``resolve_remat`` does (:func:`resolve_remat`); a mode
-    other than off is not yet ported. The compute dtype is
-    :func:`resolve_dtype`'s; under ``pallas_fused`` a bf16 model serves,
-    and its training is refused by ``training/train.py``.
+    refused as the JAX package refuses them. The UNet's ``remat`` is
+    resolved as the JAX package's ``resolve_remat`` does
+    (:func:`resolve_remat`) and checkpoints its blocks (``models/unet.py``);
+    WNet takes no ``remat`` and ignores the key, as the JAX package's
+    ``build_trunk`` does. The compute dtype is :func:`resolve_dtype`'s.
     """
-    remat = resolve_remat(params)
-    if remat:
-        raise NotImplementedError(f"remat {remat!r} is not yet ported")
     dtype = resolve_dtype(params, dtype)
     name = params.get("model", "UNet")
     if name == "ResNet18":
@@ -186,7 +183,7 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
         if name == "WNet":  # it reads channels 0 and 1 of its input
             return WNet(n_channels_out=1, conv_backend=conv_backend, dtype=dtype)
         return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
-                    conv_backend=conv_backend, dtype=dtype)
+                    conv_backend=conv_backend, dtype=dtype, remat=resolve_remat(params))
 
 
 def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:

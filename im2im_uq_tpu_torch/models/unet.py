@@ -30,6 +30,28 @@ weight and bias to ``dtype`` first (the JAX ``promote_dtype`` calls,
 flax's: statistics reduced in float32, the affine in float32, one rounding.
 Under ``pallas_fused`` the folded scale and shift stay float32.
 
+``remat`` (the UNet's; WNet takes none, as in JAX) is activation
+checkpointing, the JAX ``nn.remat`` of the blocks under three policies
+(``unet.py:815-833``), expressed by which sub-function is checkpointed
+(``torch.utils.checkpoint``, non-reentrant) rather than by tags: the port's
+kernels run through ctypes, where no dispatcher op marks their outputs.
+
+- ``"full"``: each of ``inc``, ``down1-4`` and ``up1-4`` is checkpointed
+  whole; only the blocks' inputs survive to the backward.
+- ``"conv"``: only conv, pool and resize outputs survive. In a DoubleConv of
+  ``xla`` and ``pallas``, bn0 + ReLU + conv1 is one checkpointed region
+  over conv0's output and bn1 + ReLU another over conv1's; the recompute
+  runs conv1's forward again, where JAX keeps its output. The fused
+  DoubleConv tags no conv output in JAX (``unet.py:594-658``), so under
+  ``pallas_fused`` the whole DoubleConv is checkpointed and only the pool
+  and resize outputs before it survive.
+- ``"bn"``: everything survives except the post-BN/ReLU tensor inside a
+  DoubleConv (conv1's input): bn0 + ReLU + conv1 is checkpointed. Under
+  ``pallas_fused`` nothing carries the tag, so nothing is checkpointed.
+
+Every mode computes the same function as off, and a recompute does not move
+the BatchNorm running statistics again (:func:`checkpointed`).
+
 An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
 ``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
 the kernel, so the concatenation is never built (``unet.py:615-629,
@@ -40,22 +62,59 @@ forward, K1b backward) on a CUDA tensor. ``Down``'s pool is
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from im2im_uq_tpu_torch.ops.conv import conv3x3, conv3x3_bn_act
 from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
 from im2im_uq_tpu_torch.ops.resize import resize_bilinear_align_corners, upsample2x_align_corners
 
 __all__ = [
-    "CONV_BACKENDS", "DoubleConv", "Down", "OutConv", "UNet", "Up", "UpNoSkip", "WNet",
-    "batch_norm_low_precision", "compute_cast", "fold_batchnorm",
+    "CONV_BACKENDS", "REMAT_MODES", "DoubleConv", "Down", "OutConv", "UNet", "Up", "UpNoSkip",
+    "WNet", "batch_norm", "batch_norm_low_precision", "checkpointed", "compute_cast",
+    "fold_batchnorm",
 ]
 
 CONV_BACKENDS = ("xla", "pallas", "pallas_fused")
+REMAT_MODES = (False, "full", "conv", "bn")
+
+# True while a checkpointed region is recomputed in the backward: the
+# BatchNorm running statistics moved in its forward and stay as they are
+_recomputing = False
+
+
+@contextlib.contextmanager
+def _recompute(on: bool):
+    global _recomputing
+    saved, _recomputing = _recomputing, on
+    try:
+        yield
+    finally:
+        _recomputing = saved
+
+
+def checkpointed(fn: Callable, *args: torch.Tensor):
+    """``fn(*args)`` under activation checkpointing (non-reentrant): what
+    ``fn`` saves for its backward is dropped and recomputed from ``args``
+    there. The recompute is a second call of ``fn``; in it the BatchNorm
+    running statistics are not moved (``batch_norm``,
+    ``batch_norm_low_precision`` and ``fold_batchnorm`` read the flag), so a
+    step moves them once. Without autograd ``fn`` runs as it is."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = []
+
+    def run(*a):
+        with _recompute(bool(calls)):
+            calls.append(None)
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 Pair = tuple[torch.Tensor, torch.Tensor]
 
@@ -75,6 +134,15 @@ def compute_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if dtype == torch.float32 else t.to(dtype)
 
 
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn(x)``; in a checkpointed region's recompute the same call on
+    copies of the running statistics, so that they move once a step."""
+    if not (bn.training and _recomputing):
+        return bn(x)
+    return F.batch_norm(x, bn.running_mean.clone(), bn.running_var.clone(), bn.weight, bn.bias,
+                        True, bn.momentum, bn.eps)
+
+
 def batch_norm_low_precision(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """BatchNorm of a bf16 ``x`` as the JAX ``TorchBatchNorm`` computes it
     through flax's ``_compute_stats`` and ``_normalize`` (``unet.py:39-117``),
@@ -90,18 +158,26 @@ def batch_norm_low_precision(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -
     if train:
         mean = xf.mean((0, 2, 3))
         var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            bessel = n / (n - 1) if n > 1 else 1.0
-            m = bn.momentum
-            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-            bn.running_var.copy_((1 - m) * bn.running_var + m * var * bessel)
-            bn.num_batches_tracked.add_(1)
+        if not _recomputing:
+            _move_running_stats(bn, mean, var, x.numel() // x.shape[1])
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - _per_channel(mean)) * _per_channel(mul) + _per_channel(bn.bias)
     return y.to(x.dtype)
+
+
+def _move_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                        n: int) -> None:
+    """torch's momentum update of the running statistics, in place and
+    without gradient, with the unbiased variance var·n/(n−1); counts the step
+    in ``num_batches_tracked`` as ``nn.BatchNorm2d`` does."""
+    with torch.no_grad():
+        bessel = n / (n - 1) if n > 1 else 1.0
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var * bessel)
+        bn.num_batches_tracked.add_(1)
 
 
 def fold_batchnorm(
@@ -121,12 +197,8 @@ def fold_batchnorm(
     if train:
         mean = sums / n
         var = sumsqs / n - mean * mean
-        with torch.no_grad():
-            bessel = n / (n - 1) if n > 1 else 1.0
-            m = bn.momentum
-            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-            bn.running_var.copy_((1 - m) * bn.running_var + m * var * bessel)
-            bn.num_batches_tracked.add_(1)
+        if not _recomputing:
+            _move_running_stats(bn, mean, var, n)
     else:
         mean, var = bn.running_mean, bn.running_var
     scale = bn.weight * torch.rsqrt(var + bn.eps)
@@ -138,17 +210,22 @@ class DoubleConv(nn.Module):
 
     Its input is a tensor, or the pair (skip, upsampled) of an ``Up``,
     which stands for their concatenation along the channels. Each conv runs
-    in ``dtype`` (module docstring).
+    in ``dtype`` (module docstring). ``remat`` "conv" and "bn" checkpoint
+    regions inside it (module docstring); "full" is the UNet's, per block.
     """
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: Optional[int] = None,
-                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32):
+                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32,
+                 remat=False):
         super().__init__()
         if conv_backend not in CONV_BACKENDS:
             raise ValueError(f"unknown conv_backend {conv_backend!r}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
         mid = mid_channels if mid_channels is not None else out_channels
         self.conv_backend = conv_backend
         self.dtype = dtype
+        self.remat = remat
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, kernel_size=3, padding=1),
             _bn(mid),
@@ -160,15 +237,37 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         if self.conv_backend == "pallas_fused":
+            if self.remat == "conv":
+                # no conv output of the fused block survives (module docstring)
+                args = x if isinstance(x, tuple) else (x,)
+                return checkpointed(lambda *a: self._fused(a if len(a) == 2 else a[0]), *args)
             return self._fused(x)
         if self.conv_backend == "pallas":
-            return self._pallas(x)
-        if isinstance(x, tuple):
-            x = torch.cat(x, dim=1)
-        conv0, bn0, _, conv1, bn1, _ = self.double_conv
-        y = self._bn_relu(bn0, F.conv2d(compute_cast(x, self.dtype), *self._params(conv0),
-                                        padding=1))
-        return self._bn_relu(bn1, F.conv2d(y, *self._params(conv1), padding=1))
+            y0 = self._conv0_k3(x)
+        else:
+            if isinstance(x, tuple):
+                x = torch.cat(x, dim=1)
+            y0 = F.conv2d(compute_cast(x, self.dtype), *self._params(self.double_conv[0]),
+                          padding=1)
+        return self._rest(y0)
+
+    def _conv1(self, y: torch.Tensor) -> torch.Tensor:
+        w, b = self._params(self.double_conv[3])
+        return conv3x3(y, w, b) if self.conv_backend == "pallas" else F.conv2d(y, w, b, padding=1)
+
+    def _rest(self, y0: torch.Tensor) -> torch.Tensor:
+        """bn0 → ReLU → conv1 → bn1 → ReLU of ``xla`` and ``pallas`` on conv0's
+        output, the regions of ``remat`` checkpointed (module docstring)."""
+        _, bn0, _, _, bn1, _ = self.double_conv
+
+        def mid(t):
+            return self._conv1(self._bn_relu(bn0, t))
+
+        def end(t):
+            return self._bn_relu(bn1, t)
+
+        y1 = checkpointed(mid, y0) if self.remat in ("conv", "bn") else mid(y0)
+        return checkpointed(end, y1) if self.remat == "conv" else end(y1)
 
     def _params(self, conv: nn.Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
         """A conv's weight and bias in the compute dtype."""
@@ -178,7 +277,7 @@ class DoubleConv(nn.Module):
         """BatchNorm (torch's in f32, flax's in bf16), then ReLU in place on
         its fresh output, which neither backward reads."""
         if self.dtype == torch.float32:
-            return F.relu(bn(y), inplace=True)
+            return F.relu(batch_norm(bn, y), inplace=True)
         return F.relu(batch_norm_low_precision(bn, y, self.training), inplace=True)
 
     def _conv0_k3(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
@@ -191,11 +290,6 @@ class DoubleConv(nn.Module):
         ca = a.shape[1]
         return (conv3x3(compute_cast(a, self.dtype), weight[:, :ca], bias)
                 + conv3x3(compute_cast(b, self.dtype), weight[:, ca:]))
-
-    def _pallas(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
-        _, bn0, _, conv1, bn1, _ = self.double_conv
-        y = self._bn_relu(bn0, self._conv0_k3(x))
-        return self._bn_relu(bn1, conv3x3(y, *self._params(conv1)))
 
     def _fused(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         conv0, bn0, _, conv1, bn1, _ = self.double_conv
@@ -231,11 +325,12 @@ class Down(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat=False):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
             MaxPool2x2(),
-            DoubleConv(in_channels, out_channels, conv_backend=conv_backend, dtype=dtype),
+            DoubleConv(in_channels, out_channels, conv_backend=conv_backend, dtype=dtype,
+                       remat=remat),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -247,10 +342,10 @@ class Up(nn.Module):
     over [skip, up] along the channels."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat=False):
         super().__init__()
         self.conv = DoubleConv(in_channels, out_channels, in_channels // 2,
-                               conv_backend=conv_backend, dtype=dtype)
+                               conv_backend=conv_backend, dtype=dtype, remat=remat)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         # the kernel takes NCHW-contiguous input; this copies only a
@@ -300,38 +395,42 @@ class OutConv(nn.Module):
 class UNet(nn.Module):
     """4-down/4-up UNet, encoder 64/128/256/512/512, decoder 256/128/64/64,
     1×1 out-conv to ``n_channels_middle`` (32) features. Input (B, C, H, W);
-    the features come out in ``dtype``."""
+    the features come out in ``dtype``. ``remat`` is one of REMAT_MODES
+    (module docstring)."""
 
     def __init__(self, n_channels_in: int = 1, n_channels_out: int = 1,
                  n_channels_middle: int = 32, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat=False):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
         self.conv_backend = conv_backend
         self.dtype = dtype
-        cb, dt = conv_backend, dtype
-        self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb, dtype=dt)
-        self.down1 = Down(64, 128, cb, dt)
-        self.down2 = Down(128, 256, cb, dt)
-        self.down3 = Down(256, 512, cb, dt)
-        self.down4 = Down(512, 512, cb, dt)
-        self.up1 = Up(1024, 256, cb, dt)
-        self.up2 = Up(512, 128, cb, dt)
-        self.up3 = Up(256, 64, cb, dt)
-        self.up4 = Up(128, 64, cb, dt)
+        self.remat = remat
+        cb, dt, rm = conv_backend, dtype, remat
+        self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb, dtype=dt, remat=rm)
+        self.down1 = Down(64, 128, cb, dt, rm)
+        self.down2 = Down(128, 256, cb, dt, rm)
+        self.down3 = Down(256, 512, cb, dt, rm)
+        self.down4 = Down(512, 512, cb, dt, rm)
+        self.up1 = Up(1024, 256, cb, dt, rm)
+        self.up2 = Up(512, 128, cb, dt, rm)
+        self.up3 = Up(256, 64, cb, dt, rm)
+        self.up4 = Up(128, 64, cb, dt, rm)
         self.out = OutConv(64, n_channels_middle, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        # remat "full": each block checkpointed whole (unet.py:831-833)
+        run = checkpointed if self.remat == "full" else (lambda block, *a: block(*a))
+        x1 = run(self.inc, x)
+        x2 = run(self.down1, x1)
+        x3 = run(self.down2, x2)
+        x4 = run(self.down3, x3)
+        x5 = run(self.down4, x4)
+        x = run(self.up1, x5, x4)
+        x = run(self.up2, x, x3)
+        x = run(self.up3, x, x2)
+        x = run(self.up4, x, x1)
         return self.out(x)
 
 

@@ -20,9 +20,9 @@ launch the kernels of ``csrc/conv3x3.cu``; on a CPU tensor they run
 raises. x, weight, bias and y are float32 or bfloat16 (the TPU kernels'
 dtypes), scale, shift and the stats float32. A bf16 instance counts its
 launches apart, on ``conv3x3.bf16`` and ``conv3x3_bn_act.bf16``. K4's
-backward (K5, K6) takes float32 only. The JAX package's channel padding to 128 lanes, its row
-tiles and its XLA fallbacks for ineligible shapes have no counterpart: the
-kernels take every shape.
+backward (K5, K6) runs in both dtypes. The JAX package's channel padding to
+128 lanes, its row tiles and its XLA fallbacks for ineligible shapes have no
+counterpart: the kernels take every shape.
 """
 
 from __future__ import annotations
@@ -103,12 +103,8 @@ def _check_conv(kernel: str, x, weight, bias) -> tuple[int, int, int, int, int]:
     return b, cin, weight.shape[0], h, w
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _check_dtypes(kernel: str, x, weight, bias, scale, shift, prologue: bool) -> None:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {x.dtype}")
+    conv_bwd.check_kernel_dtype(kernel, x)
     for name, t in (("weight", weight), ("bias", bias)):
         if t is not None and t.dtype != x.dtype:
             raise TypeError(f"{kernel} kernel takes {name} in x's dtype {x.dtype}, got {t.dtype}")
@@ -144,7 +140,7 @@ def _launch(wrapper, x, weight, bias, scale, shift, prologue: bool,
         y.data_ptr(), scratch.data_ptr() if st is not None else None,
         st.data_ptr() if st is not None else None,
         packed.data_ptr() if packed is not None and packed.numel() else None,
-        b, cin, cout, h, w, int(prologue), int(st is not None), _KERNEL_DTYPES[x.dtype],
+        b, cin, cout, h, w, int(prologue), int(st is not None), conv_bwd.KERNEL_DTYPES[x.dtype],
         x.device.index, conv_bwd.stream_of(x),
     )
     (wrapper.bf16 if bf16 else wrapper).launches += 1
@@ -215,12 +211,17 @@ class _Conv3x3BnAct(torch.autograd.Function):
         x, weight, scale, shift, y = ctx.saved_tensors
         g = gy
         if ctx.stats:
-            # stats[b] = (Σ y, Σ y²) ⇒ dy += gs + 2·y·gq (pallas_conv.py:367-377)
-            g = gy + gst[:, 0, :, None, None] + 2.0 * y * gst[:, 1, :, None, None]
+            # stats[b] = (Σ y, Σ y²) ⇒ dy += gs + 2·y·gq, in f32 and rounded
+            # to gy's dtype (pallas_conv.py:364-375)
+            g = (conv_bwd.widened(gy) + gst[:, 0, :, None, None]
+                 + 2.0 * conv_bwd.widened(y) * gst[:, 1, :, None, None]).to(gy.dtype)
         g = g.contiguous()
         dx = dw = db = dscale = dshift = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            # K5 gives f32 sums; rounded to the weight's dtype here
+            # (pallas_conv.py:446-459), not left to autograd's cast
             dw, db = conv_bwd.wgrad3x3(x, g, scale, shift, ctx.prologue)
+            dw, db = dw.to(weight.dtype), db.to(weight.dtype)
         need_ps = ctx.prologue and (ctx.needs_input_grad[3] or ctx.needs_input_grad[4])
         if ctx.needs_input_grad[0] or need_ps:  # not for the stem's input
             dx, red = conv_bwd.dgrad3x3(g, x, weight, scale, shift, ctx.prologue)

@@ -105,8 +105,8 @@ def _dgrad(lib, c: dict, prologue: bool):
     part = torch.empty((max(1, lib.im2im_dgrad3x3_scratch(b, cin, h, wd)),), device="cuda")
     _build.check(lib.im2im_dgrad3x3(
         g.data_ptr(), w.data_ptr(), x.data_ptr(), c["scale"].data_ptr(), c["shift"].data_ptr(),
-        dx.data_ptr(), part.data_ptr(), red.data_ptr(), b, cin, cout, h, wd, int(prologue),
-        x.device.index, torch.cuda.current_stream().cuda_stream), "dgrad3x3")
+        dx.data_ptr(), part.data_ptr(), red.data_ptr(), None, b, cin, cout, h, wd,
+        int(prologue), 0, x.device.index, torch.cuda.current_stream().cuda_stream), "dgrad3x3")
     return dx, red
 
 

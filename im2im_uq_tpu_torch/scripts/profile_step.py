@@ -1,12 +1,13 @@
-"""Where a train step's device time goes, per ``conv_backend``.
+"""Where a train step's device time goes, per ``conv_backend`` and compute dtype.
 
     python -m im2im_uq_tpu_torch.scripts.profile_step
 
-For each backend of ``unet.CONV_BACKENDS``: the full-width UNet + quantile
-head (random weights from a seed) at batch 32, 320x320, fp32 with TF32 off,
-two warm-up steps of ``make_train_step`` on one batch already on the card,
-then three steps under ``torch.profiler``. Prints one JSON line per
-backend: the wall time per step (host clock around the synchronized
+For each backend of ``unet.CONV_BACKENDS``, in float32 and then in bfloat16
+(``compute_dtype``): the full-width UNet + quantile head (random weights
+from a seed) at batch 32, 320x320, TF32 off, two warm-up steps of
+``make_train_step`` on one batch already on the card, then three steps
+under ``torch.profiler``. Prints one JSON line per backend and dtype: the
+wall time per step (host clock around the synchronized
 steps), the device-busy time (the union of the kernels' intervals), the
 idle share, and the kernel time per step in buckets (the port's kernels by
 name; cuDNN's convolutions; BatchNorm; Adam; copies; the rest) with the ten
@@ -26,18 +27,24 @@ from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
 from im2im_uq_tpu_torch.models.unet import CONV_BACKENDS
 from im2im_uq_tpu_torch.training import train
 
-__all__ = ["bucket", "main", "profile_backend"]
+__all__ = ["CASES", "bucket", "main", "profile_backend"]
 
 BATCH, IMAGE, STEPS = 32, 320, 3
+# (conv_backend, compute_dtype) in the order they are profiled
+CASES = [(backend, dtype) for dtype in ("float32", "bfloat16") for backend in CONV_BACKENDS]
 
 # (bucket, substrings of the kernel name), first match wins: the port's
 # kernels first, since their names contain "conv" too
 _BUCKETS = [
     ("K3/K4 conv3x3 (port)", ("conv3x3_fwd",)),  # the stem too
-    ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel",)),
+    ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel", "wgrad3x3_bf16_kernel")),
     ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel",)),
+    # the bf16 GEMMs' operands as pair words (K3/K4/K6: pack_pairs,
+    # pack_weights; K5: pack_act, pack_g)
+    ("bf16 packing (port)", ("pack_pairs_kernel", "pack_weights_kernel", "pack_act_kernel",
+                             "pack_g_kernel")),
     ("fixed-order partial sums (port)", ("reduce_rows",)),
-    ("K1f upsample (port)", ("upsample2x_kernel",)),
+    ("K1f upsample (port)", ("upsample2x_kernel", "upsample2x_bf16_kernel")),
     ("K1b upsample backward (port)", ("upsample2x_bwd_kernel",)),
     ("K7 max-pool backward (port)", ("maxpool2x2_bwd_kernel",)),
     ("batchnorm (cuDNN / torch)", ("batch_norm", "bn_fw", "bn_bw", "welford", "bn_")),
@@ -67,10 +74,10 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile_backend(conv_backend: str) -> dict:
+def profile_backend(conv_backend: str, compute_dtype: str = "float32") -> dict:
     cfg = {"model": "UNet", "uncertainty_type": "quantiles", "q_lo": 0.05, "q_hi": 0.95,
            "q_lo_weight": 1.0, "q_hi_weight": 1.0, "mse_weight": 1.0, "lr": 1e-3,
-           "conv_backend": conv_backend}
+           "conv_backend": conv_backend, "compute_dtype": compute_dtype}
     state = add_uncertainty(build_trunk(cfg), cfg,
                             generator=torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
@@ -103,7 +110,7 @@ def profile_backend(conv_backend: str) -> dict:
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     kernel_ms = sum(by_bucket.values())
     return {
-        "conv_backend": conv_backend, "batch": BATCH, "image": IMAGE, "steps": STEPS,
+        "conv_backend": conv_backend, "compute_dtype": compute_dtype, "batch": BATCH, "image": IMAGE, "steps": STEPS,
         "device": torch.cuda.get_device_name(0), "wall_ms_per_step": wall_ms / STEPS,
         "busy_ms_per_step": busy_ms / STEPS, "idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_ms_per_step": kernel_ms,
@@ -118,8 +125,8 @@ def main() -> int:
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for backend in CONV_BACKENDS:
-        print(json.dumps(profile_backend(backend)), flush=True)
+    for backend, dtype in CASES:
+        print(json.dumps(profile_backend(backend, dtype)), flush=True)
     return 0
 
 

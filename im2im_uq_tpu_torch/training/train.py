@@ -48,7 +48,6 @@ __all__ = [
     "make_eval_loss_step",
     "make_train_step",
     "put_batch",
-    "refuse_unported_training",
     "train_net",
 ]
 
@@ -89,19 +88,6 @@ def put_batch(x: np.ndarray, y: np.ndarray, mask: np.ndarray, device: torch.devi
             torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
 
 
-def refuse_unported_training(model: UQModel) -> None:
-    """Raise for a model whose training needs a kernel not yet ported: a
-    bf16 trunk under ``conv_backend: pallas_fused`` needs its backward, K5
-    and K6, in bf16."""
-    trunk = getattr(model, "baseModel", None)
-    if (getattr(trunk, "conv_backend", None) == "pallas_fused"
-            and trunk.dtype == torch.bfloat16):
-        raise NotImplementedError(
-            "training under conv_backend 'pallas_fused' in bfloat16 needs K5 and K6 "
-            "(wgrad3x3, dgrad3x3) in bf16, which are not yet ported; such a model serves"
-        )
-
-
 def make_train_step(
     model: UQModel,
     loss_pe_fn: Callable,
@@ -116,9 +102,7 @@ def make_train_step(
     The step puts the model in train mode itself: ``UQState.forward`` (used
     by validation and by validation hooks) leaves it in eval mode, and a
     step in eval mode would normalise with the running statistics.
-    Raises for what :func:`refuse_unported_training` refuses.
     """
-    refuse_unported_training(model)
     watch = bool(hyper.get("watch_gradients"))
 
     def train_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
@@ -225,7 +209,6 @@ def train_net(
     restored (or as given). ``mesh`` must be None: one device."""
     config = dict(config or uq_state.params)
     _refuse_unported(config, mesh, preprocess, preprocess_pair)
-    refuse_unported_training(uq_state.model)
     logger = logger or MetricsLogger(None)
     model = uq_state.model
     loss_pe = head_loss_pe_fn(uq_state.uncertainty_type)

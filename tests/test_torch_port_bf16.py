@@ -22,19 +22,34 @@ Inputs are numpy arrays from seeded RandomStates, handed to both sides.
   lets Σy and Σy² move (Σ bar and Σ bar·(2|y| + bar) per image and
   channel): both sides take the stats over their own rounded y, so an
   output one ulp apart moves them by its ulp.
+- K5 and K6: the bf16 plain versions against ``wgrad3x3_pallas_raw`` and
+  ``dgrad3x3_pallas_raw`` (interpret) on bf16 inputs at (2, 16, 16,
+  128→128), prologue on and off. Both sum exact bf16 × bf16 products in
+  f32, in other orders: dW, db and the reductions within 2·K·2^-24 of the
+  sums of the magnitudes (K the terms of each sum), dx within one bf16 ulp
+  plus that term times the scale; plus, where the two sides round K5's
+  activation or decide K6's mask differently (XLA contracts x·scale +
+  shift into an FMA, the port does not), the products of those elements.
+- The bf16 ``conv3x3_bn_act`` gradients (K5/K6 plain versions behind the
+  autograd function) against ``jax.grad`` of the JAX op in bf16 (its
+  Pallas backward in interpret mode) at Cin 64 and 128: within 1e-3
+  relative L2 per tensor (measured at most 7.2e-5: both round y, g_tot and
+  the gradients to bf16, and their f32 sums round apart at a few
+  elements), and no farther from the same op's f64 gradients (the port's,
+  in f64) than 1.25 times the JAX package's bf16 gradients plus 1e-5
+  (measured: equal to three digits, 1.9e-3 to 3.3e-3).
 - ``resolve_dtype`` as the JAX package's, for the names it takes and
   refuses; ``build_trunk`` / ``add_uncertainty`` take bf16 for UNet and WNet
-  under every conv backend; ``pallas_fused`` training in bf16 raises before
-  any data is read.
+  under every conv backend; ``train_net`` trains a bf16 model under
+  ``pallas_fused`` for an epoch.
 - The UNet + quantile head at 128², batch 2 (the smallest UNet whose four
   decoder upsamples all pass ``pallas_upsample_eligible``, so that the JAX
   side runs the TPU kernel's K1f, ``resize_backend: "pallas"``), on the
   same JAX weights and randomised running statistics loaded with
   ``strict=True``, in bf16 under the port's ``xla``, ``pallas`` and
   ``pallas_fused`` backends against the JAX package in bf16 (``xla``
-  convs): the eval forward within 1e-2 relative L2; one train step (under
-  ``xla`` and ``pallas``: ``pallas_fused`` trains in f32 only) with the
-  loss within 2e-3, the whole gradient within 3e-1 relative L2 and every running statistic within 5e-3 (bf16
+  convs): the eval forward within 1e-2 relative L2; one train step under
+  each backend with the loss within 2e-3, the whole gradient within 3e-1 relative L2 and every running statistic within 5e-3 (bf16
   rounding through 20 layers, and ReLU masks that flip on it; measured
   3.2e-3, 4e-4, 1.8e-1 and 1.6e-3). The tripwire: against the JAX package
   in f64, the port's bf16 error in the eval output, the whole gradient and
@@ -57,6 +72,7 @@ from im2im_uq_tpu.data.synthetic import SyntheticDataset
 from im2im_uq_tpu.models import assembly as jasm
 from im2im_uq_tpu.models import heads as jheads
 from im2im_uq_tpu.ops import pallas_conv as jpc
+from im2im_uq_tpu.ops import pallas_conv_bwd as jpcb
 from im2im_uq_tpu.ops import pallas_pool as jpp
 from im2im_uq_tpu.ops import pallas_resize as jpr
 from im2im_uq_tpu.training import train as jtrain
@@ -73,6 +89,18 @@ from im2im_uq_tpu_torch.ops import upsample as tup
 from im2im_uq_tpu_torch.training import train as ttrain
 
 BF16 = torch.bfloat16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's small CPU steps: the suite runs
+    in parallel workers on the same cores, and torch's thread pool in each of
+    them oversubscribes the cores many times over (the remat module took 27× its
+    single-process time so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _bf16_np(shape, seed: int, scale: float = 1.0) -> np.ndarray:
@@ -218,6 +246,130 @@ def test_k4_bf16_plain_matches_pallas_interpret(prologue, stats):
         assert not got_st.any()
 
 
+def _padded(a, w):
+    """The frame the JAX backward kernels take: 1 row/col of zeros, W + 2
+    rounded up to 8 (pallas_conv.py:442-445)."""
+    wp = -(-(w + 2) // 8) * 8
+    return jnp.pad(a, ((0, 0), (1, 1), (1, wp - w - 1), (0, 0)))
+
+
+def _order_term(terms: int, mass: torch.Tensor) -> torch.Tensor:
+    """The worst-case difference of two f32 sums of ``terms`` exact products
+    in different orders, whose magnitudes sum to ``mass``."""
+    return 2.0 * terms * 2.0**-24 * mass
+
+
+def _jax_prologue(x: np.ndarray, scale, shift):
+    """x·scale + shift as XLA computes it on the CPU (an FMA), NHWC f32."""
+    return _f32(jax.jit(lambda v, sc, sh: v.astype(jnp.float32) * sc + sh)(
+        _jbf16(x), jnp.asarray(scale), jnp.asarray(shift)))
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k5_bf16_plain_matches_pallas_interpret(prologue):
+    x, _, _, scale, shift = _conv_inputs(seed=20)
+    g = _bf16_np(x.shape, seed=22)
+    want_dw, want_db = jpcb.wgrad3x3_pallas_raw(
+        _padded(_jbf16(x), 16), _padded(_jbf16(g), 16), jnp.asarray(scale),
+        jnp.asarray(shift), w=16, prologue=prologue, out_dtype=jnp.float32, interpret=True)
+    sc, sh = torch.from_numpy(scale), torch.from_numpy(shift)
+    got_dw, got_db = tbwd.wgrad3x3_plain(_nchw(x), _nchw(g), sc, sh, prologue)
+    assert got_dw.dtype == got_db.dtype == torch.float32
+    a = tbwd.prologue_activation(_nchw(x, torch.float32), sc, sh, prologue).to(BF16).float()
+    a_jax = (_nchw(np.maximum(_jax_prologue(x, scale, shift), 0.0), BF16).float()
+             if prologue else a)
+    gf = _nchw(g, torch.float32)
+    terms = x.shape[0] * 16 * 16
+    bar = (_order_term(terms, tbwd.wgrad3x3_plain(a.abs(), gf.abs(), None, None, False)[0])
+           + tbwd.wgrad3x3_plain((a - a_jax).abs(), gf.abs(), None, None, False)[0])
+    got = got_dw.permute(2, 3, 1, 0).numpy()
+    assert (np.abs(got - np.asarray(want_dw)) <= bar.permute(2, 3, 1, 0).numpy()).all()
+    db_bar = _order_term(terms, gf.abs().sum((0, 2, 3))).numpy()
+    assert (np.abs(got_db.numpy() - np.asarray(want_db)) <= db_bar).all()
+
+
+@pytest.mark.parametrize("prologue", [True, False])
+def test_k6_bf16_plain_matches_pallas_interpret(prologue):
+    x, k, _, scale, shift = _conv_inputs(seed=24)
+    g = _bf16_np(x.shape, seed=26)
+    want_dx, want_red = jpcb.dgrad3x3_pallas_raw(
+        _padded(_jbf16(g), 16), _jbf16(x), _jbf16(k), jnp.asarray(scale), jnp.asarray(shift),
+        prologue=prologue, interpret=True)
+    sc, sh = torch.from_numpy(scale), torch.from_numpy(shift)
+    got_dx, got_red = tbwd.dgrad3x3_plain(_nchw(g), _nchw(x), _oihw(k), sc, sh, prologue)
+    assert got_dx.dtype == BF16 and got_red.dtype == torch.float32
+    gf, xf, kf = _nchw(g, torch.float32), _nchw(x, torch.float32), _oihw(k).float()
+    da = tbwd.dgrad3x3_plain(gf, xf, kf, None, None, False)[0]
+    ot = _order_term(9 * k.shape[-1], tbwd.dgrad3x3_plain(gf.abs(), xf, kf.abs(), None, None,
+                                                          False)[0])
+    want_dx = _f32(want_dx)
+    if not prologue:
+        bar = tprobe.bf16_ulp(torch.from_numpy(want_dx)).numpy() + _nhwc(ot)
+        assert (np.abs(_nhwc(got_dx) - want_dx) <= bar).all()
+        assert not got_red.any()
+        return
+    mask = xf * sc[:, None, None] + sh[:, None, None] > 0
+    flips = (mask != _nchw(_jax_prologue(x, scale, shift) > 0, torch.bool)).float()
+    assert flips.sum() <= 5
+    # dx and dam: the order term, and da itself where the masks differ
+    dam_bar = mask.float() * ot + flips * da.abs()
+    bar = (tprobe.bf16_ulp(torch.from_numpy(want_dx)).numpy()
+           + _nhwc(dam_bar * sc[:, None, None]))
+    assert (np.abs(_nhwc(got_dx) - want_dx) <= bar).all()
+    terms = x.shape[0] * 16 * 16
+    dam = da * mask
+    red_bar = torch.stack([(dam_bar * xf.abs()).sum((0, 2, 3))
+                           + _order_term(terms, (dam * xf).abs().sum((0, 2, 3))),
+                           dam_bar.sum((0, 2, 3))
+                           + _order_term(terms, dam.abs().sum((0, 2, 3)))])
+    assert ((got_red - torch.from_numpy(np.asarray(want_red))).abs() <= red_bar).all()
+
+
+@pytest.mark.parametrize("cin", [64, 128])
+def test_fused_op_bf16_gradients_match_jax_grad(cin):
+    rng = np.random.RandomState(30 + cin)
+    x = _bf16_np((2, 16, 16, cin), 31)
+    k = _bf16_np((3, 3, cin, 128), 32, scale=0.05)
+    bias = _bf16_np((128,), 33, scale=0.1)
+    scale = (np.abs(rng.randn(cin)) + 0.5).astype(np.float32)
+    shift = (0.05 + 0.3 * rng.randn(cin)).astype(np.float32)
+    wy = rng.randn(2, 16, 16, 128).astype(np.float32)
+    ws = (0.01 * rng.randn(2, 2, 128)).astype(np.float32)
+
+    def jax_grads(dtype):
+        def loss(x, k, bias, scale, shift):
+            y, st = jpc.conv3x3_bn_act(x, k, bias, scale, shift, True, True)
+            return jnp.sum(y.astype(jnp.float32) * wy) + jnp.sum(st * ws)
+
+        args = [jnp.asarray(a, dtype) for a in (x, k, bias)]
+        args += [jnp.asarray(a) for a in (scale, shift)]
+        return [_f32(gr) for gr in jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*args)]
+
+    want = jax_grads(jnp.bfloat16)
+
+    def port_grads(dtype, wide):
+        ins = [_nchw(x, dtype).requires_grad_(), _oihw(k).to(dtype).requires_grad_(),
+               torch.from_numpy(bias).to(dtype).requires_grad_(),
+               torch.from_numpy(scale).to(wide).requires_grad_(),
+               torch.from_numpy(shift).to(wide).requires_grad_()]
+        y, st = tconv.conv3x3_bn_act(*ins, prologue=True, stats=True)
+        ((y.to(wide) * _nchw(wy, wide)).sum() + (st * torch.from_numpy(ws).to(wide)).sum()
+         ).backward()
+        assert [t.grad.dtype for t in ins] == [dtype] * 3 + [wide] * 2
+        return [_nhwc(ins[0].grad.double()), ins[1].grad.double().permute(2, 3, 1, 0).numpy(),
+                ins[2].grad.double().numpy(), ins[3].grad.double().numpy(),
+                ins[4].grad.double().numpy()]
+
+    # the f64 reference: the same op in f64 (the JAX fused op does not run
+    # in f64; the port's f32 form is held to it by test_torch_port_conv.py)
+    f64 = port_grads(torch.float64, torch.float64)
+    got = port_grads(BF16, torch.float32)
+    for name, g_, w_, r_ in zip(["dx", "dw", "db", "dscale", "dshift"], got, want, f64):
+        assert _rel_l2(g_, w_) < 1e-3, (name, _rel_l2(g_, w_))
+        assert _rel_l2(g_, r_) <= 1.25 * _rel_l2(w_, r_) + 1e-5, (name, _rel_l2(g_, r_),
+                                                                  _rel_l2(w_, r_))
+
+
 # ------------------------------------------------------------ the config
 
 CFG = dict(
@@ -259,26 +411,26 @@ def test_bf16_models_build_and_serve_under_every_backend(model, conv_backend):
     assert torch.isfinite(out).all()
 
 
-class _Untouchable:
-    """A dataset that raises when it is read."""
-
-    def __len__(self):
-        raise AssertionError("the dataset was read")
-
-    def __getitem__(self, i):
-        raise AssertionError("the dataset was read")
-
-
-def test_pallas_fused_bf16_training_raises_before_any_data_is_read():
-    cfg = dict(CFG, conv_backend="pallas_fused", compute_dtype="bfloat16")
+def test_train_net_trains_pallas_fused_in_bf16():
+    """An epoch of ``train_net`` (4 steps at batch 2, 16², validation) under
+    ``pallas_fused`` in bf16: finite losses, every parameter moved, f32
+    parameters, the running statistics moved once a step."""
+    cfg = dict(CFG, conv_backend="pallas_fused", compute_dtype="bfloat16", resize_backend="auto")
     state = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg,
                                  generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="K5 and K6"):
-        ttrain.train_net(state, _Untouchable(), _Untouchable(), None, epochs=1, batch_size=2,
-                         lr=1e-3, config=cfg)
-    opt = torch.optim.Adam(state.model.parameters(), lr=1e-3)
-    with pytest.raises(NotImplementedError, match="K5 and K6"):
-        ttrain.make_train_step(state.model, theads.head_loss_pe_fn("quantiles"), cfg, opt)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    records = []
+    log = type("Log", (), {"log": lambda self, r: records.append(dict(r))})()
+    ds = SyntheticDataset(num_examples=8, image_size=16, seed=30)
+    ttrain.train_net(state, ds, ds, None, epochs=1, batch_size=2, lr=1e-3, validate_every=1,
+                     config=cfg, logger=log)
+    epoch = {k: v for r in records for k, v in r.items()}
+    assert epoch["iter"] == 4 and np.isfinite([epoch["train_loss"], epoch["val_loss"]]).all()
+    for n, p in state.model.named_parameters():
+        assert p.dtype == torch.float32 and torch.isfinite(p).all(), n
+        assert not torch.equal(p, before[n]), n
+    tracked = [int(b) for n, b in state.model.named_buffers() if "num_batches" in n]
+    assert tracked and set(tracked) == {4}
 
 
 # ------------------------------------------------------------ whole model
@@ -363,10 +515,10 @@ def test_bf16_eval_forward_matches_jax_bf16(conv_backend, reference):
     assert _rel_l2(got, f64) <= 2 * _rel_l2(want, f64)
 
 
-@pytest.fixture(scope="module", params=["xla", "pallas"])
+@pytest.fixture(scope="module", params=["xla", "pallas", "pallas_fused"])
 def port_step(request, reference):
     """One bf16 ``make_train_step`` of the port: loss, gradients, running
-    statistics (``pallas_fused`` trains in f32 only)."""
+    statistics."""
     state = _port_state(request.param, reference)
     cfg = state.params
     opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
@@ -399,46 +551,73 @@ def test_bf16_train_step_matches_jax_bf16(port_step, reference):
 
 
 def test_chip_smoke_bf16_conv_sites_are_the_models_launches(monkeypatch):
-    """A bf16 train step under ``pallas`` and a bf16 eval forward under
-    ``pallas_fused`` of the port's UNet at 32² (a tenth of 320²), batch 2,
-    call the K3/K4 wrappers in bf16 at the channel counts, prologues and
-    sides (a tenth) of ``chip_smoke.bf16_conv_sites``, as often."""
+    """A bf16 train step under ``pallas``, a bf16 eval forward under
+    ``pallas_fused`` and a bf16 train step under ``pallas_fused`` of the
+    port's UNet at 32² (a tenth of 320²), batch 2, call the K3/K4 wrappers
+    (the first two) and the K5/K6 wrappers (the last) in bf16 at the
+    channel counts, prologues and sides (a tenth) of
+    ``chip_smoke.bf16_conv_sites``, as often."""
     import collections
 
     import chip_smoke
 
     calls: collections.Counter = collections.Counter()
 
-    def record(name, path, shape_of):
-        fn = getattr(tconv, name)
+    def record(module, name, path, kernels, shape_of):
+        fn = getattr(module, name)
 
         def wrapper(*args):
-            assert args[0].dtype == BF16
-            calls[name, path[0], shape_of(*args)] += 1
+            if path[1] == kernels:
+                assert args[0].dtype == BF16
+                calls[name, path[0], shape_of(*args)] += 1
             return fn(*args)
 
-        monkeypatch.setattr(tconv, name, wrapper)
+        monkeypatch.setattr(module, name, wrapper)
 
-    path = ["pallas"]
-    record("conv3x3_fwd", path, lambda x, w, b: ((*x.shape, w.shape[0]), False))
-    record("conv3x3_bn_act_fwd", path,
+    path = ["pallas", "fwd"]
+    record(tconv, "conv3x3_fwd", path, "fwd", lambda x, w, b: ((*x.shape, w.shape[0]), False))
+    record(tconv, "conv3x3_bn_act_fwd", path, "fwd",
            lambda x, w, b, sc, sh, p, st: ((*x.shape, w.shape[0]), p))
+    record(tbwd, "wgrad3x3", path, "bwd", lambda x, g, sc, sh, p: ((*x.shape, g.shape[1]), p))
+    record(tbwd, "dgrad3x3", path, "bwd",
+           lambda g, x, w, sc, sh, p: ((*x.shape, g.shape[1]), p))
     x = torch.randn(2, 1, 32, 32)
-    for backend in ("pallas", "pallas_fused"):
-        path[0] = backend
+    for backend, kernels, train in (("pallas", "fwd", True), ("pallas_fused", "fwd", False),
+                                    ("pallas_fused", "bwd", True)):
+        path[:] = [backend, kernels]
         cfg = dict(CFG, conv_backend=backend, compute_dtype="bf16")
         state = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg,
                                      generator=torch.Generator().manual_seed(0), device="cpu")
-        if backend == "pallas":
+        if train:
             state.model.train()(x).square().mean().backward()
         else:
             state.forward(x)
 
-    names = {"conv3x3_bf16": "conv3x3_fwd", "conv3x3_bn_act_bf16": "conv3x3_bn_act_fwd"}
+    names = {"conv3x3_bf16": "conv3x3_fwd", "conv3x3_bn_act_bf16": "conv3x3_bn_act_fwd",
+             "wgrad3x3_bf16": "wgrad3x3", "dgrad3x3_bf16": "dgrad3x3"}
     want: collections.Counter = collections.Counter()
     for kernel, paths in chip_smoke.bf16_conv_sites().items():
         for backend, sites in paths.items():
             for ((_, cin, h, w, cout), prologue), n in sites.items():
                 want[names[kernel], backend, ((2, cin, h // 10, w // 10, cout), prologue)] += n
     assert calls == want
-    assert sum(want.values()) == 22 + 8 + 14
+    assert sum(want.values()) == 22 + 8 + 14 + 14 + 13
+
+
+def test_profile_step_profiles_each_backend_in_bf16_and_buckets_its_kernels():
+    from im2im_uq_tpu_torch.scripts import profile_step
+
+    assert profile_step.CASES == [(b, d) for d in ("float32", "bfloat16")
+                                  for b in ("xla", "pallas", "pallas_fused")]
+    assert (profile_step.bucket("void (anonymous namespace)::wgrad3x3_bf16_kernel<false>(...)")
+            == "K5 wgrad3x3 (port)")
+    assert (profile_step.bucket("void (anonymous namespace)::dgrad3x3_tc_kernel<__nv_bfloat16, "
+                                "true>(...)") == "K6 dgrad3x3 (port)")
+    assert (profile_step.bucket("void (anonymous namespace)::upsample2x_bf16_kernel(...)")
+            == "K1f upsample (port)")
+    for name in ("void conv3x3::pack_pairs_kernel<true>(...)",
+                 "void conv3x3::pack_weights_kernel<true>(...)",
+                 "void (anonymous namespace)::pack_act_kernel<false>(...)",
+                 "(anonymous namespace)::pack_g_kernel(...)"):
+        assert profile_step.bucket(name) == "bf16 packing (port)", name
+

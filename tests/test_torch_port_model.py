@@ -130,11 +130,8 @@ def test_remat_is_resolved_as_the_jax_package_resolves_it(remat):
             tasm.build_trunk(cfg)
         return
     assert tasm.resolve_remat(cfg) == want
-    if want:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tasm.build_trunk(cfg)
-    else:
-        assert isinstance(tasm.build_trunk(cfg), nn.Module)
+    trunk = tasm.build_trunk(cfg)
+    assert isinstance(trunk, nn.Module) and trunk.remat == want
 
 
 def test_unported_head_raises():
