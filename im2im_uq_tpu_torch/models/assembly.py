@@ -145,10 +145,12 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
     ``conv_backend`` takes the JAX package's values, "auto" (= "xla"),
     "xla", "pallas" and "pallas_fused" (``models/unet.py`` says what each
     runs; ``DoubleConv`` refuses any other); the parameters and their
-    state-dict keys are the same under all of them. ``pool_backend`` takes
-    the JAX package's values, "xla" and "pallas", so that its configs carry
-    over; both give the same pool (torch's forward, K7 as its backward).
-    ``bn_backend`` takes "auto"
+    state-dict keys are the same under all of them. ``pool_backend`` is
+    read as the JAX package's ``pool2x2`` reads it: "pallas" takes K7 and
+    every other value XLA's pool; here both are the same pool (torch's
+    forward, K7 as its backward), so any value builds. ``resize_backend``
+    ("auto" by default) routes the decoder's upsample as the JAX package's
+    does (``ops/resize.upsample2x_align_corners``). ``bn_backend`` takes "auto"
     and "flax": the JAX package's "dot" and "barrier" are not ported, and
     with ``pallas_fused``, whose kernels fold their own BatchNorm, they are
     refused as the JAX package refuses them. The UNet's ``remat`` is
@@ -177,13 +179,14 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
                 "conv_backend xla/pallas or bn_backend flax/auto"
             )
         raise NotImplementedError(f"bn_backend {bn_backend!r} is not yet ported")
-    if params.get("pool_backend", "xla") not in ("xla", "pallas"):
-        raise ValueError(f"unknown pool_backend {params['pool_backend']!r}")
+    rb = params.get("resize_backend", "auto")
     with torch.device("meta"):
         if name == "WNet":  # it reads channels 0 and 1 of its input
-            return WNet(n_channels_out=1, conv_backend=conv_backend, dtype=dtype)
+            return WNet(n_channels_out=1, conv_backend=conv_backend, dtype=dtype,
+                        resize_backend=rb)
         return UNet(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
-                    conv_backend=conv_backend, dtype=dtype, remat=resolve_remat(params))
+                    conv_backend=conv_backend, dtype=dtype, remat=resolve_remat(params),
+                    resize_backend=rb)
 
 
 def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:

@@ -55,8 +55,11 @@ the BatchNorm running statistics again (:func:`checkpointed`).
 An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
 ``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
 the kernel, so the concatenation is never built (``unet.py:615-629,
-737-743``). The decoder's 2x upsample is K1 (``ops/upsample.py``: K1f
-forward, K1b backward) on a CUDA tensor. ``Down``'s pool is
+737-743``). The decoder's 2x upsample routes by shape and
+``resize_backend`` as the JAX ``Up``'s does
+(``ops/resize.upsample2x_align_corners``): K1 (``ops/upsample.py``: K1f
+forward, K1b backward) where the TPU kernel takes the shape, the XLA form
+in PyTorch ops elsewhere (at 320², up1's 20×20 input). ``Down``'s pool is
 ``ops/pool.MaxPool2x2``: torch's max-pool forward, K7 as its backward.
 """
 
@@ -342,15 +345,14 @@ class Up(nn.Module):
     over [skip, up] along the channels."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32, remat=False):
+                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto"):
         super().__init__()
+        self.resize_backend = resize_backend
         self.conv = DoubleConv(in_channels, out_channels, in_channels // 2,
                                conv_backend=conv_backend, dtype=dtype, remat=remat)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        # the kernel takes NCHW-contiguous input; this copies only a
-        # channels_last activation
-        x1 = upsample2x_align_corners(x1.contiguous())
+        x1 = upsample2x_align_corners(x1, self.resize_backend)
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
         if dh or dw:
@@ -363,7 +365,7 @@ class Up(nn.Module):
 class UpNoSkip(nn.Module):
     """Bilinear upsample by any integer factor, then DoubleConv, without a
     skip connection (``unet.py:746``, the reference's unused Up_custom).
-    The resize is K1 where the factor is 2, the per-axis lerps elsewhere
+    The resize is the per-axis lerps in PyTorch ops, as the JAX module's
     (``ops/resize.resize_bilinear_align_corners``)."""
 
     def __init__(self, in_channels: int, out_channels: int, scale_factor: int = 2,
@@ -400,7 +402,7 @@ class UNet(nn.Module):
 
     def __init__(self, n_channels_in: int = 1, n_channels_out: int = 1,
                  n_channels_middle: int = 32, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32, remat=False):
+                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto"):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
@@ -413,10 +415,11 @@ class UNet(nn.Module):
         self.down2 = Down(128, 256, cb, dt, rm)
         self.down3 = Down(256, 512, cb, dt, rm)
         self.down4 = Down(512, 512, cb, dt, rm)
-        self.up1 = Up(1024, 256, cb, dt, rm)
-        self.up2 = Up(512, 128, cb, dt, rm)
-        self.up3 = Up(256, 64, cb, dt, rm)
-        self.up4 = Up(128, 64, cb, dt, rm)
+        rb = resize_backend
+        self.up1 = Up(1024, 256, cb, dt, rm, rb)
+        self.up2 = Up(512, 128, cb, dt, rm, rb)
+        self.up3 = Up(256, 64, cb, dt, rm, rb)
+        self.up4 = Up(128, 64, cb, dt, rm, rb)
         self.out = OutConv(64, n_channels_middle, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -444,7 +447,8 @@ class WNet(nn.Module):
     features come out in ``dtype``."""
 
     def __init__(self, n_channels_out: int = 1, n_channels_middle: int = 32,
-                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32):
+                 conv_backend: str = "xla", dtype: torch.dtype = torch.float32,
+                 resize_backend: str = "auto"):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
@@ -455,10 +459,11 @@ class WNet(nn.Module):
             setattr(self, f"{tag}inc", DoubleConv(1, 32, conv_backend=cb, dtype=dt))
             for i, (cin, cout) in enumerate(((32, 64), (64, 128), (128, 256), (256, 256)), 1):
                 setattr(self, f"{tag}down{i}", Down(cin, cout, cb, dt))
-        self.up1 = Up(1024, 256, cb, dt)
-        self.up2 = Up(512, 128, cb, dt)
-        self.up3 = Up(256, 64, cb, dt)
-        self.up4 = Up(128, 64, cb, dt)
+        rb = resize_backend
+        self.up1 = Up(1024, 256, cb, dt, resize_backend=rb)
+        self.up2 = Up(512, 128, cb, dt, resize_backend=rb)
+        self.up3 = Up(256, 64, cb, dt, resize_backend=rb)
+        self.up4 = Up(128, 64, cb, dt, resize_backend=rb)
         self.out = OutConv(64, n_channels_middle, dt)
 
     def _encode(self, p: torch.Tensor, tag: str) -> list[torch.Tensor]:

@@ -1,11 +1,14 @@
 """Bilinear resizes with align-corners semantics, NCHW.
 
 Counterpart of ``im2im_uq_tpu/ops/resize.py``. The decoder calls
-:func:`upsample2x_align_corners`, which is K1's autograd function
-(``ops/upsample.py``): the CUDA kernels K1f and K1b on a CUDA tensor, the
-plain phase lerp and its transpose on a CPU tensor.
-:func:`resize_bilinear_align_corners` is the general resize of the JAX
-package, kept for other scale factors.
+:func:`upsample2x_align_corners`, which routes as the JAX package's does
+(``resize.py:205-254`` on one device): K1's autograd function
+(``ops/upsample.py``: the CUDA kernels K1f and K1b on a CUDA tensor, their
+plain versions on a CPU tensor) where the TPU kernel takes the shape
+(``upsample.pallas_upsample_eligible``) and the backend is not ``"xla"``,
+and otherwise :func:`upsample2x_xla`, the JAX package's XLA form in
+PyTorch ops with autograd's backward. :func:`resize_bilinear_align_corners`
+is the general resize of the JAX package, always in that form.
 """
 
 from __future__ import annotations
@@ -15,9 +18,13 @@ import functools
 import numpy as np
 import torch
 
-from im2im_uq_tpu_torch.ops.upsample import upsample2x, upsample2x_axis_plain
+from im2im_uq_tpu_torch.ops.upsample import (
+    pallas_upsample_eligible,
+    upsample2x,
+    upsample2x_axis_plain,
+)
 
-__all__ = ["resize_bilinear_align_corners", "upsample2x_align_corners"]
+__all__ = ["resize_bilinear_align_corners", "upsample2x_align_corners", "upsample2x_xla"]
 
 
 @functools.lru_cache(maxsize=128)
@@ -46,14 +53,10 @@ def _resize_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of the last two axes with align_corners=True (H, then W).
-
-    An exact 2x of both axes is K1 (:func:`upsample2x`); other sizes run the
-    per-axis lerps in PyTorch ops.
-    """
+    """Bilinear resize of the last two axes with align_corners=True (H, then
+    W), per-axis lerps in PyTorch ops in x's dtype, as the JAX package's
+    (an exact 2x of an axis is ``_upsample2x_axis``'s phase lerp)."""
     h_dim, w_dim = x.ndim - 2, x.ndim - 1
-    if x.ndim == 4 and tuple(out_hw) == (2 * x.shape[h_dim], 2 * x.shape[w_dim]):
-        return upsample2x(x.contiguous())
     if x.shape[h_dim] != out_hw[0]:
         x = _resize_axis(x, out_hw[0], h_dim)
     if x.shape[w_dim] != out_hw[1]:
@@ -61,6 +64,20 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> t
     return x
 
 
-# The JAX package's name for the decoder upsample: K1f/K1b on CUDA, their
-# plain versions on the CPU.
-upsample2x_align_corners = upsample2x
+def upsample2x_xla(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA form of the 2x upsample (``_upsample2x_axis``
+    along H, then W) in x's dtype: in bf16 each operation is rounded on its
+    own, with the phase weights in bf16. Its backward is autograd's."""
+    return resize_bilinear_align_corners(x, (2 * x.shape[-2], 2 * x.shape[-1]))
+
+
+def upsample2x_align_corners(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(B, C, H, W) → (B, C, 2H, 2W), bilinear with align_corners=True, the
+    decoder's upsample. K1 (:func:`upsample2x`: K1f forward, K1b backward)
+    where the NHWC shape is eligible for the TPU kernel and ``backend`` is
+    not ``"xla"``; :func:`upsample2x_xla` otherwise. Shape and config
+    decide, as in ``im2im_uq_tpu/ops/resize.py:231-254`` on one device."""
+    b, c, h, w = x.shape
+    if backend != "xla" and pallas_upsample_eligible((b, h, w, c), x.dtype):
+        return upsample2x(x.contiguous())
+    return upsample2x_xla(x)

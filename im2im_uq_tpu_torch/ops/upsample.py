@@ -25,6 +25,7 @@ from im2im_uq_tpu_torch import _build
 __all__ = [
     "Upsample2x",
     "col_transpose_matrix",
+    "pallas_upsample_eligible",
     "phase_weights",
     "transpose_weights",
     "upsample2x",
@@ -72,6 +73,38 @@ def upsample2x_axis_plain(x: torch.Tensor, dim: int) -> torch.Tensor:
     out_shape = list(x.shape)
     out_shape[dim] = 2 * n
     return torch.stack([even, odd], dim + 1).reshape(out_shape)
+
+
+def _pick_row_tile(h: int) -> int | None:
+    """Largest row tile that divides H with at least two tiles
+    (``pallas_resize._pick_row_tile``)."""
+    for th in (16, 10, 8, 5, 4):
+        if h % th == 0 and h >= th + 2:
+            return th
+    return None
+
+
+def _lane_pad(c: int) -> int:
+    """Channels the TPU kernel runs at: C padded to the 128 lanes
+    (``pallas_resize._lane_pad``)."""
+    return -(-c // 128) * 128
+
+
+def pallas_upsample_eligible(shape, dtype: torch.dtype) -> bool:
+    """Whether the NHWC ``shape`` (B, H, W, C) of ``dtype`` takes the TPU
+    kernel in the JAX package (``pallas_resize.pallas_upsample_eligible``):
+    the decoder routes the upsample to K1 exactly where this holds
+    (``ops/resize.upsample2x_align_corners``)."""
+    if len(shape) != 4:
+        return False
+    _, h, w, c = shape
+    if dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if w % 8 != 0 or c % 8 != 0 or c < 32:
+        return False
+    if _lane_pad(c) > 2 * c:
+        return False
+    return _pick_row_tile(h) is not None
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
