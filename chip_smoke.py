@@ -12,7 +12,11 @@ Phases, one JSON line each on stdout:
               card, at the four decoder shapes of a batch-32 320x320 UNet
               and some odd shapes, in f32 and bf16 (0 outputs apart: the
               TPU kernel's bf16 rounding), with both times; the bf16 sums
-              on a k1_bf16_sums line (so k1b and k7).
+              on a k1_bf16_sums line (so k1b and k7). k1_route: up1's input
+              (32, 512, 20, 20), which the TPU kernel does not take, routed
+              to the XLA form in f32 and bf16 (output and gradient equal to
+              ``upsample2x_xla``'s, no K1 launch); every UNet or WNet train
+              step launches K1f and K1b 3 times.
    k1b        the upsample's backward kernel against its plain version at
               the four decoder cotangent shapes and the odd shapes, both
               dtypes, with both times.
@@ -43,12 +47,15 @@ Phases, one JSON line each on stdout:
               odd shapes, within ``conv_probe.bf16_tolerance``, the same
               bits twice; kernel, plain, library (``F.conv2d`` in bf16)
               and bound times.
-   k5_bf16, k6_bf16
-              the bf16 instances of K5 and K6 against their plain versions
-              at every K5/K6 launch of the bf16 ``pallas_fused`` train step
-              and the odd shapes, prologue on and off, the same bits twice;
-              kernel, plain, library (``torch.nn.grad.conv2d_weight`` /
-              ``conv2d_input`` in bf16) and bound times.
+   cotangent_bf16, k5_bf16, k6_bf16
+              the bf16 backward of K4: the cotangent pass (the stats'
+              terms added, written NHWC once for both kernels) bit for bit,
+              and K5 and K6 on wgmma reading it, against their plain
+              versions at every launch of the bf16 ``pallas_fused`` train
+              step and the odd shapes, prologue on and off, the same bits
+              twice; kernel, plain, library (``torch.nn.grad.conv2d_weight``
+              / ``conv2d_input`` in bf16; none for the cotangent pass) and
+              bound times, per shape and summed per step.
    probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
               conv), the ports of the Pallas probes of ``benchmarks/``,
               against their plain versions in f32 and bf16 at the probes'
@@ -170,6 +177,7 @@ from im2im_uq_tpu_torch.ops import (
     loss_table,
     moments,
     pool,
+    resize,
     upsample,
 )
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
@@ -226,6 +234,7 @@ KERNELS = {
     "dgrad3x3": conv_bwd.dgrad3x3,
     "wgrad3x3_bf16": conv_bwd.wgrad3x3.bf16,
     "dgrad3x3_bf16": conv_bwd.dgrad3x3.bf16,
+    "cotangent_nhwc": conv_bwd.cotangent_nhwc,
     "moments": moments.moments,
     "conv3x3_single": conv_probe.conv3x3_single,
     "conv3x3_db": conv_probe.conv3x3_db,
@@ -288,9 +297,14 @@ BF16_EVAL_RTOL = 2e-2
 BF16_KERNELS = {"xla": [], "pallas": ["conv3x3_bf16"],
                 "pallas_fused": ["conv3x3_bf16", "conv3x3_bn_act_bf16"]}
 # ... and each bf16 train path, beside K1f, K1b and K7: under pallas_fused
-# the backward of every K4 is K5 and K6 in bf16
+# the backward of every K4 is the cotangent pass, K5 and K6 in bf16
 BF16_TRAIN_KERNELS = dict(BF16_KERNELS, pallas_fused=BF16_KERNELS["pallas_fused"]
-                          + ["wgrad3x3_bf16", "dgrad3x3_bf16"])
+                          + ["cotangent_nhwc", "wgrad3x3_bf16", "dgrad3x3_bf16"])
+# K1f and K1b launches of a UNet or WNet train step at 320x320: the TPU
+# kernel's routing leaves up1 (a 20x20 input) to the XLA form
+K1_PER_STEP = 3
+# up1's input at batch 32, 320x320
+UP1_SHAPE = (32, 512, 20, 20)
 # a bf16 train step with the kernels against the same step with their plain
 # versions on the card (phase_bf16_gradcheck), relative: the loss, the whole
 # gradient (L2 over every tensor) and each running statistic; the bars of
@@ -500,7 +514,40 @@ def phase_k1() -> dict:
                 add_bound(result, 6 * 4 * x.numel(), x.element_size() * 5 * x.numel())
             emit("k1", **fields)
     _emit_bf16_sums("k1", sums)
+    k1_route(g)
     return close_bound(sums[torch.float32])
+
+
+def k1_route(gen: torch.Generator) -> None:
+    """The decoder's upsample at up1's input, which the TPU kernel does not
+    take: output and input gradient equal to ``upsample2x_xla``'s bit for
+    bit, in f32 and bf16, and no K1 launch."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(UP1_SHAPE, generator=gen, device="cuda").to(dtype)
+        b, c, h, w = UP1_SHAPE
+        g = torch.randn((b, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
+        xs = [x.clone().requires_grad_() for _ in range(2)]
+        before = (upsample.upsample2x.launches, upsample.upsample2x_bwd.launches)
+        ys = [resize.upsample2x_align_corners(xs[0]), resize.upsample2x_xla(xs[1])]
+        for y, xi in zip(ys, xs):
+            y.backward(g)
+        torch.cuda.synchronize()
+        launched = (upsample.upsample2x.launches - before[0],
+                    upsample.upsample2x_bwd.launches - before[1])
+        differ = (int((ys[0] != ys[1]).sum()), int((xs[0].grad != xs[1].grad).sum()))
+        emit("k1_route", shape=list(UP1_SHAPE), dtype=_dtype_name(dtype),
+             outputs_differ=differ[0], gradients_differ=differ[1], k1_launches=list(launched))
+        if differ != (0, 0) or launched != (0, 0):
+            raise AssertionError(f"up1's upsample is not the XLA form at {UP1_SHAPE} {dtype}: "
+                                 f"{differ} outputs and gradients differ, K1 launched {launched}")
+
+
+def require_k1_per_step(phase: str, counts: dict, steps: int) -> None:
+    """K1f and K1b launched K1_PER_STEP times in each of ``steps`` steps."""
+    got = (counts["upsample2x"], counts["upsample2x_bwd"])
+    if got != (K1_PER_STEP * steps,) * 2:
+        raise AssertionError(f"{phase}: K1f/K1b launched {got} times in {steps} steps, "
+                             f"not {K1_PER_STEP} each a step")
 
 
 def _k2_maps(n: int, p: int, gen: torch.Generator, signed: bool) -> tuple:
@@ -973,24 +1020,79 @@ def phase_conv_kernels_bf16() -> dict:
 def _bwd_bf16_calls(kernel: str, c: dict, prologue: bool):
     """(kernel call, plain call, library call, bytes moved, the activation
     or cotangent mass) of K5 or K6 in bf16 on the inputs ``c`` (x, g and
-    the weight rounded to bf16, scale and shift f32). The library call
-    computes the conv part alone, on bf16 tensors."""
+    the weight rounded to bf16, scale and shift f32). The kernels read g
+    through the cotangent pass's NHWC copy, as in the fused backward; the
+    plain versions read g. The library call computes the conv part alone,
+    on bf16 tensors."""
     x, g, w = (c[k].to(torch.bfloat16) for k in ("x", "g", "w"))
     sc, sh = c["scale"], c["shift"]
-    cin = x.shape[1]
+    cin, cout = x.shape[1], g.shape[1]
+    gp = conv_bwd.cotangent_nhwc(g, None, None)
     if kernel == "wgrad3x3_bf16":
         a = conv_bwd.prologue_activation(x.float(), sc, sh, prologue).to(torch.bfloat16)
-        return (lambda: conv_bwd.wgrad3x3(x, g, sc, sh, prologue),
+        return (lambda: conv_bwd.wgrad3x3_nhwc(x, gp, cout, sc, sh, prologue),
                 lambda: conv_bwd.wgrad3x3_plain(x, g, sc, sh, prologue),
                 lambda: torch.nn.grad.conv2d_weight(a, w.shape, g, padding=1),
                 2 * (x.numel() + g.numel()) + 4 * (w.numel() + g.shape[1] + 2 * cin), None)
     # the mass of each dx: Σ|g||w| over its 9·Cout products
     mass = conv_bwd.dgrad3x3_plain(g.float().abs(), x.float(), w.float().abs(), None, None,
                                    False)[0]
-    return (lambda: conv_bwd.dgrad3x3(g, x, w, sc, sh, prologue),
+    return (lambda: conv_bwd.dgrad3x3_nhwc(gp, x, w, sc, sh, prologue),
             lambda: conv_bwd.dgrad3x3_plain(g, x, w, sc, sh, prologue),
             lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=1),
             2 * (g.numel() + w.numel() + 2 * x.numel()) + 4 * 4 * cin, mass)
+
+
+def cotangent_cases() -> tuple[collections.Counter, list]:
+    """The cotangent pass's (B, Cout, H, W) at each K4 launch of the bf16
+    ``pallas_fused`` train step (every K4 there computes the stats), and
+    the odd shapes'."""
+    main = collections.Counter((b, cout, h, w) for (b, _, h, w, cout), _ in
+                               conv_sites("pallas_fused")["conv3x3_bn_act"])
+    return main, [(b, cout, h, w) for b, _, h, w, cout in CONV_ODD_SHAPES]
+
+
+def phase_cotangent_bf16() -> dict:
+    """The cotangent pass against its plain version on the card, bit for bit
+    and the same bits twice, with the stats' terms and without, at every
+    K4 launch of the bf16 ``pallas_fused`` train step and the odd shapes.
+    At the main-path shapes (with the stats) kernel, plain and bound times
+    (gy, y and the NHWC g moved once), summed over the step: the kernels
+    line's. No single PyTorch call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    counts, odd = cotangent_cases()
+    sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    for shape in list(counts) + odd:
+        b, ch = shape[:2]
+        gy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        y = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        gst = 1e-2 * torch.randn((b, 2, ch), generator=gen, device="cuda")
+        for stats in (True, False):
+            args = (gy, y, gst) if stats else (gy, None, None)
+            got, again = conv_bwd.cotangent_nhwc(*args), conv_bwd.cotangent_nhwc(*args)
+            want = conv_bwd.cotangent_plain(*args)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            fields = {"shape": list(shape), "stats": stats, "dtype": "bfloat16",
+                      "outputs_differ": differ, "bit_identical": bool(torch.equal(got, again)),
+                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
+            if differ or not fields["bit_identical"]:
+                raise AssertionError(f"cotangent pass {shape} stats={stats} differs from its "
+                                     f"plain version: {fields}")
+            if stats and shape in counts:
+                n = counts[shape]
+                fields["launches_per_step"] = n
+                fields["ms"] = time_ms(lambda: conv_bwd.cotangent_nhwc(*args), 10)
+                fields["plain_ms"] = time_ms(lambda: conv_bwd.cotangent_plain(*args), 2)
+                nbytes = 2 * (gy.numel() + y.numel() + got.numel()) + 4 * gst.numel()
+                fields["bound_ms"], fields["bound_by"] = bound(6.0 * gy.numel(), nbytes)
+                sums["max_abs_err"] = max(sums["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms"):
+                    sums[k] += n * fields[k]
+                add_bound(sums, 6.0 * gy.numel(), nbytes, n)
+            emit("cotangent_bf16", **fields)
+            del got, again, want
+    return close_bound(sums)
 
 
 def phase_conv_bwd_bf16() -> dict:
@@ -1009,9 +1111,14 @@ def phase_conv_bwd_bf16() -> dict:
     At the main-path shapes the kernel, plain and library
     (``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` on bf16 tensors)
     times and the bound (the bf16 tensor-core rate, 2-byte x and g), summed
-    over the step's launches: the kernels line's."""
+    over the step's launches: the kernels line's. The kernels read g
+    through the cotangent pass's NHWC copy (K5's time includes writing its
+    activation NHWC, K6's packing its weights); the pass itself, which the
+    step runs once for both, is timed on its own (phase_cotangent_bf16).
+    At the odd shapes the public wrappers (``wgrad3x3``, ``dgrad3x3``),
+    which run the pass on their g, must give the same bits."""
+    results = {"cotangent_nhwc": phase_cotangent_bf16()}
     gen = torch.Generator(device="cuda").manual_seed(9)
-    results = {}
     for kernel, paths in bf16_conv_sites().items():
         if kernel not in ("wgrad3x3_bf16", "dgrad3x3_bf16"):
             continue
@@ -1025,6 +1132,13 @@ def phase_conv_bwd_bf16() -> dict:
             c = _conv_case(b, cin, h, w, cout, gen)
             run, plain, library, nbytes, mass = _bwd_bf16_calls(kernel, c, prologue)
             got, again, want = run(), run(), plain()
+            if (shape, prologue) not in main:  # the public wrappers take the same path
+                x, g, w = (c[k].to(torch.bfloat16) for k in ("x", "g", "w"))
+                public = (conv_bwd.wgrad3x3(x, g, c["scale"], c["shift"], prologue)
+                          if phase == "k5_bf16" else
+                          conv_bwd.dgrad3x3(g, x, w, c["scale"], c["shift"], prologue))
+                if not all(torch.equal(a, b_) for a, b_ in zip(public, got)):
+                    raise AssertionError(f"{kernel} {shape}: the public wrapper differs")
             torch.cuda.synchronize()
             if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
                 raise AssertionError(f"{kernel} {shape} prologue={prologue}: two runs differ")
@@ -1279,7 +1393,9 @@ def phase_train(config: dict) -> tuple[dict, dict, dict]:
                             np.ones((bs,), np.float32), torch.device(DEVICE))
     opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
     step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt)
+    reset_counts()
     losses = [float(step(*batch))]
+    require_k1_per_step("train", read_counts(), 1)
     check_first_gradients("train", state.model)
     for _ in range(WARMUP_STEPS - 1):
         losses.append(float(step(*batch)))
@@ -1683,6 +1799,7 @@ def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list) -> 
     if not np.isfinite(losses).all():
         raise AssertionError(f"{phase}: train losses not finite: {losses}")
     require_launches(phase, counts, kernels)
+    require_k1_per_step(phase, counts, PATH_STEPS)
     return counts, losses, step_ms
 
 
@@ -1888,7 +2005,10 @@ def plain_conv_versions():
     names = [(conv, "conv3x3_fwd", conv.conv3x3_plain),
              (conv, "conv3x3_bn_act_fwd", conv.conv3x3_bn_act_plain),
              (conv_bwd, "wgrad3x3", conv_bwd.wgrad3x3_plain),
-             (conv_bwd, "dgrad3x3", conv_bwd.dgrad3x3_plain)]
+             (conv_bwd, "dgrad3x3", conv_bwd.dgrad3x3_plain),
+             (conv_bwd, "cotangent_nhwc", conv_bwd.cotangent_plain),
+             (conv_bwd, "wgrad3x3_nhwc", conv_bwd.wgrad3x3_nhwc_plain),
+             (conv_bwd, "dgrad3x3_nhwc", conv_bwd.dgrad3x3_nhwc_plain)]
     saved = [getattr(m, n) for m, n, _ in names]
     for m, n, fn in names:
         setattr(m, n, fn)
@@ -2142,8 +2262,9 @@ def main() -> int:
         "conv3x3_bn_act_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
-        "wgrad3x3_bf16": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
-        "dgrad3x3_bf16": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "wgrad3x3_bf16": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
+        "dgrad3x3_bf16": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "cotangent_nhwc": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:371"),
         "moments": ("moments.cu", "benchmarks/bench_moments.py:51"),
         "conv3x3_single": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:51"),
         "conv3x3_db": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),

@@ -74,20 +74,30 @@ _SIGNATURES = {
     "im2im_conv3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
     # 32-bit words of the bf16 instances' packed operands: (b, cin, cout, h, w)
     "im2im_conv3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    # K5: (x, g, scale, shift, scratch, packed, dw, db, b, cin, cout, h, w,
-    #      prologue, dtype, device, stream)
-    "im2im_wgrad3x3": ([_P] * 8 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    # K5 in f32: (x, g, scale, shift, scratch, dw, db, b, cin, cout, h, w,
+    #      prologue, device, stream)
+    "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
     # floats of K5's split-K scratch: (b, cin, cout, h, w)
     "im2im_wgrad3x3_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    # 32-bit words of K5's bf16 packed operands: (b, cin, cout, h, w)
-    "im2im_wgrad3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
-    # K6: (g, weight, x, scale, shift, dx, part, red, packed, b, cin, cout, h,
-    #      w, prologue, dtype, device, stream)
-    "im2im_dgrad3x3": ([_P] * 9 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    # K6 in f32: (g, weight, x, scale, shift, dx, part, red, b, cin, cout, h, w,
+    #      prologue, device, stream)
+    "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
     # floats of K6's reduction scratch: (b, cin, h, w)
     "im2im_dgrad3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
-    # 32-bit words of K6's bf16 packed operands: (b, cin, cout, h, w)
-    "im2im_dgrad3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # the bf16 NHWC passes (mode 0: K5's activation, 1: the cotangent): (in, y,
+    #  gst, scale, shift, out, b, c, cp, h, w, mode, device, stream)
+    "im2im_nhwc_pass": ([_P] * 6 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    # K6 in bf16 on wgmma: (gp, weight, x, scale, shift, dx, wpack, part, red,
+    #  b, cin, cout, cp, h, w, prologue, bn, th, tw, stages, blocks, device,
+    #  stream)
+    "im2im_dgrad3x3_wgmma": ([_P] * 9 + [ctypes.c_int] * 13 + [_P], ctypes.c_int),
+    # K5 in bf16 on wgmma: (act, gp, part, dw, db, b, cin, cpi, cout, cpo, h, w,
+    #  th, tw, stages, per_slice, slices, device, stream)
+    "im2im_wgrad3x3_wgmma": ([_P] * 5 + [ctypes.c_int] * 13 + [_P], ctypes.c_int),
+    # K5's bf16 stem: (x, gp, scale, shift, part, dw, db, b, cout, cpo, h, w,
+    #  prologue, per_slice, slices, device, stream)
+    "im2im_wgrad3x3_stem": ([_P] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+                            + [ctypes.c_int] * 2 + [_P], ctypes.c_int),
     # P1: blocks of the partial buffer for (n rows, device)
     "im2im_moments_blocks": ([ctypes.c_longlong, ctypes.c_int], ctypes.c_int),
     # P1: (x, part, sums, n, c, blocks, dtype, vec, device, stream)

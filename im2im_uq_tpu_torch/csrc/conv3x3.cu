@@ -248,8 +248,8 @@ cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, c
   } else {
     uint32_t* px = packed;
     uint32_t* pw = packed + packed_x_words(b, cin, g.h, g.w);
-    cudaError_t err = pack_operands<kPrologue, false>(x, weight, scale, shift, packed, b, cin,
-                                                      g.nc, g.h, g.w, s);
+    cudaError_t err = pack_operands<kPrologue>(x, weight, scale, shift, packed, b, cin, g.nc,
+                                               g.h, g.w, s);
     if (err != cudaSuccess) return err;
     return launch_grid_bytes(conv3x3_fwd_kernel<T, false, kStats>, g, b, s,
                              smem_bytes_bf16(g.plane), static_cast<const float*>(nullptr),

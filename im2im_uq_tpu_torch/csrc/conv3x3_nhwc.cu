@@ -69,6 +69,7 @@
 #include <cstdint>
 
 #include "mma_tf32.cuh"
+#include "tma.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -471,6 +472,8 @@ cudaError_t dispatch(const Geo& g, int variant, int device, cudaStream_t s) {
 // the next tile's copies are already in flight.
 namespace tma {
 
+using namespace tmak;
+
 constexpr int kTw = 64;                          // output pixels of a tile row
 constexpr int kHc = kTw + 2;                     // haloed columns
 constexpr int kConsumers = 2;                    // warpgroups
@@ -489,38 +492,6 @@ struct Geo {
   int tiles_y, tiles_x, tiles;
   int plane, abytes, wchunk, wbytes;  // bytes: a group, a stage, a weight chunk, a slice
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// arrive on `bar` where `on` (a predicate inside the instruction: the
-// consumers' code stays free of branches that ptxas would take as divergent
-// around their wgmma)
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool on) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_addr(bar)),
-      "r"(static_cast<int>(on))
-      : "memory");
-}
-
-// wait until the phase of `bar` with this parity has completed (the loop
-// inside the asm, for the same reason)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
 
 // *p = v where `on`, predicated inside the instruction
 __device__ __forceinline__ void store_if(void* p, uint32_t v, bool on) {
@@ -556,24 +527,6 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
   v[1] = high ? x1 : v[1];
   v[2] = high ? v[2] : x0;
   v[3] = high ? v[3] : x1;
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // wpack[slice][chunk][tap][k16 step][n group][k half][8 n][8 k] from HWIO
@@ -630,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(empty + s, 4 * kConsumers);  // lane 0 of each consumer warp
     }
     mbar_init(wfull, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();  // the only block-wide barrier: the producer warp leaves below
 
@@ -737,26 +690,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
-// library links no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <int kBn>
 cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo g, int device,
                    cudaStream_t s) {
@@ -775,27 +708,16 @@ cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo g, in
   g.wbytes = g.nch * g.wchunk;
   const int bytes = g.wbytes + g.stages * g.abytes + (2 * g.stages + 1) * 8;
 
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap xmap;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g.cin), static_cast<cuuint64_t>(g.w),
-                              static_cast<cuuint64_t>(g.h), static_cast<cuuint64_t>(g.b)};
-  const cuuint64_t row = static_cast<cuuint64_t>(g.cin) * 2;
-  const cuuint64_t strides[3] = {row, row * g.w, row * g.w * g.h};
-  const cuuint32_t box[4] = {8, kHc, kTh + 2, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
+  cudaError_t err = nhwc_map(&xmap, x, g.b, g.h, g.w, g.cin, kHc, kTh + 2);
+  if (err != cudaSuccess) return err;
 
   const int64_t total = static_cast<int64_t>(g.ntn) * g.wbytes / 2;
   const int64_t pblocks = (total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096;
   pack_weights_kernel<<<static_cast<unsigned>(pblocks), 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wpack), g.cin, g.cout,
       kBn, kc, g.nch, total);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   auto kernel = conv3x3_tma_kernel<kBn>;

@@ -1,6 +1,6 @@
 // The shared core of the 3x3 same-padding convolution kernels, NCHW,
 // float32, for sm_90a: the implicit GEMM on the tensor cores that K3/K4
-// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate, its bf16 form for K3/K4/K6
+// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate, its bf16 form for K3/K4
 // on bf16 tensors (gemm_bf16 and its packing kernels, at the end), and the
 // prologue, the dtype helpers and the fixed-order cross-block sums that
 // K3-K6 share (K5, wgrad3x3.cu, takes affine_relu, round_as and
@@ -435,7 +435,7 @@ __device__ __forceinline__ void gemm(const Geo& ge, float* smem, float (&acc)[kM
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 GEMM (K3/K4/K6 on bf16 tensors): the same blocks, boxes and
+// The bf16 GEMM (K3/K4 on bf16 tensors): the same blocks, boxes and
 // fragments, K in chunks of 16 channels x 9 taps, one wgmma.m64n32k16 with
 // bf16 operands and float32 accumulation per tap and m64 instance where the
 // float32 GEMM issues three m64n32k8 in 3xTF32. Its inputs are packed
@@ -474,8 +474,7 @@ __host__ __device__ __forceinline__ int b_word(int t, int n_l, int p) {
 
 // bf16 x (b, cin, h, w) → (b, ceil(cin / 2), h, w) words of channel pairs,
 // channel 2 p in the low half; with kPrologue each value is relu(x * scale
-// + shift) in float32 rounded to bf16; 0 past the channels. K6 packs its
-// cotangent (cin = Cout) the same way, without the prologue.
+// + shift) in float32 rounded to bf16; 0 past the channels.
 template <bool kPrologue>
 __global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
                                   const float* __restrict__ scale,
@@ -502,9 +501,9 @@ __global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
 // A bf16 weight → for each (channel tile of kBn N channels, chunk of 16 K
 // channels) its run of kChunkWords words in the stage's order (b_word), 0
 // past the channels: B[(k, t), n] = weight[n][k][t] of a (N, K, 3, 3)
-// forward weight, or, under kFlip (K6), weight[k][n][8 - t] of the (K, N,
-// 3, 3) forward weight, transposed and flipped.
-template <bool kFlip>
+// forward weight. (A template, so that every source including this header
+// may instantiate it.)
+template <int = 0>
 __global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
                                     uint32_t* __restrict__ out, int64_t words, int kdim,
                                     int ndim, int chunks) {
@@ -521,8 +520,7 @@ __global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
     float v[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int64_t src = kFlip ? (static_cast<int64_t>(k + e) * ndim + n) * 9 + 8 - t
-                                : (static_cast<int64_t>(n) * kdim + k + e) * 9 + t;
+      const int64_t src = (static_cast<int64_t>(n) * kdim + k + e) * 9 + t;
       v[e] = n < ndim && k + e < kdim ? __bfloat162float(weight[src]) : 0.0f;
     }
     const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
@@ -549,7 +547,7 @@ inline int64_t packed_w_words(int kdim, int ndim) {
 // Pack a bf16 GEMM's operands into `packed` (packed_x_words(b, kdim, ...) +
 // packed_w_words(kdim, ndim) words): `in` (b, kdim, h, w) as pair words (the
 // prologue applied with kPrologue), the weight in the stage's order.
-template <bool kPrologue, bool kFlip>
+template <bool kPrologue>
 cudaError_t pack_operands(const __nv_bfloat16* in, const __nv_bfloat16* weight,
                           const float* scale, const float* shift, uint32_t* packed, int b,
                           int kdim, int ndim, int h, int w, cudaStream_t s) {
@@ -560,7 +558,7 @@ cudaError_t pack_operands(const __nv_bfloat16* in, const __nv_bfloat16* weight,
                                                                        xw, kdim, hw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  pack_weights_kernel<kFlip><<<grid_stride_blocks(ww), 256, 0, s>>>(
+  pack_weights_kernel<><<<grid_stride_blocks(ww), 256, 0, s>>>(
       weight, packed + packed_x_words(b, kdim, h, w), ww, kdim, ndim,
       (kdim + 2 * kPairs - 1) / (2 * kPairs));
   return cudaGetLastError();

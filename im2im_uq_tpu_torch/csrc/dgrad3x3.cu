@@ -1,4 +1,5 @@
-// K6: the input gradient of K4, NCHW, float32 and bfloat16, for sm_90a.
+// K6: the input gradient of K4, NCHW, float32, for sm_90a (its bfloat16
+// instance is conv3x3_bwd_bf16.cu's).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `dgrad3x3_pallas_raw` (`_dgrad_kernel`).
@@ -38,25 +39,10 @@
 // dam) partials (a fixed butterfly over the lanes, then the M warps in
 // order), summed over the blocks by conv3x3::reduce_rows in a fixed order:
 // no float atomics, the same bits on every run.
-//
-// bfloat16 (g, weight, x and dx bf16; scale, shift and red f32): the TPU
-// kernel's function, da the sum of exact bf16 products in float32, the
-// mask f32(x) * scale + shift > 0 (the product and the sum each rounded,
-// as the plain version's; nvcc would contract them into an FMA and flip
-// the mask where the sum is within an ulp of 0), dam and the reductions in
-// float32, dx = dam * scale rounded once to bf16. The bound counts the
-// Winograd limit at the tensor cores' bf16 rate, 989 TFLOP/s. It runs on
-// the bf16 GEMM of conv3x3_tc.cuh (gemm_bf16, one wgmma.m64n32k16 per tap),
-// as K3/K4 in bf16 do: its packing kernels write g as words of channel
-// pairs, which NCHW does not store, and the flipped, transposed weights in
-// the stage's B layout (pack_operands<false, true>), then the GEMM runs
-// with this file's epilogue.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "conv3x3_tc.cuh"
 
@@ -64,23 +50,16 @@ namespace {
 
 using namespace conv3x3;
 
-// float32 (gy, weight: the GEMM stages them) or bf16 (packed_g, packed_w:
-// g and the flipped weights, packed by pack_operands).
-template <typename T, bool kPrologue>
+template <bool kPrologue>
 __global__ void __launch_bounds__(kThreads, 2)
     dgrad3x3_tc_kernel(Grid g, const float* __restrict__ gy, const float* __restrict__ weight,
-                       const uint32_t* __restrict__ packed_g,
-                       const uint32_t* __restrict__ packed_w, const T* __restrict__ x,
-                       const float* __restrict__ scale, const float* __restrict__ shift,
-                       T* __restrict__ dx, float* __restrict__ part, int cout) {
+                       const float* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ shift, float* __restrict__ dx,
+                       float* __restrict__ part, int cout) {
   extern __shared__ __align__(16) float smem[];
   const Place at = place(g);
   float acc[kMt][kNt][4];
-  if constexpr (std::is_same_v<T, float>)
-    gemm<true, false>(geo(g, at, gy, weight, nullptr, nullptr, cout), smem, acc);
-  else
-    gemm_bf16(geo_bf16(g, at, packed_g, packed_w, (cout + 1) / 2),
-              reinterpret_cast<uint32_t*>(smem), acc);
+  gemm<true, false>(geo(g, at, gy, weight, nullptr, nullptr, cout), smem, acc);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -161,31 +140,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <bool kPrologue>
-cudaError_t launch_f32(const Grid& gr, int b, int cout, const void* g, const void* weight,
-                       const void* x, const float* sc, const float* sh, void* dx, float* pf,
-                       cudaStream_t s) {
-  return launch_grid(dgrad3x3_tc_kernel<float, kPrologue>, gr, b, s,
-                     static_cast<const float*>(g), static_cast<const float*>(weight),
-                     static_cast<const uint32_t*>(nullptr), static_cast<const uint32_t*>(nullptr),
-                     static_cast<const float*>(x), sc, sh, static_cast<float*>(dx), pf, cout);
-}
-
-template <bool kPrologue>
-cudaError_t launch_bf16(const Grid& gr, int b, int cout, const void* g, const void* weight,
-                        const void* x, const float* sc, const float* sh, void* dx, float* pf,
-                        uint32_t* packed, cudaStream_t s) {
-  const int cin = gr.nc;
-  cudaError_t err = pack_operands<false, true>(
-      static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(weight), nullptr,
-      nullptr, packed, b, cout, cin, gr.h, gr.w, s);
-  if (err != cudaSuccess) return err;
-  const uint32_t* pw = packed + packed_x_words(b, cout, gr.h, gr.w);
-  return launch_grid_bytes(dgrad3x3_tc_kernel<__nv_bfloat16, kPrologue>, gr, b, s,
-                           smem_bytes_bf16(gr.plane), static_cast<const float*>(nullptr),
-                           static_cast<const float*>(nullptr),
-                           static_cast<const uint32_t*>(packed), pw,
-                           static_cast<const __nv_bfloat16*>(x), sc, sh,
-                           static_cast<__nv_bfloat16*>(dx), pf, cout);
+cudaError_t launch(const Grid& gr, int b, int cout, const float* g, const float* weight,
+                   const float* x, const float* sc, const float* sh, float* dx, float* pf,
+                   cudaStream_t s) {
+  return launch_grid(dgrad3x3_tc_kernel<kPrologue>, gr, b, s, g, weight, x, sc, sh, dx, pf, cout);
 }
 
 }  // namespace
@@ -195,38 +153,30 @@ extern "C" long long im2im_dgrad3x3_scratch(int b, int cin, int h, int w) {
   return static_cast<long long>(b) * make_grid(h, w, cin).boxes * 2 * cin;
 }
 
-// 32-bit words of the packed operands that a bf16 im2im_dgrad3x3 needs: g's
-// channel pairs, then the flipped weights.
-extern "C" long long im2im_dgrad3x3_packed_words(int b, int cin, int cout, int h, int w) {
-  return packed_x_words(b, cout, h, w) + packed_w_words(cout, cin);
-}
-
 // K6. g (b, cout, h, w), weight (cout, cin, 3, 3) the forward kernel, x
-// (b, cin, h, w) the forward's raw input, dx (b, cin, h, w): dtype 0
-// float32, 1 bfloat16, contiguous. With prologue != 0: scale, shift (cin)
-// float32, part (im2im_dgrad3x3_scratch floats) and red (2, cin) float32
-// are used and red is written. packed: im2im_dgrad3x3_packed_words words of
-// scratch for bf16 (unread for float32). Returns a cudaError_t value.
+// (b, cin, h, w) the forward's raw input, dx (b, cin, h, w): float32,
+// contiguous. With prologue != 0: scale, shift (cin) float32, part
+// (im2im_dgrad3x3_scratch floats) and red (2, cin) float32 are used and red
+// is written. Returns a cudaError_t value.
 extern "C" int im2im_dgrad3x3(const void* g, const void* weight, const void* x,
                               const void* scale, const void* shift, void* dx, void* part,
-                              void* red, void* packed, int b, int cin, int cout, int h, int w,
-                              int prologue, int dtype, int device, void* stream) {
+                              void* red, int b, int cin, int cout, int h, int w, int prologue,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || dtype < 0 || dtype > 1)
+  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Grid gr = make_grid(h, w, cin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* gf = static_cast<const float*>(g);
+  const auto* wf = static_cast<const float*>(weight);
+  const auto* xf = static_cast<const float*>(x);
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
+  auto* dxf = static_cast<float*>(dx);
   auto* pf = static_cast<float*>(part);
-  auto* pk = static_cast<uint32_t*>(packed);
-  if (dtype == 0)
-    err = prologue ? launch_f32<true>(gr, b, cout, g, weight, x, sc, sh, dx, pf, s)
-                   : launch_f32<false>(gr, b, cout, g, weight, x, sc, sh, dx, pf, s);
-  else
-    err = prologue ? launch_bf16<true>(gr, b, cout, g, weight, x, sc, sh, dx, pf, pk, s)
-                   : launch_bf16<false>(gr, b, cout, g, weight, x, sc, sh, dx, pf, pk, s);
+  err = prologue ? launch<true>(gr, b, cout, gf, wf, xf, sc, sh, dxf, pf, s)
+                 : launch<false>(gr, b, cout, gf, wf, xf, sc, sh, dxf, pf, s);
   if (err != cudaSuccess || !prologue) return static_cast<int>(err);
   return static_cast<int>(launch_reduce_rows(pf, static_cast<float*>(red), 1,
                                              static_cast<int64_t>(b) * gr.boxes, 2LL * cin, s));

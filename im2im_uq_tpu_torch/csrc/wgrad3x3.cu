@@ -1,5 +1,5 @@
-// K5: the weight and bias gradients of K4, NCHW, float32 and bfloat16, for
-// sm_90a.
+// K5: the weight and bias gradients of K4, NCHW, float32, for sm_90a (its
+// bfloat16 instance is conv3x3_bwd_bf16.cu's).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `wgrad3x3_pallas_raw` (`_wgrad_kernel`).
@@ -57,31 +57,7 @@
 //   one channel padded to two fragments), the 8 warps splitting the k-steps
 //   of each box among them and summing their fragments in shared memory in
 //   a fixed order at the end. It streams g once.
-//
-// bfloat16 (x and g bf16; scale, shift, dW and db float32): the TPU kernel's
-// function, the activation relu(f32(x) * scale + shift) rounded to bf16 (0
-// in the frame), dW the sum of exact bf16 x bf16 products in float32, db =
-// sum of f32(g). The bound counts the Winograd limit at the tensor cores'
-// bf16 rate, 989 TFLOP/s. It keeps the float32 kernel's blocks, boxes,
-// warps, stages, split K and fixed-order sums, with mma.sync.m16n8k16 bf16
-// (one product per fragment pair, f32 accumulation, each k-step through a
-// fresh accumulator as in 3xTF32) in place of three m16n8k8 TF32 products.
-// Its k-step is 16 pixels, and both operands hold pairs of consecutive
-// pixels in one 32-bit word (the lower pixel in the low half). g's pairs
-// start at even pixels, which a box row (TW even, x0 a multiple of TW)
-// keeps; but the input is shifted by each tap, and the taps of odd column
-// shift start a pair at an odd pixel, a misaligned 32-bit read of bf16
-// data. Two packing kernels first write what the GEMM reads as words:
-// pack_act writes, for every column j of a row, the word (a[j - 1], a[j])
-// (the prologue applied and rounded, 0 past the row's ends), so that a
-// frame word of any alignment is one word, staged with the float32
-// kernel's 4-byte copies; pack_g writes g's even pairs, rows padded to 4
-// words, staged with 16-byte copies. The packed input moves about twice
-// x's bytes, the same as float32 x. A k-step of 16 pixels spans two rows
-// of an 8 x 8 box (the 40x40 and 20x20 levels), so each fragment half finds
-// its row apart.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -186,7 +162,7 @@ struct Geo {
   bool vec;  // g's rows are 16-byte aligned: 16-byte copies
 };
 
-// The box q of the slice: its image and top-left pixel (Geo or GeoBf16).
+// The box q of the slice: its image and top-left pixel.
 template <typename G>
 __device__ __forceinline__ void box_origin(int64_t q, const G& ge, int& b, int& y0, int& x0) {
   const int nbx = (ge.w + ge.tw - 1) >> ge.log2_tw;
@@ -407,334 +383,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 instance.
-
-constexpr int kGwStride = kBoxPx / 2 + 4;  // g words per channel; = 4 mod 32
-
-// words per input channel of a staged box of pair words, (TH + 2) rows of
-// TW + 1 words; = 8 mod 32: a B fragment's 8 channels x 4 pair offsets hit
-// every bank at most twice
-int halo_plane_bf16(Box bx) {
-  const int p = (bx.th + 2) * (bx.tw + 1);
-  return p + (40 - p % 32) % 32;
-}
-
-template <bool kStem>
-struct StageBf16 {
-  static constexpr int kX = kCoT * kGwStride;
-  __host__ __device__ static int words(int plane) {
-    return (kX + Cfg<kStem>::kCiT * plane + 3) & ~3;
-  }
-};
-
-template <bool kStem>
-int smem_bytes_bf16(int plane) {
-  int words = kStages * StageBf16<kStem>::words(plane);
-  if (kStem && words < kWarps * 32 * 32) words = kWarps * 32 * 32;  // the warps' sums
-  return words * static_cast<int>(sizeof(uint32_t));
-}
-
-// g's words per row: ceil(w / 2) rounded up to 4, so that every 16-byte
-// group of a row is aligned
-__host__ __device__ inline int g_row_words(int w) { return ((w + 1) / 2 + 3) & ~3; }
-
-inline int64_t packed_act_words(int b, int cin, int h, int w) {
-  return (static_cast<int64_t>(b) * cin * h * (w + 1) + 3) & ~int64_t{3};
-}
-
-inline int64_t packed_g_words(int b, int cout, int h, int w) {
-  return static_cast<int64_t>(b) * cout * h * g_row_words(w);
-}
-
-__device__ __forceinline__ uint32_t pair_word(float lo, float hi) {
-  const __nv_bfloat162 pr = __floats2bfloat162_rn(lo, hi);  // .x, the low half: lo
-  return *reinterpret_cast<const uint32_t*>(&pr);
-}
-
-// bf16 x (b, cin, h, w) → (b, cin, h, w + 1) words: word j of a row holds
-// the activation at columns j - 1 (low half) and j (high half), 0 outside
-// the row; the activation is relu(f32(x) * scale + shift) rounded to bf16
-// with kPrologue, x without.
-template <bool kPrologue>
-__global__ void pack_act_kernel(const __nv_bfloat16* __restrict__ x,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ shift, uint32_t* __restrict__ out,
-                                int64_t words, int cin, int h, int w) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t row = i / (w + 1);
-    const int j = static_cast<int>(i - row * (w + 1));
-    const __nv_bfloat16* src = x + row * w;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = j - 1 + e;
-      v[e] = col >= 0 && col < w ? __bfloat162float(src[col]) : 0.0f;
-      if (kPrologue && col >= 0 && col < w) {
-        const int c = static_cast<int>((row / h) % cin);
-        v[e] = conv3x3::affine_relu(v[e], scale[c], shift[c]);
-      }
-    }
-    out[i] = pair_word(v[0], v[1]);
-  }
-}
-
-// bf16 g (b, cout, h, w) → (b, cout, h, g_row_words(w)) words: word j of a
-// row holds columns 2 j (low half) and 2 j + 1 (high half), 0 past the row.
-__global__ void pack_g_kernel(const __nv_bfloat16* __restrict__ g, uint32_t* __restrict__ out,
-                              int64_t words, int w) {
-  const int rw = g_row_words(w);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t row = i / rw;
-    const int col = 2 * static_cast<int>(i - row * rw);
-    const __nv_bfloat16* src = g + row * w;
-    out[i] = pair_word(col < w ? __bfloat162float(src[col]) : 0.0f,
-                       col + 1 < w ? __bfloat162float(src[col + 1]) : 0.0f);
-  }
-}
-
-// c += a * b, m16n8k16 with bf16 operands (pairs of K elements per
-// register, the lower in the low half; the fragment layout of PTX's
-// "mma.m16n8k16" for .bf16), through a fresh float32 accumulator added to c
-// rounded to nearest
-__device__ __forceinline__ void mma_bf16_fresh(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  float t[4];
-  const float z = 0.0f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
-#pragma unroll
-  for (int r = 0; r < 4; ++r) c[r] += t[r];
-}
-
-struct GeoBf16 {
-  const uint32_t* act;  // (b, cin, h, w + 1) words
-  const uint32_t* gw;   // (b, cout, h, g_row_words(w)) words
-  int cin, cout, h, w, th, tw, log2_tw, plane, co0, ci0;
-};
-
-// Start the copies of box q of the slice into one stage: g's words of the
-// block's 64 channels (16-byte copies, 8 pixels of a box row each) and the
-// input box's frame words (4-byte copies, the frame flattened over the
-// lanes, a channel per warp), 0 outside the image and past the channels.
-template <bool kStem>
-__device__ __forceinline__ void stage_box_bf16(int64_t q, const GeoBf16& ge, uint32_t* st) {
-  constexpr int kCiT = Cfg<kStem>::kCiT;
-  int b, y0, x0;
-  box_origin(q, ge, b, y0, x0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rw = g_row_words(ge.w);
-  const uint32_t* gb = ge.gw + static_cast<int64_t>(b) * ge.cout * ge.h * rw;
-  for (int i = threadIdx.x; i < kCoT * kBoxPx / 8; i += kThreads) {
-    const int co_l = i >> 3, k = 8 * (i & 7);  // 8 pixels from box pixel k
-    const int y = y0 + (k >> ge.log2_tw), xx = x0 + (k & (ge.tw - 1));
-    const bool ok = y < ge.h && xx < ge.w && ge.co0 + co_l < ge.cout;
-    const uint32_t* src = gb + (static_cast<int64_t>(ge.co0 + co_l) * ge.h + y) * rw + xx / 2;
-    tc::cp_async16(reinterpret_cast<float*>(st + co_l * kGwStride + k / 2),
-                   reinterpret_cast<const float*>(ok ? src : ge.gw), ok);
-  }
-  uint32_t* xs = st + StageBf16<kStem>::kX;
-  const int rs = ge.tw + 1;
-  const int hp = (ge.th + 2) * rs;
-  const float inv_rs = 1.0f / rs;
-  const int64_t plane_words = static_cast<int64_t>(ge.h) * (ge.w + 1);
-  for (int ci_l = warp; ci_l < kCiT; ci_l += kWarps) {
-    const bool c_ok = ge.ci0 + ci_l < ge.cin;
-    const uint32_t* xc = ge.act + (static_cast<int64_t>(b) * ge.cin + ge.ci0 + ci_l) * plane_words;
-    for (int e = lane; e < hp; e += 32) {
-      const int rr = __float2int_rz((e + 0.5f) * inv_rs);
-      const int y = y0 - 1 + rr, j = x0 + e - rr * rs;  // frame word (rr, e - rr rs)
-      const bool ok = c_ok && y >= 0 && y < ge.h && j <= ge.w;
-      tc::cp_async4(reinterpret_cast<float*>(xs + ci_l * ge.plane + e),
-                    reinterpret_cast<const float*>(ok ? xc + static_cast<int64_t>(y) * (ge.w + 1) + j
-                                                      : ge.act),
-                    ok);
-    }
-  }
-}
-
-template <bool kStem>
-__global__ void __launch_bounds__(kThreads, 2)
-    wgrad3x3_bf16_kernel(const uint32_t* __restrict__ act, const uint32_t* __restrict__ gw,
-                         float* __restrict__ part_w, float* __restrict__ part_b, int cin,
-                         int cout, int h, int w, int th, int log2_tw, int plane,
-                         int64_t per_slice, int64_t boxes, int nci) {
-  using C = Cfg<kStem>;
-  using St = StageBf16<kStem>;
-  extern __shared__ __align__(16) uint32_t smem_w[];
-  const int64_t slice = blockIdx.x;
-  const int ci_tile = blockIdx.y % nci;
-  const GeoBf16 ge{act, gw, cin, cout, h, w, th, 1 << log2_tw, log2_tw, plane,
-                   static_cast<int>(blockIdx.y / nci) * kCoT, ci_tile * C::kCiT};
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = kStem ? 0 : warp / C::kWarpsN;
-  const int wn = kStem ? 0 : warp % C::kWarpsN;
-  const int wk = kStem ? warp : 0;
-  const int sw = St::words(plane);
-  const int tw = 1 << log2_tw;
-  const int rs = tw + 1;
-
-  int off[C::kNt];  // the B fragment's word offset in the input box, per tap fragment
-#pragma unroll
-  for (int t = 0; t < C::kNt; ++t) {
-    int ci_l, tap;
-    column<kStem>(wn, t, gid, ci_l, tap);
-    off[t] = ci_l * plane + (tap / 3) * rs + tap % 3 + 2 * tig;
-  }
-  float acc[C::kMt][C::kNt][4];
-#pragma unroll
-  for (int i = 0; i < C::kMt; ++i)
-#pragma unroll
-    for (int t = 0; t < C::kNt; ++t)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][t][r] = 0.0f;
-  const bool with_db = ci_tile == 0;  // the same in the whole block
-  float dbacc = 0.0f;
-
-  const int64_t q0 = slice * per_slice;
-  const int n = static_cast<int>((q0 + per_slice < boxes ? q0 + per_slice : boxes) - q0);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) stage_box_bf16<kStem>(q0 + s, ge, smem_w + s * sw);
-    tc::cp_async_commit();
-  }
-  for (int it = 0; it < n; ++it) {
-    const uint32_t* st = smem_w + (it % kStages) * sw;
-    tc::cp_async_wait<kStages - 2>();
-    __syncthreads();  // box it is staged; the buffer of box it - 1 is free
-    const int nxt = it + kStages - 1;
-    if (nxt < n) stage_box_bf16<kStem>(q0 + nxt, ge, smem_w + (nxt % kStages) * sw);
-    tc::cp_async_commit();
-    const uint32_t* xs = st + St::kX;
-    for (int s = wk; s < kBoxPx / 16; s += C::kWarpsK) {
-      uint32_t a[C::kMt][4];
-#pragma unroll
-      for (int i = 0; i < C::kMt; ++i) {
-        const uint32_t* ap =
-            st + ((kStem ? 0 : wm * 32) + i * 16 + gid) * kGwStride + 8 * s + tig;
-        a[i][0] = ap[0];
-        a[i][1] = ap[8 * kGwStride];
-        a[i][2] = ap[4];
-        a[i][3] = ap[8 * kGwStride + 4];
-      }
-      // the box pixels 16 s + 8 u + 2 tig, + 1 of B's two registers: a row
-      // of the frame each (the two rows differ where TW = 8)
-      const int p0 = 16 * s, p1 = 16 * s + 8;
-      const uint32_t* b0p = xs + (p0 >> log2_tw) * rs + (p0 & (tw - 1));
-      const uint32_t* b1p = xs + (p1 >> log2_tw) * rs + (p1 & (tw - 1));
-#pragma unroll
-      for (int t = 0; t < C::kNt; ++t) {
-        const uint32_t b0 = b0p[off[t]], b1 = b1p[off[t]];
-#pragma unroll
-        for (int i = 0; i < C::kMt; ++i) mma_bf16_fresh(acc[i][t], a[i], b0, b1);
-      }
-    }
-    if (with_db) {
-      // thread tid: channel tid / 4, words = tid (mod 4), in order
-      const uint32_t* gp = st + (tid >> 2) * kGwStride;
-      for (int k = tid & 3; k < kBoxPx / 2; k += 4) {
-        const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(gp + k);
-        dbacc += __low2float(pr);
-        dbacc += __high2float(pr);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  if (with_db) {
-    dbacc += __shfl_xor_sync(0xffffffffu, dbacc, 1);
-    dbacc += __shfl_xor_sync(0xffffffffu, dbacc, 2);
-    const int co = ge.co0 + (tid >> 2);
-    if ((tid & 3) == 0 && co < cout) part_b[slice * cout + co] = dbacc;
-  }
-  if (kStem) {
-    // the warps' sums, added in warp order by warp 0
-    __syncthreads();  // every warp is done with the stages
-    float* red = reinterpret_cast<float*>(smem_w);
-#pragma unroll
-    for (int i = 0; i < C::kMt; ++i)
-#pragma unroll
-      for (int t = 0; t < C::kNt; ++t)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          red[(warp * 32 + (i * C::kNt + t) * 4 + r) * 32 + lane] = acc[i][t][r];
-    __syncthreads();
-    if (warp != 0) return;
-#pragma unroll
-    for (int i = 0; i < C::kMt; ++i)
-#pragma unroll
-      for (int t = 0; t < C::kNt; ++t)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float v = 0.0f;
-          for (int k = 0; k < kWarps; ++k) v += red[(k * 32 + (i * C::kNt + t) * 4 + r) * 32 + lane];
-          acc[i][t][r] = v;
-        }
-  }
-#pragma unroll
-  for (int i = 0; i < C::kMt; ++i)
-#pragma unroll
-    for (int t = 0; t < C::kNt; ++t)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int co = ge.co0 + (kStem ? 0 : wm * 32) + i * 16 + gid + (r >= 2 ? 8 : 0);
-        int ci_l, tap;
-        column<kStem>(wn, t, 2 * tig + (r & 1), ci_l, tap);
-        const int ci = ge.ci0 + ci_l;
-        if (co < cout && ci < cin)
-          part_w[((slice * cout + co) * cin + ci) * 9 + tap] = acc[i][t][r];
-      }
-}
-
-template <bool kStem>
-cudaError_t launch_bf16(const Plan& p, const uint32_t* act, const uint32_t* gw, float* part_w,
-                        float* part_b, int cin, int cout, int h, int w, cudaStream_t s) {
-  const int plane = halo_plane_bf16(p.box);
-  const int bytes = smem_bytes_bf16<kStem>(plane);
-  cudaError_t err = cudaFuncSetAttribute(wgrad3x3_bf16_kernel<kStem>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(p.slices), static_cast<unsigned>(p.nci * p.nco));
-  wgrad3x3_bf16_kernel<kStem><<<grid, kThreads, bytes, s>>>(
-      act, gw, part_w, part_b, cin, cout, h, w, p.box.th, p.box.log2_tw, plane, p.per_slice,
-      p.boxes, p.nci);
-  return cudaGetLastError();
-}
-
-// Pack x (with the prologue) and g, then run the bf16 GEMM.
-cudaError_t run_bf16(const Plan& p, const void* x, const void* g, const float* sc,
-                     const float* sh, uint32_t* packed, float* part_w, float* part_b, int b,
-                     int cin, int cout, int h, int w, bool prologue, cudaStream_t s) {
-  const int64_t aw = static_cast<int64_t>(b) * cin * h * (w + 1);
-  const int64_t gwn = packed_g_words(b, cout, h, w);
-  uint32_t* act = packed;
-  uint32_t* gw = packed + packed_act_words(b, cin, h, w);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  if (prologue)
-    pack_act_kernel<true><<<conv3x3::grid_stride_blocks(aw), 256, 0, s>>>(xb, sc, sh, act, aw,
-                                                                          cin, h, w);
-  else
-    pack_act_kernel<false><<<conv3x3::grid_stride_blocks(aw), 256, 0, s>>>(xb, sc, sh, act, aw,
-                                                                           cin, h, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  pack_g_kernel<<<conv3x3::grid_stride_blocks(gwn), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(g), gw, gwn, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return p.stem ? launch_bf16<true>(p, act, gw, part_w, part_b, cin, cout, h, w, s)
-                : launch_bf16<false>(p, act, gw, part_w, part_b, cin, cout, h, w, s);
-}
-
 template <bool kStem, bool kPrologue>
 cudaError_t launch(const Plan& p, const float* x, const float* g, const float* sc,
                    const float* sh, float* part_w, float* part_b, int cin, int cout, int h,
@@ -757,24 +405,17 @@ extern "C" long long im2im_wgrad3x3_scratch(int b, int cin, int cout, int h, int
   return plan(b, cin, cout, h, w).slices * (static_cast<long long>(cout) * cin * 9 + cout);
 }
 
-// 32-bit words of the packed operands that a bf16 im2im_wgrad3x3 needs: the
-// activation's pair words, then g's.
-extern "C" long long im2im_wgrad3x3_packed_words(int b, int cin, int cout, int h, int w) {
-  return packed_act_words(b, cin, h, w) + packed_g_words(b, cout, h, w);
-}
-
-// K5. x (b, cin, h, w) the forward's raw input and g (b, cout, h, w): dtype
-// 0 float32, 1 bfloat16; scale, shift (cin) float32 read when prologue !=
-// 0, scratch (im2im_wgrad3x3_scratch floats), dw (cout, cin, 3, 3) and db
-// (cout) float32; contiguous. packed: im2im_wgrad3x3_packed_words words of
-// scratch for bf16 (unread for float32). Returns a cudaError_t value.
+// K5. x (b, cin, h, w) the forward's raw input and g (b, cout, h, w),
+// float32; scale, shift (cin) float32 read when prologue != 0, scratch
+// (im2im_wgrad3x3_scratch floats), dw (cout, cin, 3, 3) and db (cout)
+// float32; contiguous. Returns a cudaError_t value.
 extern "C" int im2im_wgrad3x3(const void* x, const void* g, const void* scale,
-                              const void* shift, void* scratch, void* packed, void* dw,
-                              void* db, int b, int cin, int cout, int h, int w, int prologue,
-                              int dtype, int device, void* stream) {
+                              const void* shift, void* scratch, void* dw, void* db, int b,
+                              int cin, int cout, int h, int w, int prologue, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || dtype < 0 || dtype > 1)
+  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan(b, cin, cout, h, w);
   if (p.slices > 0x7fffffff || static_cast<int64_t>(p.nci) * p.nco > 65535)
@@ -786,10 +427,7 @@ extern "C" int im2im_wgrad3x3(const void* x, const void* g, const void* scale,
   const auto* gf = static_cast<const float*>(g);
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
-  if (dtype == 1)
-    err = run_bf16(p, x, g, sc, sh, static_cast<uint32_t*>(packed), part_w, part_b, b, cin, cout,
-                   h, w, prologue != 0, s);
-  else if (p.stem)
+  if (p.stem)
     err = prologue ? launch<true, true>(p, xf, gf, sc, sh, part_w, part_b, cin, cout, h, w, s)
                    : launch<true, false>(p, xf, gf, sc, sh, part_w, part_b, cin, cout, h, w, s);
   else

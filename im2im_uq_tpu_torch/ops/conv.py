@@ -209,6 +209,8 @@ class _Conv3x3BnAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gst):
         x, weight, scale, shift, y = ctx.saved_tensors
+        if gy.dtype == torch.bfloat16:
+            return _bwd_bf16(ctx, gy, gst, x, weight, scale, shift, y)
         g = gy
         if ctx.stats:
             # stats[b] = (Σ y, Σ y²) ⇒ dy += gs + 2·y·gq, in f32 and rounded
@@ -228,6 +230,26 @@ class _Conv3x3BnAct(torch.autograd.Function):
             if ctx.prologue:
                 dscale, dshift = red[0], red[1]
         return dx, dw, db if ctx.has_bias else None, dscale, dshift, None, None
+
+
+def _bwd_bf16(ctx, gy, gst, x, weight, scale, shift, y):
+    """K4's backward in bf16: the cotangent (with the stats' terms) written
+    once NHWC, then K5 and K6 reading it (``conv_bwd.cotangent_nhwc``, as
+    ``pallas_conv.py:371-376, 424-427``)."""
+    gp = conv_bwd.cotangent_nhwc(gy.contiguous(), y if ctx.stats else None,
+                                 gst.contiguous() if ctx.stats else None)
+    dx = dw = db = dscale = dshift = None
+    if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        # K5 gives f32 sums; rounded to the weight's dtype here
+        # (pallas_conv.py:446-459), not left to autograd's cast
+        dw, db = conv_bwd.wgrad3x3_nhwc(x, gp, weight.shape[0], scale, shift, ctx.prologue)
+        dw, db = dw.to(weight.dtype), db.to(weight.dtype)
+    need_ps = ctx.prologue and (ctx.needs_input_grad[3] or ctx.needs_input_grad[4])
+    if ctx.needs_input_grad[0] or need_ps:  # not for the stem's input
+        dx, red = conv_bwd.dgrad3x3_nhwc(gp, x, weight, scale, shift, ctx.prologue)
+        if ctx.prologue:
+            dscale, dshift = red[0], red[1]
+    return dx, dw, db if ctx.has_bias else None, dscale, dshift, None, None
 
 
 def conv3x3(

@@ -21,10 +21,23 @@ them (``pallas_conv_bwd.py:145-155``), K6's dx once at the end
 (``:296-303``). A bf16 instance counts its launches apart, on
 ``wgrad3x3.bf16`` and ``dgrad3x3.bf16``. The JAX package takes padded
 inputs and pads W to 8 for Mosaic; the port takes the unpadded tensors.
+
+In bf16 both kernels read one cotangent, as the JAX package's read its one
+padded cotangent (``pallas_conv.py:371-376, 424-427``):
+:func:`cotangent_nhwc` writes it once, NHWC with the channels padded to a
+multiple of 8 (:func:`padded_channels`), the stats' terms added when given;
+:func:`wgrad3x3_nhwc` (K5, which writes its activation NHWC first and sums
+db as it reads g) and :func:`dgrad3x3_nhwc` (K6) read it through TMA into
+``wgmma`` (``csrc/conv3x3_bwd_bf16.cu``), planned by :func:`wgrad_plan` and
+:func:`dgrad_plan`. :func:`wgrad3x3` and :func:`dgrad3x3` on bf16 CUDA
+tensors run the cotangent pass on their ``g`` and then the same kernels.
+The pass counts its launches on ``cotangent_nhwc``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import types
 from typing import Optional
 
@@ -33,7 +46,15 @@ import torch.nn.functional as F
 
 from im2im_uq_tpu_torch import _build
 
-__all__ = ["dgrad3x3", "dgrad3x3_plain", "wgrad3x3", "wgrad3x3_plain"]
+__all__ = [
+    "DgradPlan", "WgradPlan", "cotangent_nhwc", "cotangent_plain", "dgrad3x3", "dgrad3x3_nhwc",
+    "dgrad3x3_nhwc_plain", "dgrad3x3_plain", "dgrad_plan", "from_nhwc", "padded_channels",
+    "stem_slices", "to_nhwc", "wgrad3x3", "wgrad3x3_nhwc", "wgrad3x3_nhwc_plain",
+    "wgrad3x3_plain", "wgrad_plan",
+]
+
+# a block's shared memory and the SMs of an H100 (the plans' defaults)
+SMEM_BYTES, SMS = 232448, 132
 
 # the dtype codes of the C entry points
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,6 +126,189 @@ def dgrad3x3_plain(
     return (dam * _per_channel(scale)).to(x.dtype), red
 
 
+def padded_channels(c: int) -> int:
+    """C rounded up to a multiple of 8: a pixel of 8 bf16 channels is the
+    16 bytes that TMA and ``wgmma`` take as a row."""
+    return -(-c // 8) * 8
+
+
+def to_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, H, W, padded_channels(C)), contiguous, the padding
+    0: the layout that the bf16 K5 and K6 read."""
+    b, c, h, w = t.shape
+    out = t.new_zeros((b, h, w, padded_channels(c)))
+    out[..., :c] = t.permute(0, 2, 3, 1)
+    return out
+
+
+def from_nhwc(t: torch.Tensor, c: int) -> torch.Tensor:
+    """The inverse of :func:`to_nhwc`: the first ``c`` channels, NCHW."""
+    return t[..., :c].permute(0, 3, 1, 2).contiguous()
+
+
+def cotangent_plain(gy: torch.Tensor, y: Optional[torch.Tensor],
+                    gst: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cotangent pass's plain version → g NHWC.
+
+    With the stats' cotangent ``gst`` (B, 2, C): g = (f32(gy) + gs) + 2·f32(y)·gq
+    rounded to gy's dtype, as ``pallas_conv.py:371-376``; without it g = gy.
+    Then the layout change (:func:`to_nhwc`)."""
+    g = gy
+    if gst is not None:
+        g = (widened(gy) + gst[:, 0, :, None, None]
+             + 2.0 * widened(y) * gst[:, 1, :, None, None]).to(gy.dtype)
+    return to_nhwc(g)
+
+
+@dataclasses.dataclass(frozen=True)
+class DgradPlan:
+    """K6 in bf16 at one shape: N slices of ``bn`` channels, output tiles of
+    ``th`` x ``tw`` pixels, a ring of ``stages`` chunks, ``blocks``
+    persistent blocks (``per_slice`` of each slice); bytes of a group's box
+    (``plane``), a stage, the x / dx tile of the TMA epilogue (0 where the
+    epilogue loads and stores itself) and the block's shared memory."""
+
+    bn: int
+    th: int
+    tw: int
+    stages: int
+    ntn: int
+    per_slice: int
+    blocks: int
+    tiles: int
+    chunks: int
+    plane: int
+    stage_bytes: int
+    xs_bytes: int
+    smem: int
+
+    @property
+    def wpack_elems(self) -> int:
+        return self.ntn * self.chunks * 9 * 16 * self.bn
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> DgradPlan:
+    """The plan of K6 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k6).
+
+    N = Cin in slices of 64 (Cin ≤ 64) or 128; a tile's M rows are 512 or
+    256 flattened box positions (two warpgroups of 4 or 2 m64 instances).
+    Of the column splits whose haloed box is at most 256 wide, the tile
+    (th rows x tw columns, th the most rows whose positions fit M) that
+    computes the fewest M rows in all (its width a multiple of 8 where W
+    is). Where W and the tile's width are multiples of 8, x and dx pass
+    through shared memory by TMA (the TMA epilogue, ``xs_bytes``). Chunks of
+    16 cotangent channels; as many stages as fit, up to 4; one persistent
+    block per SM, the slices side by side."""
+    bn = 64 if cin <= 64 else 128
+    mt = 64 * (4 if bn == 64 else 2) * 2
+    best = None
+    for nx in range(1, w + 1):
+        tw = -(-w // nx)
+        if tw + 2 > 256 or tw > mt or -(-w // tw) != nx or (w % 8 == 0 and tw % 8):
+            continue
+        th = min(h, (mt - tw) // (tw + 2) + 1, 254)
+        tiles = b * -(-h // th) * nx
+        if best is None or tiles < best[0]:
+            best = (tiles, th, tw)
+    tiles, th, tw = best
+    hc = tw + 2
+    plane = _round_up(max((th + 2) * hc, mt + 2 * hc + 2) * 16, 128)
+    stage = _round_up(2 * plane + 9 * 16 * bn * 2, 128)
+    xs = _round_up(th * tw * bn * 2, 128) if w % 8 == 0 and tw % 8 == 0 else 0
+    fixed = 8 * bn * 2 * 4 + xs + 16
+    stages = min(4, (SMEM_BYTES - fixed) // (stage + 16))
+    ntn = -(-cin // bn)
+    per_slice = max(1, min(tiles, sms // ntn))
+    return DgradPlan(bn=bn, th=th, tw=tw, stages=stages, ntn=ntn, per_slice=per_slice,
+                     blocks=per_slice * ntn, tiles=tiles, chunks=-(-padded_channels(cout) // 16),
+                     plane=plane, stage_bytes=stage, xs_bytes=xs,
+                     smem=stages * stage + 16 * stages + fixed)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """K5 in bf16 at one shape: tiles of ``th`` x ``tw`` pixels, a ring of
+    ``stages``, ``slices`` runs of ``per_slice`` tiles, each run by
+    ``blocks_per_slice`` blocks (64 output x 32 input channels each);
+    bytes of a g group's box, an activation group's box, a stage and the
+    block's shared memory."""
+
+    th: int
+    tw: int
+    stages: int
+    tiles: int
+    per_slice: int
+    slices: int
+    blocks_per_slice: int
+    gplane: int
+    aplane: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.slices * self.blocks_per_slice
+
+
+def _waves_filled(blocks: int, sms: int) -> float:
+    return blocks / (-(-blocks // sms) * sms)
+
+
+def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> WgradPlan:
+    """The plan of K5 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k5).
+
+    Tiles of th x tw pixels, tw a multiple of 8 up to 248 and th·tw a
+    multiple of 32 up to 256 (k-steps of 16 pixels in pairs): the tile that
+    computes the fewest pixels in all, counting 64 more a tile for its
+    pipeline and an eighth of its haloed box for the activation's loads.
+    As many stages as fit, up to 4. Split K: the number of slices of tiles
+    (up to 4 waves of blocks) that fills the SMs' last wave best, the
+    fewest on a tie."""
+    best = None
+    for tw in range(8, min(_round_up(w, 8), 248) + 1, 8):
+        nx = -(-w // tw)
+        for th in range(1, 256 // tw + 1):
+            if (th * tw) % 32:
+                continue
+            tiles = b * -(-h // th) * nx
+            cost = tiles * (th * tw + 64) + tiles * (th + 2) * (tw + 2) / 8
+            if best is None or cost < best[0]:
+                best = (cost, th, tw, tiles)
+    _, th, tw, tiles = best
+    gplane = _round_up(th * tw * 16, 128)
+    aplane = _round_up((th + 2) * (tw + 2) * 16, 128)
+    stage = 8 * gplane + 4 * aplane
+    stages = min(4, (SMEM_BYTES - 64) // (stage + 16))
+    per = -(-cout // 64) * -(-padded_channels(cin) // 32)
+    pick = None
+    for s in range(1, min(tiles, max(1, 4 * sms // per)) + 1):
+        per_slice = -(-tiles // s)
+        slices = -(-tiles // per_slice)
+        key = (_waves_filled(slices * per, sms), -slices)
+        if pick is None or key > pick[0]:
+            pick = (key, per_slice, slices)
+    _, per_slice, slices = pick
+    return WgradPlan(th=th, tw=tw, stages=stages, tiles=tiles, per_slice=per_slice,
+                     slices=slices, blocks_per_slice=per, gplane=gplane, aplane=aplane,
+                     stage_bytes=stage, smem=stages * stage + 16 * stages)
+
+
+def stem_slices(npx: int, sms: int = SMS) -> tuple[int, int]:
+    """(pixels a block, blocks) of K5's stem: four blocks per SM."""
+    slices = max(1, min(npx, 4 * sms))
+    per_slice = -(-npx // slices)
+    return per_slice, -(-npx // per_slice)
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_tensors(kernel: str, device: torch.device, dtype: torch.dtype = torch.float32,
                   **tensors) -> None:
     """Raise unless every tensor given is of ``dtype``, contiguous and on
@@ -134,16 +338,124 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _packed(lib, entry: str, x: torch.Tensor, *sizes) -> Optional[torch.Tensor]:
-    """The packed-operand scratch of a bf16 launch (None for float32)."""
-    if x.dtype != torch.bfloat16:
-        return None
-    return torch.empty((getattr(lib, entry)(*sizes),), dtype=torch.int32, device=x.device)
+def _launch_cotangent(gy, y, gst):
+    kernel = "cotangent_nhwc"
+    if gy.dtype != torch.bfloat16 or gy.ndim != 4:
+        raise TypeError(f"{kernel} kernel takes a bf16 NCHW cotangent, got {gy.dtype} "
+                        f"{tuple(gy.shape)}")
+    check_tensors(kernel, gy.device, torch.bfloat16, gy=gy, y=y)
+    check_tensors(kernel, gy.device, gst=gst)
+    b, c, h, w = gy.shape
+    if gst is not None and (y is None or y.shape != gy.shape or gst.shape != (b, 2, c)):
+        raise ValueError(f"{kernel}: y {None if y is None else tuple(y.shape)} and gst "
+                         f"{tuple(gst.shape)} do not match the cotangent {tuple(gy.shape)}")
+    out = torch.empty((b, h, w, padded_channels(c)), dtype=torch.bfloat16, device=gy.device)
+    if gy.numel() == 0:
+        return out.zero_()
+    err = _build.library().im2im_nhwc_pass(
+        gy.data_ptr(), y.data_ptr() if gst is not None else None,
+        gst.data_ptr() if gst is not None else None, None, None, out.data_ptr(),
+        b, c, padded_channels(c), h, w, 1, gy.device.index, stream_of(gy),
+    )
+    cotangent_nhwc.launches += 1
+    _build.check(err, kernel)
+    return out
+
+
+def wgrad3x3_nhwc_plain(x, gp, cout: int, scale, shift, prologue: bool):
+    """:func:`wgrad3x3_nhwc`'s plain version: :func:`wgrad3x3_plain` of the
+    NCHW cotangent."""
+    return wgrad3x3_plain(x, from_nhwc(gp, cout), scale, shift, prologue)
+
+
+def dgrad3x3_nhwc_plain(gp, x, weight, scale, shift, prologue: bool):
+    """:func:`dgrad3x3_nhwc`'s plain version: :func:`dgrad3x3_plain` of the
+    NCHW cotangent."""
+    return dgrad3x3_plain(from_nhwc(gp, weight.shape[0]), x, weight, scale, shift, prologue)
+
+
+def _check_nhwc(kernel: str, gp: torch.Tensor, x: torch.Tensor, cout: int) -> None:
+    check_tensors(kernel, x.device, torch.bfloat16, x=x, g=gp)
+    if (gp.ndim != 4 or x.ndim != 4 or gp.shape[0] != x.shape[0] or gp.shape[1:3] != x.shape[2:]
+            or gp.shape[3] != padded_channels(cout)):
+        raise ValueError(f"{kernel}: NHWC cotangent {tuple(gp.shape)} of {cout} channels does "
+                         f"not match the NCHW input {tuple(x.shape)}")
+
+
+def _launch_wgrad_nhwc(x, gp, cout: int, scale, shift, prologue: bool):
+    kernel = "wgrad3x3"
+    _check_nhwc(kernel, gp, x, cout)
+    check_tensors(kernel, x.device, scale=scale if prologue else None,
+                  shift=shift if prologue else None)
+    b, cin, h, w = x.shape
+    if prologue:
+        check_prologue(kernel, scale, shift, cin)
+    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)
+    db = torch.empty((cout,), dtype=torch.float32, device=x.device)
+    if dw.numel() == 0 or x.numel() == 0:
+        return dw.zero_(), db.zero_()
+    lib, dev, stream = _build.library(), x.device.index, stream_of(x)
+    sc, sh = (scale.data_ptr(), shift.data_ptr()) if prologue else (None, None)
+    if cin == 1:
+        per_slice, slices = stem_slices(b * h * w, _sms(dev))
+        part = torch.empty((slices * cout * 10,), dtype=torch.float32, device=x.device)
+        err = lib.im2im_wgrad3x3_stem(x.data_ptr(), gp.data_ptr(), sc, sh, part.data_ptr(),
+                                      dw.data_ptr(), db.data_ptr(), b, cout, gp.shape[3], h, w,
+                                      int(prologue), per_slice, slices, dev, stream)
+    else:
+        plan = wgrad_plan(b, cin, cout, h, w, _sms(dev))
+        cpi = padded_channels(cin)
+        act = torch.empty((b, h, w, cpi), dtype=torch.bfloat16, device=x.device)
+        err = lib.im2im_nhwc_pass(x.data_ptr(), None, None, sc, sh, act.data_ptr(), b, cin, cpi,
+                                  h, w, 0, dev, stream)
+        if err == 0:
+            part = torch.empty((plan.slices * cout * (cin * 9 + 1),), dtype=torch.float32,
+                               device=x.device)
+            err = lib.im2im_wgrad3x3_wgmma(act.data_ptr(), gp.data_ptr(), part.data_ptr(),
+                                           dw.data_ptr(), db.data_ptr(), b, cin, cpi, cout,
+                                           gp.shape[3], h, w, plan.th, plan.tw, plan.stages,
+                                           plan.per_slice, plan.slices, dev, stream)
+    wgrad3x3.bf16.launches += 1
+    _build.check(err, kernel)
+    return dw, db
+
+
+def _launch_dgrad_nhwc(gp, x, weight, scale, shift, prologue: bool):
+    kernel = "dgrad3x3"
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    _check_nhwc(kernel, gp, x, cout)
+    check_tensors(kernel, x.device, torch.bfloat16, weight=weight)
+    check_tensors(kernel, x.device, scale=scale if prologue else None,
+                  shift=shift if prologue else None)
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"dgrad3x3: weight {tuple(weight.shape)} is not ({cout}, {cin}, 3, 3)")
+    if prologue:
+        check_prologue(kernel, scale, shift, cin)
+    dx = torch.empty_like(x)
+    red = torch.zeros((2, cin), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dx, red
+    if cout == 0:
+        return dx.zero_(), red
+    dev = x.device.index
+    plan = dgrad_plan(b, cin, cout, h, w, _sms(dev))
+    wpack = torch.empty((plan.wpack_elems,), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((plan.per_slice * 2 * cin,), dtype=torch.float32, device=x.device)
+    err = _build.library().im2im_dgrad3x3_wgmma(
+        gp.data_ptr(), weight.data_ptr(), x.data_ptr(),
+        scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
+        dx.data_ptr(), wpack.data_ptr(), part.data_ptr(), red.data_ptr(), b, cin, cout,
+        gp.shape[3], h, w, int(prologue), plan.bn, plan.th, plan.tw, plan.stages, plan.blocks,
+        dev, stream_of(x),
+    )
+    dgrad3x3.bf16.launches += 1
+    _build.check(err, kernel)
+    return dx, red
 
 
 def _launch_wgrad(x, g, scale, shift, prologue: bool):
-    check_kernel_dtype("wgrad3x3", x)
-    check_tensors("wgrad3x3", x.device, x.dtype, x=x, g=g)
+    check_tensors("wgrad3x3", x.device, x=x, g=g)
     check_tensors("wgrad3x3", x.device, scale=scale if prologue else None,
                   shift=shift if prologue else None)
     if x.ndim != 4 or g.ndim != 4 or x.shape[0] != g.shape[0] or x.shape[2:] != g.shape[2:]:
@@ -160,21 +472,18 @@ def _launch_wgrad(x, g, scale, shift, prologue: bool):
     lib = _build.library()
     scratch = torch.empty((lib.im2im_wgrad3x3_scratch(b, cin, cout, h, w),),
                           dtype=torch.float32, device=x.device)
-    packed = _packed(lib, "im2im_wgrad3x3_packed_words", x, b, cin, cout, h, w)
     err = lib.im2im_wgrad3x3(
         x.data_ptr(), g.data_ptr(), scale.data_ptr() if prologue else None,
-        shift.data_ptr() if prologue else None, scratch.data_ptr(),
-        packed.data_ptr() if packed is not None else None, dw.data_ptr(), db.data_ptr(),
-        b, cin, cout, h, w, int(prologue), KERNEL_DTYPES[x.dtype], x.device.index, stream_of(x),
+        shift.data_ptr() if prologue else None, scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        b, cin, cout, h, w, int(prologue), x.device.index, stream_of(x),
     )
-    (wgrad3x3.bf16 if packed is not None else wgrad3x3).launches += 1
+    wgrad3x3.launches += 1
     _build.check(err, "wgrad3x3")
     return dw, db
 
 
 def _launch_dgrad(g, x, weight, scale, shift, prologue: bool):
-    check_kernel_dtype("dgrad3x3", x)
-    check_tensors("dgrad3x3", g.device, x.dtype, g=g, x=x, weight=weight)
+    check_tensors("dgrad3x3", g.device, g=g, x=x, weight=weight)
     check_tensors("dgrad3x3", g.device, scale=scale if prologue else None,
                   shift=shift if prologue else None)
     if g.ndim != 4 or x.ndim != 4 or x.shape[0] != g.shape[0] or x.shape[2:] != g.shape[2:]:
@@ -195,15 +504,13 @@ def _launch_dgrad(g, x, weight, scale, shift, prologue: bool):
     lib = _build.library()
     scratch = (torch.empty((lib.im2im_dgrad3x3_scratch(b, cin, h, w),), dtype=torch.float32,
                            device=x.device) if prologue else None)
-    packed = _packed(lib, "im2im_dgrad3x3_packed_words", x, b, cin, cout, h, w)
     err = lib.im2im_dgrad3x3(
         g.data_ptr(), weight.data_ptr(), x.data_ptr(),
         scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
         dx.data_ptr(), scratch.data_ptr() if prologue else None, red.data_ptr(),
-        packed.data_ptr() if packed is not None else None,
-        b, cin, cout, h, w, int(prologue), KERNEL_DTYPES[x.dtype], x.device.index, stream_of(x),
+        b, cin, cout, h, w, int(prologue), x.device.index, stream_of(x),
     )
-    (dgrad3x3.bf16 if packed is not None else dgrad3x3).launches += 1
+    dgrad3x3.launches += 1
     _build.check(err, "dgrad3x3")
     return dx, red
 
@@ -219,6 +526,9 @@ def wgrad3x3(
     other device raises.
     """
     if x.device.type == "cuda":
+        if x.dtype == torch.bfloat16:
+            return wgrad3x3_nhwc(x, cotangent_nhwc(g, None, None), g.shape[1], scale, shift,
+                                 prologue)
         return _launch_wgrad(x, g, scale, shift, prologue)
     if x.device.type == "cpu":
         return wgrad3x3_plain(x, g, scale, shift, prologue)
@@ -236,10 +546,57 @@ def dgrad3x3(
     other device raises.
     """
     if g.device.type == "cuda":
+        if x.dtype == torch.bfloat16:
+            return dgrad3x3_nhwc(cotangent_nhwc(g, None, None), x, weight, scale, shift,
+                                 prologue)
         return _launch_dgrad(g, x, weight, scale, shift, prologue)
     if g.device.type == "cpu":
         return dgrad3x3_plain(g, x, weight, scale, shift, prologue)
     raise RuntimeError(f"dgrad3x3 runs on cuda or cpu tensors, not {g.device}")
+
+
+def cotangent_nhwc(gy: torch.Tensor, y: Optional[torch.Tensor],
+                   gst: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cotangent that the bf16 K5 and K6 read, (B, H, W,
+    padded_channels(C)) bf16: with the stats' cotangent ``gst`` (B, 2, C)
+    and the forward's output ``y``, g = bf16((f32(gy) + gs) + 2·f32(y)·gq),
+    else gy (:func:`cotangent_plain`). The kernel on a CUDA tensor (bf16
+    only), the plain version on a CPU tensor; any other device raises."""
+    if gy.device.type == "cuda":
+        return _launch_cotangent(gy, y, gst)
+    if gy.device.type == "cpu":
+        return cotangent_plain(gy, y, gst)
+    raise RuntimeError(f"cotangent_nhwc runs on cuda or cpu tensors, not {gy.device}")
+
+
+def wgrad3x3_nhwc(
+    x: torch.Tensor, gp: torch.Tensor, cout: int, scale: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], prologue: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """dW (Cout, Cin, 3, 3) and db (Cout,), f32, of K5 in bf16 from the NHWC
+    cotangent ``gp`` of :func:`cotangent_nhwc` (``cout`` channels) and the
+    raw input ``x``: the kernel on a CUDA tensor (the activation written
+    NHWC first; the stem, Cin = 1, on its own kernel),
+    :func:`wgrad3x3_plain` on a CPU tensor; any other device raises."""
+    if x.device.type == "cuda":
+        return _launch_wgrad_nhwc(x, gp, cout, scale, shift, prologue)
+    if x.device.type == "cpu":
+        return wgrad3x3_nhwc_plain(x, gp, cout, scale, shift, prologue)
+    raise RuntimeError(f"wgrad3x3 runs on cuda or cpu tensors, not {x.device}")
+
+
+def dgrad3x3_nhwc(
+    gp: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+    scale: Optional[torch.Tensor], shift: Optional[torch.Tensor], prologue: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, red) of K6 in bf16 from the NHWC cotangent ``gp`` of
+    :func:`cotangent_nhwc`: the kernel on a CUDA tensor,
+    :func:`dgrad3x3_plain` on a CPU tensor; any other device raises."""
+    if x.device.type == "cuda":
+        return _launch_dgrad_nhwc(gp, x, weight, scale, shift, prologue)
+    if x.device.type == "cpu":
+        return dgrad3x3_nhwc_plain(gp, x, weight, scale, shift, prologue)
+    raise RuntimeError(f"dgrad3x3 runs on cuda or cpu tensors, not {x.device}")
 
 
 wgrad3x3.launches = 0  # K5 kernel launches since the last reset (f32)
@@ -247,3 +604,4 @@ dgrad3x3.launches = 0  # K6 kernel launches since the last reset (f32)
 # the launches of the bf16 instances, counted apart
 wgrad3x3.bf16 = types.SimpleNamespace(launches=0)
 dgrad3x3.bf16 = types.SimpleNamespace(launches=0)
+cotangent_nhwc.launches = 0  # launches of the bf16 cotangent pass

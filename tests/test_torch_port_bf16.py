@@ -578,9 +578,9 @@ def test_chip_smoke_bf16_conv_sites_are_the_models_launches(monkeypatch):
     record(tconv, "conv3x3_fwd", path, "fwd", lambda x, w, b: ((*x.shape, w.shape[0]), False))
     record(tconv, "conv3x3_bn_act_fwd", path, "fwd",
            lambda x, w, b, sc, sh, p, st: ((*x.shape, w.shape[0]), p))
-    record(tbwd, "wgrad3x3", path, "bwd", lambda x, g, sc, sh, p: ((*x.shape, g.shape[1]), p))
-    record(tbwd, "dgrad3x3", path, "bwd",
-           lambda g, x, w, sc, sh, p: ((*x.shape, g.shape[1]), p))
+    record(tbwd, "wgrad3x3_nhwc", path, "bwd", lambda x, gp, co, sc, sh, p: ((*x.shape, co), p))
+    record(tbwd, "dgrad3x3_nhwc", path, "bwd",
+           lambda gp, x, w, sc, sh, p: ((*x.shape, w.shape[0]), p))
     x = torch.randn(2, 1, 32, 32)
     for backend, kernels, train in (("pallas", "fwd", True), ("pallas_fused", "fwd", False),
                                     ("pallas_fused", "bwd", True)):
@@ -594,7 +594,7 @@ def test_chip_smoke_bf16_conv_sites_are_the_models_launches(monkeypatch):
             state.forward(x)
 
     names = {"conv3x3_bf16": "conv3x3_fwd", "conv3x3_bn_act_bf16": "conv3x3_bn_act_fwd",
-             "wgrad3x3_bf16": "wgrad3x3", "dgrad3x3_bf16": "dgrad3x3"}
+             "wgrad3x3_bf16": "wgrad3x3_nhwc", "dgrad3x3_bf16": "dgrad3x3_nhwc"}
     want: collections.Counter = collections.Counter()
     for kernel, paths in chip_smoke.bf16_conv_sites().items():
         for backend, sites in paths.items():
@@ -609,15 +609,16 @@ def test_profile_step_profiles_each_backend_in_bf16_and_buckets_its_kernels():
 
     assert profile_step.CASES == [(b, d) for d in ("float32", "bfloat16")
                                   for b in ("xla", "pallas", "pallas_fused")]
-    assert (profile_step.bucket("void (anonymous namespace)::wgrad3x3_bf16_kernel<false>(...)")
-            == "K5 wgrad3x3 (port)")
-    assert (profile_step.bucket("void (anonymous namespace)::dgrad3x3_tc_kernel<__nv_bfloat16, "
+    for name in ("void (anonymous namespace)::k5::wgrad_kernel(CUtensorMap_st, ...)",
+                 "void (anonymous namespace)::k5::wgrad_stem_kernel<false>(...)"):
+        assert profile_step.bucket(name) == "K5 wgrad3x3 (port)", name
+    assert (profile_step.bucket("void (anonymous namespace)::k6::dgrad_kernel<128, true, "
                                 "true>(...)") == "K6 dgrad3x3 (port)")
     assert (profile_step.bucket("void (anonymous namespace)::upsample2x_bf16_kernel(...)")
             == "K1f upsample (port)")
     for name in ("void conv3x3::pack_pairs_kernel<true>(...)",
-                 "void conv3x3::pack_weights_kernel<true>(...)",
-                 "void (anonymous namespace)::pack_act_kernel<false>(...)",
-                 "(anonymous namespace)::pack_g_kernel(...)"):
+                 "void conv3x3::pack_weights_kernel<0>(...)",
+                 "void (anonymous namespace)::nhwc_kernel<1>(...)",
+                 "void (anonymous namespace)::k6::pack_weights_k6(...)"):
         assert profile_step.bucket(name) == "bf16 packing (port)", name
 
