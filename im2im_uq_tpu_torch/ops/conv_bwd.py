@@ -191,6 +191,7 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+@functools.lru_cache(maxsize=256)
 def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> DgradPlan:
     """The plan of K6 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k6).
 
@@ -258,6 +259,7 @@ def _waves_filled(blocks: int, sms: int) -> float:
     return blocks / (-(-blocks // sms) * sms)
 
 
+@functools.lru_cache(maxsize=256)
 def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> WgradPlan:
     """The plan of K5 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k5).
 
@@ -297,6 +299,7 @@ def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> W
                      stage_bytes=stage, smem=stages * stage + 16 * stages)
 
 
+@functools.lru_cache(maxsize=256)
 def stem_slices(npx: int, sms: int = SMS) -> tuple[int, int]:
     """(pixels a block, blocks) of K5's stem: four blocks per SM."""
     slices = max(1, min(npx, 4 * sms))
