@@ -55,7 +55,11 @@
 //   warp keeps `stages` chunks in flight (full / empty mbarriers); two
 //   consumer warpgroups each hold kMi m64 instances. Persistent blocks walk
 //   the tiles of one slice; the epilogue of a tile (mask, dx, the
-//   reductions) runs while the next tile's chunks land. The reductions are
+//   reductions) runs while the next tile's chunks land. Where W is a
+//   multiple of 8, the producer also brings the tile's x into shared memory
+//   by TMA while its products run, and dx leaves from there by one TMA
+//   store: lane by lane, each load of x waited behind the previous store of
+//   dx, and the epilogue took most of the time at 320x320. The reductions are
 //   summed per block in a fixed order (lanes by a butterfly, then each
 //   warp's running sum in shared memory, then the warps in order) and over
 //   the blocks by conv3x3::reduce_rows: the same bits on every run.
