@@ -63,23 +63,27 @@
 //   summed per block in a fixed order (lanes by a butterfly, then each
 //   warp's running sum in shared memory, then the warps in order) and over
 //   the blocks by conv3x3::reduce_rows: the same bits on every run.
-// - K5: M = 64 output channels, N = 32 input channels, K = the pixels of a
-//   tile, with the 9 taps as 9 products of the same A. A (g, [pixel][co])
-//   and B (a, [pixel][c]) are both MN-major. A is loaded to registers by
-//   ldmatrix.trans once per k-step of 16 pixels and reused by the taps; B
-//   is read through MN-major descriptors (the transpose immediate), one
-//   per tap (an MN-major tile without swizzle: lbo the bytes between core
-//   matrices adjacent in K, sbo between those adjacent in N, checked on
-//   the card; the swapped reading is off by order 1). Each of three
-//   consumer warpgroups owns one tap row dh (taps 3 dh .. 3 dh + 2). The tile's pixels run in k-steps of 16 over a box of
-//   TH x TW (TW a multiple of 8; columns past the image are 0 in g, so they
-//   add nothing); a k-step's second 8 pixels may start the next row, and
-//   its B descriptor then steps by the frame's 2 columns more. Each tile's
-//   products accumulate in the tensor core into a partial zeroed per tile
-//   (at most 16 k-steps deep), added to the running sums in f32. db rides
-//   along: the first tap row's warpgroup of the first N tile sums the g
-//   values its ldmatrix loads. Split K: slices of tiles, their partials
-//   summed by conv3x3::reduce_rows in a fixed order.
+// - K5: M = 64 output channels, N = 64 input channels, K = the pixels of a
+//   tile, with the 9 taps as 9 products of the same A. Each operand lands
+//   as one TMA box of 64 channels, a 128-byte row a pixel (g: the tile's
+//   TH x TW pixels; the activation: its (TH + 2) x HC haloed box), in the
+//   128-byte swizzle; A (g, [pixel][co]) and B ([position][c]) are both
+//   MN-major, read through swizzled descriptors with both transpose
+//   immediates. A tap's B starts at any row of the box: the swizzle's
+//   phase is the rows' own address bits (base offset 0, checked on the
+//   card; the other reading is off by order 1). Each of three consumer
+//   warpgroups owns one tap row dh (taps 3 dh .. 3 dh + 2). The tile's
+//   pixels run in k-steps of 16 over a box of TH x TW (TW a multiple of 8;
+//   columns past the image are 0 in g, so they add nothing); a k-step's
+//   second 8 pixels may start the next row, and the B descriptor's stride
+//   between its two groups of 8 rows then takes the frame's 2 columns. The
+//   products accumulate in the tensor core across a block's tiles, at most
+//   K5_DEPTH k-steps (ops/conv_bwd.py), which bounds the accumulator's
+//   truncating adds (a fresh partial per tile, added in f32, needs twice
+//   the registers, and N = 32 was slower on the card). db rides along: the
+//   first tap row's warpgroup of the first N tile sums g's box, 16 bytes a
+//   load, while the tile's products run. Split K: slices of tiles, their
+//   partials summed by conv3x3::reduce_rows in a fixed order.
 // - The stem (Cin = 1: a pixel of x is 2 bytes, under TMA's 16) runs
 //   wgrad_stem_kernel, FFMA over the NHWC g: a lane per pixel and 8 output
 //   channels, the 9 taps of x against one 16-byte load of g.
@@ -450,53 +454,27 @@ namespace k5 {
 constexpr int kConsumers = 3;  // one per tap row dh
 constexpr int kThreads = 128 * kConsumers + 32;
 constexpr int kCo = 64;  // output channels a block (M)
-constexpr int kCi = 32;  // input channels a block (N)
+constexpr int kCi = 64;  // input channels a block (N)
 
 struct Geo {
   float* part;    // [slice][co][c][tap]
   float* part_b;  // [slice][co]
   int cin, cout, h, w;
-  int th, tw, hc;  // tile (tw a multiple of 8, th * tw of 32); haloed columns
+  int th, tw, hc;  // tile (tw a multiple of 8, th * tw of 16); haloed columns
   int stages, tiles_y, tiles_x, tiles, per_slice, nco, nci;
-  int gplane, aplane, sbytes;  // bytes: a g group's box, an a group's box, a stage
+  int gbytes, abytes, sbytes;  // bytes: g's box, the activation's box, a stage
 };
 
-// One k-step of 16 pixels for the warpgroup of tap row dh: A (g) by
-// ldmatrix.trans into a[kBuf], then the three taps' products. B's two K
-// halves are the pixels (r0, c0 ..) and the next 8, which start the next
-// row where c0 + 8 reaches TW.
-template <int kBuf>
-__device__ __forceinline__ void k_step(uint32_t (&a)[2][4], float (&pt)[3][16], float (&gsum)[2],
-                                       bool with_db, int k, const unsigned char* ga,
-                                       const unsigned char* as, int& r0, int& c0, int dh,
-                                       const Geo& g) {
-  if (k >= 2) {
-    tc::wgmma_wait<1>();  // the products of k-step k - 2, which read a[kBuf], are done
-#pragma unroll
-    for (int q = 0; q < 4; ++q) tc::keep(a[kBuf][q]);
-  }
-  ldmatrix_x4_trans(a[kBuf], ga + k * 256);
-  if (with_db) {  // db: the lane's g values of channels gid and gid + 8, in order
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(&a[kBuf][q]);
-      gsum[q & 1] += __low2float(pr);
-      gsum[q & 1] += __high2float(pr);
-    }
-  }
-  const int r1 = c0 + 8 < g.tw ? r0 : r0 + 1, c1 = c0 + 8 < g.tw ? c0 + 8 : c0 + 8 - g.tw;
-  const int pos0 = (r0 + dh) * g.hc + c0, pos1 = (r1 + dh) * g.hc + c1;
-  const int lbo = (pos1 - pos0) * 16;
-  tc::wgmma_fence();
-#pragma unroll
-  for (int dw = 0; dw < 3; ++dw)
-    tc::wgmma_m64n32k16_rs_tb(pt[dw], a[kBuf], tc::wgmma_desc(as + (pos0 + dw) * 16, lbo, g.aplane));
-  tc::wgmma_commit();
-  c0 += 16;
-  while (c0 >= g.tw) {
-    c0 -= g.tw;
-    ++r0;
-  }
+// Descriptor of an MN-major tile with the 128-byte swizzle at p (a row of
+// 64 elements, K rows 128 bytes apart, as a swizzled TMA box lands them):
+// sbo bytes between groups of 8 K rows. The swizzle's phase is the rows'
+// own address bits 7-9, so p may start at any row (a base offset of 0;
+// the other reading, the offset from p's bits, is off by order 1 on the
+// card).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, int sbo) {
+  const uint32_t a = smem_addr(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -523,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (warp == 4 * kConsumers) {
     if (lane != 0) return;
-    const int bytes = 8 * g.th * g.tw * 16 + 4 * (g.th + 2) * g.hc * 16;
+    const int bytes = (g.th * g.tw + (g.th + 2) * g.hc) * 128;
     for (int t = t0, i = 0; t < t1; ++t, ++i) {
       const int s = i % g.stages, use = i / g.stages;
       if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
@@ -531,69 +509,87 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int y0 = (r / g.tiles_x) * g.th, x0 = (r % g.tiles_x) * g.tw;
       unsigned char* st = smem + s * g.sbytes;
       mbar_expect_tx(full + s, bytes);
-      for (int gi = 0; gi < kCo / 8; ++gi)
-        tma_load_4d(st + gi * g.gplane, &gmap, cot * kCo + 8 * gi, x0, y0, b, full + s);
-      for (int gi = 0; gi < kCi / 8; ++gi)
-        tma_load_4d(st + (kCo / 8) * g.gplane + gi * g.aplane, &amap, cit * kCi + 8 * gi, x0 - 1,
-                    y0 - 1, b, full + s);
+      tma_load_4d(st, &gmap, cot * kCo, x0, y0, b, full + s);
+      tma_load_4d(st + g.gbytes, &amap, cit * kCi, x0 - 1, y0 - 1, b, full + s);
     }
     return;
   }
 
   const int dh = warp >> 2, wq = warp & 3;  // the warpgroup's tap row; the warp's 16 channels
   const int gid = lane >> 2, tig = lane & 3;
-  // ldmatrix rows: matrix j = lane / 8 is channel group 2 wq + (j & 1) of
-  // g at the k-step's pixels 8 (j >> 1) + (lane & 7)
-  const int j4 = lane >> 3;
-  const int a_off = (2 * wq + (j4 & 1)) * g.gplane + (8 * (j4 >> 1) + (lane & 7)) * 16;
   const int steps = g.th * g.tw / 16;
-  const bool with_db = dh == 0 && cit == 0;  // one warpgroup of the first N tile sums g
-  float gsum[2] = {0.0f, 0.0f};
-  float sum[3][16];
+  // db: warpgroup 0 of the first N tile sums g's box while the tile's
+  // products run, thread (lane, cg) the 8 channels of 16-byte chunk cg at
+  // the pixels pl, pl + 16, ... in order, pl = its index / 8
+  const bool with_db = dh == 0 && cit == 0;
+  const int cg = threadIdx.x & 7, pl = (threadIdx.x >> 3) & 15;
+  float gsum[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) gsum[e] = 0.0f;
+  float acc[3][kCi / 2];
 #pragma unroll
   for (int d = 0; d < 3; ++d)
 #pragma unroll
-    for (int r = 0; r < 16; ++r) sum[d][r] = 0.0f;
+    for (int r = 0; r < kCi / 2; ++r) acc[d][r] = 0.0f;
 
   for (int t = t0, i = 0; t < t1; ++t, ++i) {
     const int s = i % g.stages;
     mbar_wait(full + s, (i / g.stages) & 1);
     const unsigned char* gs = smem + s * g.sbytes;
-    const unsigned char* as = gs + (kCo / 8) * g.gplane;
-    float pt[3][16];
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-#pragma unroll
-      for (int r = 0; r < 16; ++r) pt[d][r] = 0.0f;
-    uint32_t a[2][4];
+    const unsigned char* as = gs + g.gbytes;
+    tc::wgmma_fence();
     int r0 = 0, c0 = 0;  // the k-step's first pixel in the tile
-    for (int k = 0; k < steps; k += 2) {  // steps is even: a[0] and a[1] alternate
-      k_step<0>(a, pt, gsum, with_db, k, gs + a_off, as, r0, c0, dh, g);
-      k_step<1>(a, pt, gsum, with_db, k + 1, gs + a_off, as, r0, c0, dh, g);
-    }
-    tc::wgmma_wait<0>();
+    for (int k = 0; k < steps; ++k) {
+      // A: pixels 16 k .. 16 k + 15 of g's box, two groups of 8 rows; B:
+      // the tap's positions of those pixels, the second 8 starting the
+      // next row where c0 + 8 reaches TW
+      const uint64_t da = desc_sw128(gs + k * 2048, 1024);
+      const int r1 = c0 + 8 < g.tw ? r0 : r0 + 1, c1 = c0 + 8 < g.tw ? c0 + 8 : c0 + 8 - g.tw;
+      const int pos0 = (r0 + dh) * g.hc + c0, pos1 = (r1 + dh) * g.hc + c1;
 #pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      tc::keep(a[0][qq]);
-      tc::keep(a[1][qq]);
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        tc::keep(pt[d][r]);
-        sum[d][r] += pt[d][r];
+      for (int dw = 0; dw < 3; ++dw)
+        tc::wgmma_m64n64k16_ss_tt(acc[dw], da,
+                                  desc_sw128(as + (pos0 + dw) * 128, (pos1 - pos0) * 128));
+      c0 += 16;
+      while (c0 >= g.tw) {
+        c0 -= g.tw;
+        ++r0;
       }
-    mbar_arrive_if(empty + s, lane == 0);
-  }
-
-  if (with_db) {
+    }
+    tc::wgmma_commit();
+    if (with_db) {
+      for (int p = pl; p < g.th * g.tw; p += 16) {  // row p: 128 bytes, chunks swizzled by p % 8
+        const uint4 v = *reinterpret_cast<const uint4*>(gs + p * 128 + ((cg ^ (p & 7)) << 4));
+        const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      gsum[u] += __shfl_xor_sync(0xffffffffu, gsum[u], 1);
-      gsum[u] += __shfl_xor_sync(0xffffffffu, gsum[u], 2);
-      const int co = cot * kCo + 16 * wq + gid + 8 * u;
-      if (tig == 0 && co < g.cout) g.part_b[static_cast<int64_t>(slice) * g.cout + co] = gsum[u];
+        for (int e = 0; e < 4; ++e) {
+          gsum[2 * e] += __low2float(pr[e]);
+          gsum[2 * e + 1] += __high2float(pr[e]);
+        }
+      }
+    }
+    tc::wgmma_wait<1>();  // the last tile's products are done: free its stage
+    mbar_arrive_if(empty + (i + g.stages - 1) % g.stages, i > 0 && lane == 0);
+  }
+  tc::wgmma_wait<0>();
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int r = 0; r < kCi / 2; ++r) tc::keep(acc[d][r]);
+
+  if (with_db) {  // db's partials: the lanes of a chunk by a butterfly, a row per warp
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gsum[e] += __shfl_xor_sync(0xffffffffu, gsum[e], 8);
+      gsum[e] += __shfl_xor_sync(0xffffffffu, gsum[e], 16);
+    }
+    if (lane < 8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int co = cot * kCo + 8 * cg + e;
+        if (co < g.cout)
+          g.part_b[(4 * static_cast<int64_t>(slice) + wq) * g.cout + co] = gsum[e];
+      }
     }
   }
   // part[slice][co][c][tap]; the accumulator layout: rows (co) 16 wq + gid
@@ -601,7 +597,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int dw = 0; dw < 3; ++dw)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kCi / 8; ++j)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
@@ -610,7 +606,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int c = cit * kCi + 8 * j + 2 * tig + e;
           if (co < g.cout && c < g.cin)
             g.part[((static_cast<int64_t>(slice) * g.cout + co) * g.cin + c) * 9 + 3 * dh + dw] =
-                sum[dw][4 * j + 2 * hf + e];
+                acc[dw][4 * j + 2 * hf + e];
         }
 }
 
@@ -809,7 +805,7 @@ extern "C" int im2im_dgrad3x3_wgmma(const void* gp, const void* weight, const vo
 
 // K5 in bf16 on wgmma: act (b, h, w, cpi) the NHWC activation and gp (b,
 // h, w, cpo) the NHWC cotangent, bf16, 16-byte aligned, cpi and cpo
-// multiples of 8; part: slices * (cout * cin * 9 + cout) floats; dw (cout,
+// multiples of 8; part: slices * (cout * cin * 9 + 4 * cout) floats; dw (cout,
 // cin, 3, 3) and db (cout) f32. The plan (ops/conv_bwd.wgrad_plan): tile th x tw (tw a multiple
 // of 8, th * tw of 32, at most 256), stages, slices of per_slice tiles.
 // Returns a cudaError_t value.
@@ -822,7 +818,7 @@ extern "C" int im2im_wgrad3x3_wgmma(const void* act, const void* gp, void* part,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || cpi < cin || cpo < cout ||
       cpi % 8 != 0 || cpo % 8 != 0 || th < 1 || tw < 8 || tw % 8 != 0 || (th * tw) % 16 != 0 ||
-      (th * tw) % 32 != 0 || th * tw > 256 || tw + 2 > 256 || stages < 2 || per_slice <= 0 || slices <= 0 ||
+      th * tw > 256 || tw + 2 > 256 || stages < 2 || per_slice <= 0 || slices <= 0 ||
       (reinterpret_cast<uintptr_t>(act) | reinterpret_cast<uintptr_t>(gp)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   k5::Geo g{};
@@ -847,15 +843,17 @@ extern "C" int im2im_wgrad3x3_wgmma(const void* act, const void* gp, void* part,
     return static_cast<int>(cudaErrorInvalidValue);
   g.tiles = static_cast<int>(tiles);
   g.per_slice = per_slice;
-  g.gplane = (th * tw * 16 + 127) / 128 * 128;
-  g.aplane = ((th + 2) * g.hc * 16 + 127) / 128 * 128;
-  g.sbytes = (k5::kCo / 8) * g.gplane + (k5::kCi / 8) * g.aplane;
+  // 64 channels a box row of 128 bytes; the 128-byte swizzle repeats
+  // every 1024 bytes, where each box starts
+  g.gbytes = (th * tw * 128 + 1023) / 1024 * 1024;
+  g.abytes = ((th + 2) * g.hc * 128 + 1023) / 1024 * 1024;
+  g.sbytes = g.gbytes + g.abytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   CUtensorMap gmap, amap;
-  err = tmak::nhwc_map(&gmap, gp, b, h, w, cpo, tw, th);
+  err = tmak::nhwc_map(&gmap, gp, b, h, w, cpo, tw, th, k5::kCo);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = tmak::nhwc_map(&amap, act, b, h, w, cpi, g.hc, th + 2);
+  err = tmak::nhwc_map(&amap, act, b, h, w, cpi, g.hc, th + 2, k5::kCi);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bytes = stages * g.sbytes + 2 * stages * 8;
   err = cudaFuncSetAttribute(k5::wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -867,7 +865,7 @@ extern "C" int im2im_wgrad3x3_wgmma(const void* act, const void* gp, void* part,
                                     static_cast<int64_t>(cout) * cin * 9, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      conv3x3::launch_reduce_rows(g.part_b, static_cast<float*>(db), 1, slices, cout, s));
+      conv3x3::launch_reduce_rows(g.part_b, static_cast<float*>(db), 1, 4LL * slices, cout, s));
 }
 
 // K5's stem (Cin = 1) in bf16: x (b, 1, h, w) bf16, gp (b, h, w, cpo) the

@@ -1,4 +1,4 @@
-// TMA, mbarrier and ldmatrix helpers for the wgmma kernels fed by TMA, for
+// TMA and mbarrier helpers for the wgmma kernels fed by TMA, for
 // sm_90a: K5 and K6 in bf16 (conv3x3_bwd_bf16.cu) and P2-P5's bf16 path
 // (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime, so the library
@@ -92,16 +92,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       : "memory");
 }
 
-// four 8 x 8 b16 matrices, transposed: lanes 8 j .. 8 j + 7 give the row
-// addresses of matrix j, and each lane receives, of matrix j, the elements
-// (row 2 tig, column gid) in the low half and (2 tig + 1, gid) in the high
-// half of r[j]
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // barrier 1 over the first `threads` threads of the block (the consumers;
 // the producer warp has left)
 __device__ __forceinline__ void consumers_sync(int threads) {
@@ -127,20 +117,24 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a bf16 NHWC tensor (b, h, w, c), c a multiple of 8 and
-// the base 16-byte aligned, read in boxes of 8 channels x bw columns x bh
-// rows of one image, zero outside the tensor.
+// the base 16-byte aligned, read in boxes of bc channels x bw columns x bh
+// rows of one image, zero outside the tensor: bc = 8, or 64 with the
+// 128-byte swizzle (16-byte chunk j of a box row lands at chunk j ^ (bits
+// 7-9 of its shared-memory address), the layout wgmma reads as swizzled).
 inline cudaError_t nhwc_map(CUtensorMap* map, const void* base, int b, int h, int w, int c,
-                            int bw, int bh) {
+                            int bw, int bh, int bc = 8) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
   const cuuint64_t row = static_cast<cuuint64_t>(c) * 2;
   const cuuint64_t strides[3] = {row, row * w, row * w * h};
-  const cuuint32_t box[4] = {8, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             bc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;

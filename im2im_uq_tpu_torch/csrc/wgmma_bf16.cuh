@@ -4,11 +4,11 @@
 // (conv3x3_nhwc.cu) and K6 in bf16 (conv3x3_bwd_bf16.cu) instantiate.
 // wgmma_m64n32k16_rs: A from registers, B from shared memory (K-major), the
 // product of the NCHW conv's bf16 GEMM (conv3x3_tc.cuh);
-// wgmma_m64n32k16_rs_tb the same with B MN-major (the transpose immediate
-// set: N contiguous in shared memory), K5's in bf16. d holds the thread's
-// N / 2 accumulators in the layout of mma.m16n8k8's C per warp and 8-column
-// group j: d[4 j + r]. With scale_d == 0 the product overwrites d instead
-// of adding to it.
+// wgmma_m64n64k16_ss_tt: A and B from shared memory, both MN-major (the
+// transpose immediates set: M and N contiguous), K5's in bf16. d holds the
+// thread's N / 2 accumulators in the layout of mma.m16n8k8's C per warp and
+// 8-column group j: d[4 j + r]. With scale_d == 0 the product overwrites d
+// instead of adding to it.
 
 #pragma once
 
@@ -138,20 +138,24 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// d += a * b, m64n32k16, A from registers as wgmma_m64n32k16_rs's, B
-// MN-major: core matrices of 8 n (16 contiguous bytes) x 8 k rows, lbo
-// bytes between those adjacent in K, sbo between those adjacent in N.
-__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint32_t (&a)[4],
+// d += a * b, m64n64k16, A and B both from shared memory and both
+// MN-major (both transpose immediates set), through descriptors
+// (desc_sw128 for the 128-byte swizzle).
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tt(float (&d)[32], uint64_t a_desc,
                                                       uint64_t b_desc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(1));
 }
 
 }  // namespace tc

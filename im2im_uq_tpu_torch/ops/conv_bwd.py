@@ -55,6 +55,9 @@ __all__ = [
 
 # a block's shared memory and the SMs of an H100 (the plans' defaults)
 SMEM_BYTES, SMS = 232448, 132
+# the most k-steps of 16 pixels a K5 block sums in the tensor core's
+# accumulator (its truncating adds: about 2e-8 relative a k-step)
+K5_DEPTH = 2048
 
 # the dtype codes of the C entry points
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -234,9 +237,9 @@ def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> D
 class WgradPlan:
     """K5 in bf16 at one shape: tiles of ``th`` x ``tw`` pixels, a ring of
     ``stages``, ``slices`` runs of ``per_slice`` tiles, each run by
-    ``blocks_per_slice`` blocks (64 output x 32 input channels each);
-    bytes of a g group's box, an activation group's box, a stage and the
-    block's shared memory."""
+    ``blocks_per_slice`` blocks (64 output x 64 input channels each);
+    bytes of g's box and the activation's (64 channels a 128-byte row, the
+    128-byte swizzle), a stage and the block's shared memory."""
 
     th: int
     tw: int
@@ -245,8 +248,8 @@ class WgradPlan:
     per_slice: int
     slices: int
     blocks_per_slice: int
-    gplane: int
-    aplane: int
+    gbytes: int
+    abytes: int
     stage_bytes: int
     smem: int
 
@@ -264,30 +267,34 @@ def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> W
     """The plan of K5 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k5).
 
     Tiles of th x tw pixels, tw a multiple of 8 up to 248 and th·tw a
-    multiple of 32 up to 256 (k-steps of 16 pixels in pairs): the tile that
-    computes the fewest pixels in all, counting 64 more a tile for its
-    pipeline and an eighth of its haloed box for the activation's loads.
-    As many stages as fit, up to 4. Split K: the number of slices of tiles
-    (up to 4 waves of blocks) that fills the SMs' last wave best, the
-    fewest on a tie."""
+    multiple of 16 up to 256 (k-steps of 16 pixels): the tile that computes
+    the fewest pixels in all, counting 64 more a tile for its pipeline and
+    an eighth of its haloed box for the activation's loads. As many stages
+    as fit, up to 4. Split K: at least the slices that keep a block's sum
+    in the tensor core within K5_DEPTH k-steps; of those, up to 4 waves of
+    blocks, the number that fills the SMs' last wave best, the fewest on a
+    tie."""
     best = None
     for tw in range(8, min(_round_up(w, 8), 248) + 1, 8):
         nx = -(-w // tw)
         for th in range(1, 256 // tw + 1):
-            if (th * tw) % 32:
+            if (th * tw) % 16:
                 continue
             tiles = b * -(-h // th) * nx
             cost = tiles * (th * tw + 64) + tiles * (th + 2) * (tw + 2) / 8
             if best is None or cost < best[0]:
                 best = (cost, th, tw, tiles)
     _, th, tw, tiles = best
-    gplane = _round_up(th * tw * 16, 128)
-    aplane = _round_up((th + 2) * (tw + 2) * 16, 128)
-    stage = 8 * gplane + 4 * aplane
+    gbytes = _round_up(th * tw * 128, 1024)
+    abytes = _round_up((th + 2) * (tw + 2) * 128, 1024)
+    stage = gbytes + abytes
     stages = min(4, (SMEM_BYTES - 64) // (stage + 16))
-    per = -(-cout // 64) * -(-padded_channels(cin) // 32)
+    per = -(-cout // 64) * -(-padded_channels(cin) // 64)
+    # a block's products accumulate in the tensor core over at most
+    # K5_DEPTH k-steps, which bounds their rounding
+    fewest = -(-tiles * (th * tw // 16) // K5_DEPTH)
     pick = None
-    for s in range(1, min(tiles, max(1, 4 * sms // per)) + 1):
+    for s in range(min(tiles, fewest), min(tiles, max(fewest, 4 * sms // per)) + 1):
         per_slice = -(-tiles // s)
         slices = -(-tiles // per_slice)
         key = (_waves_filled(slices * per, sms), -slices)
@@ -295,7 +302,7 @@ def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> W
             pick = (key, per_slice, slices)
     _, per_slice, slices = pick
     return WgradPlan(th=th, tw=tw, stages=stages, tiles=tiles, per_slice=per_slice,
-                     slices=slices, blocks_per_slice=per, gplane=gplane, aplane=aplane,
+                     slices=slices, blocks_per_slice=per, gbytes=gbytes, abytes=abytes,
                      stage_bytes=stage, smem=stages * stage + 16 * stages)
 
 
@@ -412,7 +419,7 @@ def _launch_wgrad_nhwc(x, gp, cout: int, scale, shift, prologue: bool):
         err = lib.im2im_nhwc_pass(x.data_ptr(), None, None, sc, sh, act.data_ptr(), b, cin, cpi,
                                   h, w, 0, dev, stream)
         if err == 0:
-            part = torch.empty((plan.slices * cout * (cin * 9 + 1),), dtype=torch.float32,
+            part = torch.empty((plan.slices * cout * (cin * 9 + 4),), dtype=torch.float32,
                                device=x.device)
             err = lib.im2im_wgrad3x3_wgmma(act.data_ptr(), gp.data_ptr(), part.data_ptr(),
                                            dw.data_ptr(), db.data_ptr(), b, cin, cpi, cout,

@@ -110,15 +110,17 @@ def test_dgrad_plan_at_the_main_path(shape):
 def test_wgrad_plan_at_the_main_path(shape):
     b, cin, h, w, cout = shape
     p = conv_bwd.wgrad_plan(b, cin, cout, h, w)
-    assert p.tw % 8 == 0 and p.th * p.tw % 32 == 0 and p.th * p.tw <= 256
+    assert p.tw % 8 == 0 and p.th * p.tw % 16 == 0 and p.th * p.tw <= 256
     assert p.tw + 2 <= 256 and p.th + 2 <= 256
     assert 2 <= p.stages <= 4 and p.smem <= SMEM_BLOCK
-    assert p.gplane == -(-p.th * p.tw * 16 // 128) * 128
-    assert p.aplane == -(-(p.th + 2) * (p.tw + 2) * 16 // 128) * 128
-    assert p.smem == p.stages * (8 * p.gplane + 4 * p.aplane) + 16 * p.stages
+    # boxes of 64 channels, 128 bytes a row, at 1024-byte (swizzle) bounds
+    assert p.gbytes == -(-p.th * p.tw * 128 // 1024) * 1024
+    assert p.abytes == -(-(p.th + 2) * (p.tw + 2) * 128 // 1024) * 1024
+    assert p.smem == p.stages * (p.gbytes + p.abytes) + 16 * p.stages
     assert -(-h // p.th) * -(-w // p.tw) * b == p.tiles
     assert p.per_slice * (p.slices - 1) < p.tiles <= p.per_slice * p.slices
-    assert p.blocks_per_slice == -(-cout // 64) * -(-conv_bwd.padded_channels(cin) // 32)
+    assert p.per_slice * p.th * p.tw // 16 <= conv_bwd.K5_DEPTH
+    assert p.blocks_per_slice == -(-cout // 64) * -(-conv_bwd.padded_channels(cin) // 64)
     waves = -(-p.blocks // SMS)
     assert p.blocks / (waves * SMS) >= 0.95  # the last wave fills the SMs
 
