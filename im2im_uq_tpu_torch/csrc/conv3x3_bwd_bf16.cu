@@ -458,7 +458,7 @@ constexpr int kCi = 64;  // input channels a block (N)
 
 struct Geo {
   float* part;    // [slice][co][c][tap]
-  float* part_b;  // [slice][co]
+  float* part_b;  // [slice][warp of the db warpgroup][co]
   int cin, cout, h, w;
   int th, tw, hc;  // tile (tw a multiple of 8, th * tw of 16); haloed columns
   int stages, tiles_y, tiles_x, tiles, per_slice, nco, nci;
@@ -807,7 +807,7 @@ extern "C" int im2im_dgrad3x3_wgmma(const void* gp, const void* weight, const vo
 // h, w, cpo) the NHWC cotangent, bf16, 16-byte aligned, cpi and cpo
 // multiples of 8; part: slices * (cout * cin * 9 + 4 * cout) floats; dw (cout,
 // cin, 3, 3) and db (cout) f32. The plan (ops/conv_bwd.wgrad_plan): tile th x tw (tw a multiple
-// of 8, th * tw of 32, at most 256), stages, slices of per_slice tiles.
+// of 8, th * tw of 16, at most 256), stages, slices of per_slice tiles.
 // Returns a cudaError_t value.
 extern "C" int im2im_wgrad3x3_wgmma(const void* act, const void* gp, void* part, void* dw,
                                     void* db, int b,
