@@ -235,6 +235,7 @@ KERNELS = {
     "wgrad3x3_bf16": conv_bwd.wgrad3x3.bf16,
     "dgrad3x3_bf16": conv_bwd.dgrad3x3.bf16,
     "cotangent_nhwc": conv_bwd.cotangent_nhwc,
+    "activation_nhwc": conv_bwd.activation_nhwc,
     "moments": moments.moments,
     "conv3x3_single": conv_probe.conv3x3_single,
     "conv3x3_db": conv_probe.conv3x3_db,
@@ -293,9 +294,10 @@ PEAK_BF16_TC_FLOPS = 989e12
 # tests/test_torch_port_bf16.py)
 BF16_EVAL_RTOL = 2e-2
 # the kernel launches that each bf16 eval path (calibration, serving) must
-# make, beside K2 and K1f
-BF16_KERNELS = {"xla": [], "pallas": ["conv3x3_bf16"],
-                "pallas_fused": ["conv3x3_bf16", "conv3x3_bn_act_bf16"]}
+# make, beside K2 and K1f: K3/K4 in bf16 beyond the stem run on the
+# activation pass's NHWC copy of their input
+BF16_KERNELS = {"xla": [], "pallas": ["conv3x3_bf16", "activation_nhwc"],
+                "pallas_fused": ["conv3x3_bf16", "conv3x3_bn_act_bf16", "activation_nhwc"]}
 # ... and each bf16 train path, beside K1f, K1b and K7: under pallas_fused
 # the backward of every K4 is the cotangent pass, K5 and K6 in bf16
 BF16_TRAIN_KERNELS = dict(BF16_KERNELS, pallas_fused=BF16_KERNELS["pallas_fused"]
@@ -910,6 +912,22 @@ def bf16_bar(a: torch.Tensor, w: torch.Tensor, want: torch.Tensor) -> torch.Tens
     return conv_probe.bf16_ulp(want) + 2.0 * 9 * a.shape[1] * 2.0**-24 * mass
 
 
+def k34_bf16_over(got: tuple, want: tuple, act: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(outputs of y over ``bf16_bar``, stats over their bar or None) of a
+    bf16 K3/K4 call ``got`` against its plain version ``want`` on the
+    activation ``act`` and kernel ``w``: the stats within what y's bar lets
+    Σy and Σy² move plus SUM_TOL of Σ|y| and Σy² (the f32 sums' order)."""
+    bar = bf16_bar(act, w, want[0])
+    y_over = int(((got[0].float() - want[0].float()).abs() > bar).sum().item())
+    if len(want) < 2:
+        return y_over, None
+    yf = want[0].float()
+    st_bar = torch.stack([bar.sum((2, 3)) + SUM_TOL * yf.abs().sum((2, 3)),
+                          (bar * (2 * yf.abs() + bar)).sum((2, 3))
+                          + SUM_TOL * (yf * yf).sum((2, 3))], 1)
+    return y_over, int(((got[1] - want[1]).abs() > st_bar).sum().item())
+
+
 def bf16_conv_sites() -> dict:
     """The bf16 K3-K6 launches of the bf16 main paths at batch 32, 320x320
     → {kernel: {path: Counter of ((B, Cin, H, W, Cout), prologue)}}: K3 in
@@ -939,10 +957,14 @@ def phase_conv_kernels_bf16() -> dict:
     in bf16) times and the bound (bf16 tensor-core rate, 2-byte tensors),
     summed per ``pallas`` train step for K3 and per ``pallas_fused`` eval
     forward for K4 (the kernels line's); K3's sums over the fused eval
-    forward on a ``k3_bf16_fused_eval`` line."""
+    forward on a ``k3_bf16_fused_eval`` line. Each call must launch the
+    kernel once and, beyond the stem (Cin = 1), the activation pass once.
+    The per-level table (K3/K4 against cuDNN bf16, ms per launch) on a
+    ``k34_bf16_levels`` line."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     results = {}
     sites = bf16_conv_sites()
+    levels: dict = {}  # (shape, prologue) -> {"k3_ms" / "k4_ms", "library_ms"}
     for kernel in ("conv3x3_bf16", "conv3x3_bn_act_bf16"):
         paths = sites[kernel]
         main = list(dict.fromkeys(case for c in paths.values() for case in c))
@@ -963,24 +985,26 @@ def phase_conv_kernels_bf16() -> dict:
                 run = lambda: conv.conv3x3_bn_act_fwd(x, wt, bias, sc, sh, prologue, True)  # noqa: E731
                 plain = lambda: conv.conv3x3_bn_act_plain(x, wt, bias, sc, sh, prologue, True)  # noqa: E731
                 timed = lambda: conv.conv3x3_bn_act_fwd(x, wt, bias, sc, sh, prologue, False)  # noqa: E731
-            got, again, want = run(), run(), plain()
+            before = (KERNELS[kernel].launches, conv_bwd.activation_nhwc.launches)
+            got = run()
+            launched = (KERNELS[kernel].launches - before[0],
+                        conv_bwd.activation_nhwc.launches - before[1])
+            if launched != (1, int(cin > 1)):
+                raise AssertionError(f"{kernel} {shape}: launched (kernel, activation pass) "
+                                     f"{launched} times, not (1, {int(cin > 1)})")
+            again, want = run(), plain()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
                 raise AssertionError(f"{kernel} {shape} prologue={prologue}: two runs differ")
             act = conv_bwd.prologue_activation(x.float(), sc, sh, prologue).to(torch.bfloat16)
-            bar = bf16_bar(act, wt, want[0])
+            over, st_over = k34_bf16_over(got, want, act, wt)
             diff = (got[0].float() - want[0].float()).abs()
-            over = int((diff > bar).sum().item())
             fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
                       "max_abs_err": diff.max().item(), "outputs_over_bar": over,
                       "outputs_over_one_ulp": int((diff > conv_probe.bf16_ulp(want[0])).sum()),
-                      "bit_identical": True}
+                      "bit_identical": True,
+                      "launched": {"kernel": launched[0], "activation_nhwc": launched[1]}}
             if kernel == "conv3x3_bn_act_bf16":
-                yf = want[0].float()
-                st_bar = torch.stack([bar.sum((2, 3)) + SUM_TOL * yf.abs().sum((2, 3)),
-                                      (bar * (2 * yf.abs() + bar)).sum((2, 3))
-                                      + SUM_TOL * (yf * yf).sum((2, 3))], 1)
-                st_over = int(((got[1] - want[1]).abs() > st_bar).sum().item())
                 fields["stats_over_bar"] = st_over
                 y_eval, _ = timed()
                 if not torch.equal(y_eval, got[0]):
@@ -995,6 +1019,10 @@ def phase_conv_kernels_bf16() -> dict:
                 fields["ms"] = time_ms(timed, 5)
                 fields["plain_ms"] = time_ms(plain, 2)
                 fields["library_ms"] = time_ms(lambda: F.conv2d(x, wt, bias, padding=1), 5)
+                fields["vs_library"] = fields["ms"] / fields["library_ms"]
+                level = levels.setdefault((shape, prologue), {})
+                level["k3_ms" if kernel == "conv3x3_bf16" else "k4_ms"] = fields["ms"]
+                level.setdefault("library_ms", fields["library_ms"])
                 nbytes = 2 * (x.numel() + wt.numel() + bias.numel() + b * cout * h * w)
                 if prologue:
                     nbytes += 8 * cin
@@ -1007,14 +1035,70 @@ def phase_conv_kernels_bf16() -> dict:
                         result[k] += n * fields[k]
                     add_bound(result, 2.0 * b * h * w * cin * cout, nbytes, n, PEAK_BF16_TC_FLOPS)
             emit(kernel, **fields)
-            del c, x, got, again, want, act, bar, diff
+            del c, x, got, again, want, act, diff
         if kernel == "conv3x3_bf16":
             emit("k3_bf16_fused_eval", launches_per_forward=sum(paths["pallas_fused"].values()),
                  **close_bound(sums["pallas_fused"]))
             results[kernel] = close_bound(sums["pallas"])
         else:
             results[kernel] = close_bound(sums["pallas_fused"])
+    emit("k34_bf16_levels", rows=[
+        {"shape": list(shape), "prologue": prologue, "k3_ms": t.get("k3_ms"),
+         "k4_ms": t.get("k4_ms"), "library_ms": t["library_ms"],
+         "vs_library": max(t.get("k3_ms") or 0.0, t.get("k4_ms") or 0.0) / t["library_ms"]}
+        for (shape, prologue), t in levels.items()])
     return results
+
+
+def phase_activation_bf16() -> dict:
+    """The activation pass (``conv_bwd.activation_nhwc``, K3/K4's and K5's
+    NHWC operand) against its plain version on the card, bit for bit and
+    the same bits twice, with the prologue and without, at every bf16 K3/K4
+    site beyond the stem (``bf16_conv_sites``) and the odd shapes. At the
+    bf16 ``pallas`` step's K3 sites the kernel, plain and bound times (x
+    read, the NHWC copy written once), summed over the step: the kernels
+    line's. No single PyTorch call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sites = bf16_conv_sites()
+    step = collections.Counter()
+    for (shape, _), n in sites["conv3x3_bf16"]["pallas"].items():
+        step[shape] += n
+    main = list(dict.fromkeys(shape for c in (sites["conv3x3_bf16"], sites["conv3x3_bn_act_bf16"])
+                              for counts in c.values() for shape, _ in counts))
+    sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    for shape in main + CONV_ODD_SHAPES:
+        b, cin, h, w, _ = shape
+        if cin == 1:  # the stem reads x itself
+            continue
+        x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        sc = 0.5 + torch.rand((cin,), generator=gen, device="cuda")
+        sh = 0.3 * torch.randn((cin,), generator=gen, device="cuda")
+        for prologue in (True, False):
+            args = (x, sc, sh, prologue)
+            got, again = conv_bwd.activation_nhwc(*args), conv_bwd.activation_nhwc(*args)
+            want = conv_bwd.activation_plain(*args)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
+                      "outputs_differ": differ, "bit_identical": bool(torch.equal(got, again)),
+                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
+            if differ or not fields["bit_identical"]:
+                raise AssertionError(f"activation pass {shape} prologue={prologue} differs from "
+                                     f"its plain version: {fields}")
+            if not prologue and shape in step:
+                n = step[shape]
+                fields["launches_per_step"] = n
+                fields["ms"] = time_ms(lambda: conv_bwd.activation_nhwc(*args), 10)
+                fields["plain_ms"] = time_ms(lambda: conv_bwd.activation_plain(*args), 2)
+                nbytes = 2 * (x.numel() + got.numel())
+                fields["bound_ms"], fields["bound_by"] = bound(0.0, nbytes)
+                sums["max_abs_err"] = max(sums["max_abs_err"], fields["max_abs_err"])
+                for k in ("ms", "plain_ms"):
+                    sums[k] += n * fields[k]
+                add_bound(sums, 0.0, nbytes, n)
+            emit("activation_bf16", **fields)
+            del got, again, want
+    return {"activation_nhwc": close_bound(sums)}
 
 
 def _bwd_bf16_calls(kernel: str, c: dict, prologue: bool):
@@ -2007,6 +2091,7 @@ def plain_conv_versions():
              (conv_bwd, "wgrad3x3", conv_bwd.wgrad3x3_plain),
              (conv_bwd, "dgrad3x3", conv_bwd.dgrad3x3_plain),
              (conv_bwd, "cotangent_nhwc", conv_bwd.cotangent_plain),
+             (conv_bwd, "activation_nhwc", conv_bwd.activation_plain),
              (conv_bwd, "wgrad3x3_nhwc", conv_bwd.wgrad3x3_nhwc_plain),
              (conv_bwd, "dgrad3x3_nhwc", conv_bwd.dgrad3x3_nhwc_plain)]
     saved = [getattr(m, n) for m, n, _ in names]
@@ -2188,6 +2273,7 @@ def main() -> int:
         "maxpool2x2_bwd": phase_k7(),
         **phase_conv_kernels(),
         **phase_conv_kernels_bf16(),
+        **phase_activation_bf16(),
         **phase_conv_bwd_bf16(),
     }
     measured.update(phase_probes())
@@ -2258,13 +2344,14 @@ def main() -> int:
         "maxpool2x2_bwd": ("maxpool2x2_bwd.cu", "im2im_uq_tpu/ops/pallas_pool.py:114"),
         "conv3x3": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
         "conv3x3_bn_act": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
-        "conv3x3_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
-        "conv3x3_bn_act_bf16": ("conv3x3.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
+        "conv3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
+        "conv3x3_bn_act_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
-        "wgrad3x3_bf16": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
-        "dgrad3x3_bf16": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
-        "cotangent_nhwc": ("conv3x3_bwd_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:371"),
+        "wgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
+        "dgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "cotangent_nhwc": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:371"),
+        "activation_nhwc": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:153"),
         "moments": ("moments.cu", "benchmarks/bench_moments.py:51"),
         "conv3x3_single": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:51"),
         "conv3x3_db": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),

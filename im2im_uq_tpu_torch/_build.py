@@ -67,13 +67,14 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
-    # K3 and K4: (x, weight, bias, scale, shift, y, part, stats, packed, b, cin,
-    #      cout, h, w, prologue, with_stats, dtype, device, stream)
-    "im2im_conv3x3_fused": ([_P] * 9 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
+    # K3 and K4 (f32; the bf16 stem): (x, weight, bias, scale, shift, y, part,
+    #      stats, b, cin, cout, h, w, prologue, with_stats, dtype, device, stream)
+    "im2im_conv3x3_fused": ([_P] * 8 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
     # floats of K4's stats scratch: (b, cout, h, w)
     "im2im_conv3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
-    # 32-bit words of the bf16 instances' packed operands: (b, cin, cout, h, w)
-    "im2im_conv3x3_packed_words": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # K3 and K4 in bf16 on wgmma: (xp, weight, bias, y, wpack, part, stats, b,
+    #  cin, cp, cout, h, w, bn, th, tw, stages, blocks, device, stream)
+    "im2im_conv3x3_wgmma": ([_P] * 7 + [ctypes.c_int] * 12 + [_P], ctypes.c_int),
     # K5 in f32: (x, g, scale, shift, scratch, dw, db, b, cin, cout, h, w,
     #      prologue, device, stream)
     "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),

@@ -41,20 +41,11 @@
 // ms against the stem's 0.69 with the stats, 0.87 against 0.39 without
 // (scripts/compare_conv_builds.py --gemm-stem).
 //
-// bfloat16 (x, weight, bias and y bf16; scale, shift and stats f32): the TPU
-// kernel's function, the sum over taps and channels of bf16 products in
-// float32, plus the bias, rounded once to bf16; the prologue
-// relu(f32(x) * scale + shift) in float32, rounded to bf16 before the
-// products; the stats over the stored bf16 values, in float32. The bound
-// counts the Winograd limit at the tensor cores' bf16 rate, 989 TFLOP/s.
-// Two small kernels of conv3x3_tc.cuh pack the operands first (pack_pairs:
-// x, with the prologue applied, as words of channel pairs; pack_weights:
-// each (channel tile, chunk)'s B tiles as one run), then the bf16 GEMM of
-// conv3x3_tc.cuh runs with this file's epilogue: one wgmma.m64n32k16 per
-// tap and m64 instance, no 3xTF32 split. The packing pass moves x once
-// more (read, and written as words) in exchange for a GEMM that stages its
-// box with the float32 GEMM's copies. The stem (Cin = 1) runs bf16 through
-// its FFMA kernel: a product of two bf16 values is exact in float32.
+// bfloat16 (x, weight, bias and y bf16; scale, shift and stats f32): the
+// stem (Cin = 1) runs bf16 through its FFMA kernel here (a product of two
+// bf16 values is exact in float32; TMA cannot take its 2-byte pixels); every
+// other bf16 K3/K4 runs on wgmma fed by TMA over an NHWC copy of x
+// (conv3x3_bf16.cu, im2im_conv3x3_wgmma), which this entry point refuses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,24 +59,17 @@ namespace {
 
 using namespace conv3x3;
 
-// K3/K4 on the GEMM: float32 (x, weight; the prologue in the GEMM) or bf16
-// (packed_x, packed_w: x with the prologue applied and the weights, packed
-// by pack_pairs and pack_weights).
-template <typename T, bool kPrologue, bool kStats>
+// K3/K4 in float32 on the GEMM (the prologue in the GEMM).
+template <bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(kThreads, 2)
     conv3x3_fwd_kernel(Grid g, const float* __restrict__ x, const float* __restrict__ weight,
-                       const uint32_t* __restrict__ packed_x,
-                       const uint32_t* __restrict__ packed_w, const T* __restrict__ bias,
-                       const float* __restrict__ scale, const float* __restrict__ shift,
-                       T* __restrict__ y, float* __restrict__ part, int cin) {
+                       const float* __restrict__ bias, const float* __restrict__ scale,
+                       const float* __restrict__ shift, float* __restrict__ y,
+                       float* __restrict__ part, int cin) {
   extern __shared__ __align__(16) float smem[];
   const Place at = place(g);
   float acc[kMt][kNt][4];
-  if constexpr (std::is_same_v<T, float>)
-    gemm<false, kPrologue>(geo(g, at, x, weight, scale, shift, cin), smem, acc);
-  else
-    gemm_bf16(geo_bf16(g, at, packed_x, packed_w, (cin + 1) / 2),
-              reinterpret_cast<uint32_t*>(smem), acc);
+  gemm<false, kPrologue>(geo(g, at, x, weight, scale, shift, cin), smem, acc);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -232,8 +216,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, bool kPrologue, bool kStats>
 cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, const T* bias,
-                   const float* scale, const float* shift, T* y, float* part, uint32_t* packed,
-                   cudaStream_t s) {
+                   const float* scale, const float* shift, T* y, float* part, cudaStream_t s) {
   if (cin == 1) {
     if (b > 65535) return cudaErrorInvalidValue;
     const dim3 grid(static_cast<unsigned>(g.boxes), static_cast<unsigned>(b));
@@ -241,37 +224,26 @@ cudaError_t launch(const Grid& g, int b, int cin, const T* x, const T* weight, c
         x, weight, bias, scale, shift, y, part, g.nc, g.h, g.w, g.box.th, g.box.tw);
     return cudaGetLastError();
   }
-  if constexpr (std::is_same_v<T, float>) {
-    return launch_grid(conv3x3_fwd_kernel<float, kPrologue, kStats>, g, b, s, x, weight,
-                       static_cast<const uint32_t*>(nullptr), static_cast<const uint32_t*>(nullptr),
-                       bias, scale, shift, y, part, cin);
-  } else {
-    uint32_t* px = packed;
-    uint32_t* pw = packed + packed_x_words(b, cin, g.h, g.w);
-    cudaError_t err = pack_operands<kPrologue>(x, weight, scale, shift, packed, b, cin, g.nc,
-                                               g.h, g.w, s);
-    if (err != cudaSuccess) return err;
-    return launch_grid_bytes(conv3x3_fwd_kernel<T, false, kStats>, g, b, s,
-                             smem_bytes_bf16(g.plane), static_cast<const float*>(nullptr),
-                             static_cast<const float*>(nullptr),
-                             static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(pw),
-                             bias, scale, shift, y, part, cin);
-  }
+  if constexpr (std::is_same_v<T, float>)
+    return launch_grid(conv3x3_fwd_kernel<kPrologue, kStats>, g, b, s, x, weight, bias, scale,
+                       shift, y, part, cin);
+  else
+    return cudaErrorInvalidValue;  // bf16 beyond the stem: im2im_conv3x3_wgmma
 }
 
 template <typename T>
 cudaError_t launch_all(const Grid& g, int b, int cin, const void* x, const void* weight,
                        const void* bias, const float* sc, const float* sh, void* y, float* pf,
-                       uint32_t* packed, int prologue, int with_stats, cudaStream_t s) {
+                       int prologue, int with_stats, cudaStream_t s) {
   const auto* xt = static_cast<const T*>(x);
   const auto* wt = static_cast<const T*>(weight);
   const auto* bt = static_cast<const T*>(bias);
   auto* yt = static_cast<T*>(y);
   if (prologue && with_stats)
-    return launch<T, true, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
-  if (prologue) return launch<T, true, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
-  if (with_stats) return launch<T, false, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
-  return launch<T, false, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, packed, s);
+    return launch<T, true, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, s);
+  if (prologue) return launch<T, true, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, s);
+  if (with_stats) return launch<T, false, true>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, s);
+  return launch<T, false, false>(g, b, cin, xt, wt, bt, sc, sh, yt, pf, s);
 }
 
 }  // namespace
@@ -281,23 +253,17 @@ extern "C" long long im2im_conv3x3_scratch(int b, int cout, int h, int w) {
   return static_cast<long long>(b) * make_grid(h, w, cout).boxes * 2 * cout;
 }
 
-// 32-bit words of the packed operands that a bf16 im2im_conv3x3_fused needs
-// (0 for the stem, Cin = 1).
-extern "C" long long im2im_conv3x3_packed_words(int b, int cin, int cout, int h, int w) {
-  return cin == 1 ? 0 : packed_x_words(b, cin, h, w) + packed_w_words(cin, cout);
-}
-
 // K3 and K4. x (b, cin, h, w), weight (cout, cin, 3, 3), bias (cout) or
-// null, y (b, cout, h, w): dtype 0 float32, 1 bfloat16, contiguous; scale,
+// null, y (b, cout, h, w): dtype 0 float32, 1 bfloat16 (the stem, cin = 1,
+// only), contiguous; scale,
 // shift (cin) float32 feed the prologue, read when prologue != 0; with
 // with_stats != 0, part (im2im_conv3x3_scratch floats) and stats (b, 2,
 // cout) float32 are written: stats[i][0] = sum of y[i], stats[i][1] = sum of
 // y[i]^2 per channel, over the stored values. K3 is the call with neither.
-// packed: im2im_conv3x3_packed_words words of scratch for bf16 (unread for
-// float32). Returns a cudaError_t value.
+// Returns a cudaError_t value.
 extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void* bias,
                                    const void* scale, const void* shift, void* y, void* part,
-                                   void* stats, void* packed, int b, int cin, int cout, int h,
+                                   void* stats, int b, int cin, int cout, int h,
                                    int w, int prologue, int with_stats, int dtype, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -308,12 +274,11 @@ extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void
   const auto* sc = static_cast<const float*>(scale);
   const auto* sh = static_cast<const float*>(shift);
   auto* pf = static_cast<float*>(part);
-  auto* pk = static_cast<uint32_t*>(packed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = launch_all<float>(g, b, cin, x, weight, bias, sc, sh, y, pf, pk, prologue, with_stats, s);
+    err = launch_all<float>(g, b, cin, x, weight, bias, sc, sh, y, pf, prologue, with_stats, s);
   else
-    err = launch_all<__nv_bfloat16>(g, b, cin, x, weight, bias, sc, sh, y, pf, pk, prologue,
+    err = launch_all<__nv_bfloat16>(g, b, cin, x, weight, bias, sc, sh, y, pf, prologue,
                                     with_stats, s);
   if (err != cudaSuccess || !with_stats) return static_cast<int>(err);
   return static_cast<int>(

@@ -1,21 +1,30 @@
-// K5 and K6 in bfloat16 on Hopper's wgmma fed by TMA, over one cotangent
-// that both read, for sm_90a.
+// K3-K6 in bfloat16 on Hopper's wgmma fed by TMA, for sm_90a: the forward
+// conv (K3, K4) over an NHWC copy of its input, and its backward (K5, K6)
+// over one cotangent that both read.
 //
-// Replaces, in bf16, the TPU kernels im2im_uq_tpu/ops/pallas_conv_bwd.py
-// `wgrad3x3_pallas_raw` (K5) and `dgrad3x3_pallas_raw` (K6), and the
-// padded cotangent that the JAX package materializes once for both
-// (im2im_uq_tpu/ops/pallas_conv.py:371-376, 424-427).
+// Replaces, in bf16, the TPU kernels im2im_uq_tpu/ops/pallas_conv.py
+// `conv3x3_pallas_raw` (K3) and `_conv3x3_fused_raw` (K4),
+// im2im_uq_tpu/ops/pallas_conv_bwd.py `wgrad3x3_pallas_raw` (K5) and
+// `dgrad3x3_pallas_raw` (K6), and the padded cotangent that the JAX package
+// materializes once for K5 and K6 (im2im_uq_tpu/ops/pallas_conv.py:371-376,
+// 424-427).
 //
-// What it computes, for the cotangent gy (B, Cout, H, W) of the fused conv
-// y = conv3x3(relu(x * scale + shift)) + b (prologue on) or conv3x3(x) + b,
-// with x (B, Cin, H, W), NCHW bf16:
+// What it computes, for the fused conv y = conv3x3(relu(x * scale + shift))
+// + b (prologue on) or conv3x3(x) + b with x (B, Cin, H, W) and its
+// cotangent gy (B, Cout, H, W), NCHW bf16:
+//   the activation pass: a[b, y, x, c] = bf16(relu(f32(x) * scale +
+//                          shift)) (x itself without the prologue), NHWC,
+//                          channels padded to a multiple of 8 with 0 (the
+//                          operand of K3/K4 and of K5);
+//   K3/K4:               y[p, co] = bf16(sum over (t, c) of a[p + s_t, c] *
+//                          W[co, c, t] + b[co]), the sum in f32 and rounded
+//                          once (the TPU kernel's f32 accumulator), and with
+//                          the stats the per-(image, channel) sums of f32(y)
+//                          and f32(y)^2 over the stored values;
 //   the cotangent pass:  g[b, y, x, co] = bf16(f32(gy) + gs[b, co]
 //                          + 2 f32(y) gq[b, co]) with the stats' cotangent
 //                          (gs, gq) = gst[b], else gy; written once, NHWC,
-//                          channels padded to a multiple of 8 with 0;
-//   the activation pass (K5's): a[b, y, x, c] = bf16(relu(f32(x) * scale +
-//                          shift)) (x itself without the prologue), NHWC,
-//                          padded the same way;
+//                          padded as the activation;
 //   K5:                  dW[co, c, t] = sum over pixels p of g[p, co] *
 //                          a[p + s_t, c] (0 outside the image) and db[co] =
 //                          sum of f32(g[p, co]), f32;
@@ -30,8 +39,8 @@
 //
 // What bounds it: one multiply-add per (pixel, channel pair) at the bf16
 // tensor-core rate (989 TFLOP/s) against x and g read once and dx written
-// once; at batch 32, 320x320 the 20x20 and 40x40 levels are bound by
-// operations, the larger ones by bytes.
+// once (K3/K4: x read and y written once); at batch 32, 320x320 the 20x20
+// and 40x40 levels are bound by operations, the larger ones by bytes.
 //
 // Design. With channels innermost a tap shift moves an operand by whole
 // pixels of 16-byte groups of 8 channels, so every operand tile is a
@@ -63,6 +72,21 @@
 //   summed per block in a fixed order (lanes by a butterfly, then each
 //   warp's running sum in shared memory, then the warps in order) and over
 //   the blocks by conv3x3::reduce_rows: the same bits on every run.
+// - K3/K4 are the same kernel body (k6::run) with the forward's epilogue,
+//   under a kernel name of their own (conv3x3_fwd_wgmma_kernel): A = the
+//   activation pass's NHWC copy of x (the prologue applied and rounded to
+//   bf16 there, as the TPU kernel feeds its products), N = Cout in slices
+//   of 64 or 128, K = 9 taps x Cin in chunks of 16, the weights packed
+//   unflipped by the same pack_weights_k6. The epilogue adds the bias in
+//   f32, rounds once to bf16 and stores y (by one TMA store from shared
+//   memory where W % 8 == 0, else lane by lane); with the stats each tile's
+//   sums of y and y^2 over the stored values run the same fixed order
+//   (lanes by a butterfly, warps in order in shared memory, two buffers so
+//   that one barrier a tile suffices) into a row per tile, summed per image
+//   by conv3x3::reduce_rows. The bf16 K3/K4 before this one packed x into
+//   NCHW words of channel pairs and ran N = 32 tiles with A from registers:
+//   2.3-2.5x cuDNN's time at 40x40 and 20x20 (PERF.md). The stem (Cin = 1)
+//   keeps its FFMA kernel (conv3x3.cu).
 // - K5: M = 64 output channels, N = 64 input channels, K = the pixels of a
 //   tile, with the 9 taps as 9 products of the same A. Each operand lands
 //   as one TMA box of 64 channels, a 128-byte row a pixel (g: the tile's
@@ -158,34 +182,41 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// K6.
+// The implicit GEMM over flattened haloed tiles, fed by TMA: K6, and K3/K4.
 
 namespace k6 {
 
 constexpr int kConsumers = 2;
 constexpr int kThreads = 128 * kConsumers + 32;
 constexpr int kPiece = 32768;  // bytes per bulk copy of weights
-constexpr int kKc = 16;        // cotangent channels a chunk (two groups: one k16 step)
+constexpr int kKc = 16;        // K channels a chunk (two groups: one k16 step)
+
+// Whose epilogue a block runs: K6's (mask, dx, the reductions) or the
+// forward conv's (bias, y, the stats).
+enum Kind { kDgrad = 0, kForward = 1 };
 
 struct Geo {
-  const __nv_bfloat16* x;
-  const float* scale;
+  const __nv_bfloat16* x;     // K6: the forward's raw input (b, nc, h, w), for the mask
+  const __nv_bfloat16* bias;  // the forward: (nc), or null
+  const float* scale;         // K6 with the prologue: (nc)
   const float* shift;
-  __nv_bfloat16* dx;
-  float* part;
-  int b, h, w, cin, cp;   // cp: the cotangent's channels, padded to 8
-  int th, tw, hc;         // output tile; haloed columns, tw + 2
+  __nv_bfloat16* out;  // (b, nc, h, w): K6's dx, the forward's y
+  float* part;         // K6: [block row][2][nc], the reductions; the forward: [tile][2][nc], the stats
+  int b, h, w, nc, kp;  // nc: N channels (K6: Cin, the forward: Cout); kp: the NHWC operand's, padded to 8
+  int th, tw, hc;       // output tile; haloed columns, tw + 2
   int stages, nch, ntn;   // ring stages, chunks, N slices
   int tiles_y, tiles_x, tiles;
-  int plane, abytes, wbytes, sbytes;  // bytes: a group's box, the chunk's g, its weights, a stage
-  int xs_bytes;  // the x / dx tile of the TMA epilogue (0: the epilogue loads and stores itself)
+  int plane, abytes, wbytes, sbytes;  // bytes: a group's box, the chunk's A, its weights, a stage
+  int xs_bytes;  // the out tile of the TMA epilogue (0: the epilogue stores itself)
 };
 
-// wpack[slice][chunk][tap][n group][k half][8 n][8 k] = W[co][c][8 - tap]
-// of the (Cout, Cin, 3, 3) forward weight, co = chunk * 16 + 8 k half + k,
-// c = slice * bn + 8 n group + n; 0 past Cout and Cin.
+// wpack[slice][chunk][tap][n group][k half][8 n][8 k] = B[(k, tap), n] with k
+// = chunk * 16 + 8 k half + k8 and n = slice * bn + 8 n group + n8, 0 past
+// kdim and ndim: with flip, W[k][n][8 - tap] of a (K, N, 3, 3) weight (K6:
+// the forward's weight, K = Cout, N = Cin, transposed and flipped); without,
+// W[n][k][tap] of an (N, K, 3, 3) weight (the forward conv's, unflipped).
 __global__ void pack_weights_k6(const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ out,
-                                int cin, int cout, int bn, int nch, int64_t total) {
+                                int kdim, int ndim, int bn, int nch, int flip, int64_t total) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += stride) {
@@ -202,28 +233,37 @@ __global__ void pack_weights_k6(const __nv_bfloat16* __restrict__ w, __nv_bfloat
     e /= 9;
     const int ch = static_cast<int>(e % nch);
     const int ns = static_cast<int>(e / nch);
-    const int co = ch * kKc + kh * 8 + k8, c = ns * bn + ng * 8 + n8;
-    out[i] = co < cout && c < cin ? w[(static_cast<int64_t>(co) * cin + c) * 9 + 8 - tap]
-                                  : __float2bfloat16_rn(0.0f);
+    const int k = ch * kKc + kh * 8 + k8, n = ns * bn + ng * 8 + n8;
+    out[i] = k < kdim && n < ndim
+                 ? w[flip ? (static_cast<int64_t>(k) * ndim + n) * 9 + 8 - tap
+                          : (static_cast<int64_t>(n) * kdim + k) * 9 + tap]
+                 : __float2bfloat16_rn(0.0f);
   }
 }
 
-// kTma: x arrives in shared memory by TMA ([n][r][c] of the tile, loaded by
-// the producer while the tile's products run) and dx leaves from there by
-// a TMA store, in place of x; else each lane loads x and stores dx itself.
-template <int kBn, bool kPrologue, bool kTma>
-__global__ void __launch_bounds__(kThreads, 1)
-    dgrad_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap dxmap, const __nv_bfloat16* __restrict__ wpack,
-                 Geo g) {
+// A block's work, for the kernels below. kOpt: K6's prologue (the mask, the
+// scale and the reductions) or the forward's stats. kTma: the output tile
+// leaves shared memory by one TMA store (K6 with the prologue first loads
+// its x there by TMA, [n][r][c] of the tile, while the tile's products run);
+// else each lane stores its outputs (and K6 loads x) itself. amap: the A
+// operand (K6: the cotangent, the forward: x), NHWC; xmap: K6's x; omap:
+// the output.
+template <int kKind, int kBn, bool kOpt, bool kTma>
+__device__ __forceinline__ void run(const CUtensorMap& amap, const CUtensorMap& xmap,
+                                    const CUtensorMap& omap, const __nv_bfloat16* __restrict__ wpack,
+                                    const Geo& g) {
+  constexpr bool kPrologue = kKind == kDgrad && kOpt;
+  constexpr bool kStats = kKind == kForward && kOpt;
   constexpr int kMi = kBn <= 64 ? 4 : 2;  // m64 instances a consumer warpgroup
+  constexpr int kRed = 4 * kConsumers * kBn * 2;  // floats of one [warp][kBn][2] of sums
   extern __shared__ __align__(1024) unsigned char smem[];
   auto* xs = reinterpret_cast<__nv_bfloat16*>(smem + g.stages * g.sbytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.stages * g.sbytes + g.xs_bytes);
   uint64_t* empty = full + g.stages;
   uint64_t* xfull = empty + g.stages;  // x of the tile has landed in xs
   uint64_t* xempty = xfull + 1;        // the tile's dx has left xs
-  float* red = reinterpret_cast<float*>(xempty + 1);  // [warp][kBn][2]
+  // K6: each warp's running sums; the forward: one tile's sums, two buffers
+  float* red = reinterpret_cast<float*>(xempty + 1);
   const int ns = blockIdx.x % g.ntn;
   const int first = blockIdx.x / g.ntn, step = gridDim.x / g.ntn;
   // the warp index broadcast from lane 0, so that ptxas sees the role
@@ -256,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         unsigned char* st = smem + s * g.sbytes;
         mbar_expect_tx(full + s, 2 * box + g.wbytes);
         for (int gi = 0; gi < 2; ++gi)
-          tma_load_4d(st + gi * g.plane, &gmap, (2 * c + gi) * 8, x0 - 1, y0 - 1, b, full + s);
+          tma_load_4d(st + gi * g.plane, &amap, (2 * c + gi) * 8, x0 - 1, y0 - 1, b, full + s);
         const unsigned char* src = reinterpret_cast<const unsigned char*>(wpack) +
                                    (static_cast<int64_t>(ns) * g.nch + c) * g.wbytes;
         for (int off = 0; off < g.wbytes; off += kPiece)
@@ -329,57 +369,83 @@ __global__ void __launch_bounds__(kThreads, 1)
         at[mi][hf] = in ? (kTma ? rr * g.tw + cc : yy * g.w + xx) : -1;
       }
     if (kTma) {
-      consumers_sync(128 * kConsumers);  // the last tile's dx has left xs
+      consumers_sync(128 * kConsumers);  // the last tile's output has left xs
       if (kPrologue) mbar_wait(xfull, i & 1);
     }
+    float* rt = red + (i & 1) * kRed;  // the forward's sums of this tile
 #pragma unroll
     for (int j = 0; j < kBn / 8; ++j) {
-      // x of the column pair's rows, all loaded before the first store of
-      // dx (which the compiler would otherwise order them after)
-      float xv[2][kMi][2];
+      // the output planes of the column pair (-1 past the channels)
       int64_t planes[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = ns * kBn + 8 * j + 2 * tig + e;
-        planes[e] = n >= g.cin ? -1
-                    : kTma     ? static_cast<int64_t>(8 * j + 2 * tig + e) * g.th * g.tw
-                               : (static_cast<int64_t>(b) * g.cin + n) * hw;
-#pragma unroll
-        for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int64_t idx = planes[e] + at[mi][hf];
-            xv[e][mi][hf] = kPrologue && planes[e] >= 0 && at[mi][hf] >= 0
-                                ? __bfloat162float(kTma ? xs[idx] : g.x[idx])
-                                : 0.0f;
-          }
+        planes[e] = n >= g.nc ? -1
+                    : kTma    ? static_cast<int64_t>(8 * j + 2 * tig + e) * g.th * g.tw
+                              : (static_cast<int64_t>(b) * g.nc + n) * hw;
       }
       float s0[2] = {0.0f, 0.0f}, s1[2] = {0.0f, 0.0f};
+      if constexpr (kKind == kDgrad) {
+        // x of the column pair's rows, all loaded before the first store of
+        // dx (which the compiler would otherwise order them after)
+        float xv[2][kMi][2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (planes[e] < 0) continue;
-        const int n = ns * kBn + 8 * j + 2 * tig + e;
-        const float sc = kPrologue ? g.scale[n] : 0.0f, sh = kPrologue ? g.shift[n] : 0.0f;
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int mi = 0; mi < kMi; ++mi)
+          for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            if (at[mi][hf] < 0) continue;
-            const int64_t idx = planes[e] + at[mi][hf];
-            __nv_bfloat16* out = kTma ? xs + idx : g.dx + idx;
-            const float v = acc[mi][4 * j + 2 * hf + e];
-            if (!kPrologue) {
-              *out = __float2bfloat16_rn(v);
-              continue;
+            for (int hf = 0; hf < 2; ++hf) {
+              const int64_t idx = planes[e] + at[mi][hf];
+              xv[e][mi][hf] = kPrologue && planes[e] >= 0 && at[mi][hf] >= 0
+                                  ? __bfloat162float(kTma ? xs[idx] : g.x[idx])
+                                  : 0.0f;
             }
-            const float x = xv[e][mi][hf];
-            const float dam = __fadd_rn(__fmul_rn(x, sc), sh) > 0.0f ? v : 0.0f;
-            *out = __float2bfloat16_rn(__fmul_rn(dam, sc));
-            s0[e] = fmaf(dam, x, s0[e]);
-            s1[e] += dam;
-          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (planes[e] < 0) continue;
+          const int n = ns * kBn + 8 * j + 2 * tig + e;
+          const float sc = kPrologue ? g.scale[n] : 0.0f, sh = kPrologue ? g.shift[n] : 0.0f;
+#pragma unroll
+          for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              if (at[mi][hf] < 0) continue;
+              const int64_t idx = planes[e] + at[mi][hf];
+              __nv_bfloat16* out = kTma ? xs + idx : g.out + idx;
+              const float v = acc[mi][4 * j + 2 * hf + e];
+              if (!kPrologue) {
+                *out = __float2bfloat16_rn(v);
+                continue;
+              }
+              const float x = xv[e][mi][hf];
+              const float dam = __fadd_rn(__fmul_rn(x, sc), sh) > 0.0f ? v : 0.0f;
+              *out = __float2bfloat16_rn(__fmul_rn(dam, sc));
+              s0[e] = fmaf(dam, x, s0[e]);
+              s1[e] += dam;
+            }
+        }
+      } else {
+        // y = the f32 sum plus the bias, rounded once; the stats over the
+        // stored values, as the TPU kernel's
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (planes[e] < 0) continue;
+          const int n = ns * kBn + 8 * j + 2 * tig + e;
+          const float bv = g.bias != nullptr ? __bfloat162float(g.bias[n]) : 0.0f;
+#pragma unroll
+          for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              if (at[mi][hf] < 0) continue;
+              const __nv_bfloat16 y = __float2bfloat16_rn(__fadd_rn(acc[mi][4 * j + 2 * hf + e], bv));
+              (kTma ? xs : g.out)[planes[e] + at[mi][hf]] = y;
+              const float v = __bfloat162float(y);
+              s0[e] += v;
+              s1[e] = fmaf(v, v, s1[e]);
+            }
+        }
       }
-      if (kPrologue) {
+      if (kPrologue || kStats) {  // the column pair's sums: the lanes by a butterfly
 #pragma unroll
         for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -390,20 +456,41 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (gid == 0) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float* slot = red + (warp * kBn + 8 * j + 2 * tig + e) * 2;
-            slot[0] += s0[e];
-            slot[1] += s1[e];
+            const int o = (warp * kBn + 8 * j + 2 * tig + e) * 2;
+            if (kPrologue) {  // K6: the warp's running sums
+              red[o] += s0[e];
+              red[o + 1] += s1[e];
+            } else {
+              rt[o] = s0[e];
+              rt[o + 1] = s1[e];
+            }
           }
         }
       }
     }
-    if (kTma) {  // dx out of xs by one thread, which then frees xs
+    if (kTma) {  // the output out of xs by one thread, which then frees xs
       tc::fence_proxy_async();
       consumers_sync(128 * kConsumers);
       if (tid == 0) {
-        tma_store_4d(&dxmap, xs, x0, y0, ns * kBn, b);
+        tma_store_4d(&omap, xs, x0, y0, ns * kBn, b);
         bulk_store_commit_and_wait_read();
         if (kPrologue) mbar_arrive_if(xempty, true);
+      }
+    } else if (kStats) {
+      consumers_sync(128 * kConsumers);
+    }
+    if (kStats) {  // the tile's stats: the warps in order (rt is not written
+                   // again before every consumer has passed the next tile's barrier)
+      const int n = ns * kBn + tid;
+      if (tid < kBn && n < g.nc) {
+        float s_sum = 0.0f, q_sum = 0.0f;
+#pragma unroll
+        for (int m = 0; m < 4 * kConsumers; ++m) {
+          s_sum += rt[(m * kBn + tid) * 2];
+          q_sum += rt[(m * kBn + tid) * 2 + 1];
+        }
+        g.part[(2 * static_cast<int64_t>(t)) * g.nc + n] = s_sum;
+        g.part[(2 * static_cast<int64_t>(t) + 1) * g.nc + n] = q_sum;
       }
     }
   }
@@ -411,37 +498,128 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (!kPrologue) return;
   consumers_sync(128 * kConsumers);
   const int n = ns * kBn + tid;
-  if (tid < kBn && n < g.cin) {
+  if (tid < kBn && n < g.nc) {
     float s_sum = 0.0f, q_sum = 0.0f;
 #pragma unroll
     for (int m = 0; m < 4 * kConsumers; ++m) {
       s_sum += red[(m * kBn + tid) * 2];
       q_sum += red[(m * kBn + tid) * 2 + 1];
     }
-    g.part[(2 * static_cast<int64_t>(first)) * g.cin + n] = s_sum;
-    g.part[(2 * static_cast<int64_t>(first) + 1) * g.cin + n] = q_sum;
+    g.part[(2 * static_cast<int64_t>(first)) * g.nc + n] = s_sum;
+    g.part[(2 * static_cast<int64_t>(first) + 1) * g.nc + n] = q_sum;
   }
 }
 
-template <int kBn, bool kPrologue>
-cudaError_t launch_as(const CUtensorMap& gmap, const CUtensorMap& xmap, const CUtensorMap& dxmap,
-                      const __nv_bfloat16* wpack, const Geo& g, int blocks, cudaStream_t s) {
-  const int bytes = g.stages * g.sbytes + g.xs_bytes + (2 * g.stages + 2) * 8 +
-                    4 * kConsumers * kBn * 2 * 4;
-  auto kernel = g.xs_bytes > 0 ? dgrad_kernel<kBn, kPrologue, true>
-                               : dgrad_kernel<kBn, kPrologue, false>;
+// K6: the forward conv of the cotangent with the flipped, transposed kernel.
+template <int kBn, bool kPrologue, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+    dgrad_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap dxmap, const __nv_bfloat16* __restrict__ wpack,
+                 const __grid_constant__ Geo g) {
+  run<kDgrad, kBn, kPrologue, kTma>(gmap, xmap, dxmap, wpack, g);
+}
+
+// K3 and K4: the forward conv of x (the prologue already applied by the NHWC
+// pass) with the kernel as it is, a name of its own in the profiler.
+template <int kBn, bool kStats, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap ymap,
+                             const __nv_bfloat16* __restrict__ wpack,
+                             const __grid_constant__ Geo g) {
+  run<kForward, kBn, kStats, kTma>(xmap, ymap, ymap, wpack, g);
+}
+
+// Dynamic shared memory of a launch: the ring, the TMA epilogue's tile, the
+// barriers, and `reds` [warp][bn][2] buffers of sums.
+inline int smem_bytes(const Geo& g, int bn, int reds) {
+  return g.stages * g.sbytes + g.xs_bytes + (2 * g.stages + 2) * 8 +
+         reds * 4 * kConsumers * bn * 2 * 4;
+}
+
+// The geometry of a launch over images b x h x w: N = nc channels in
+// slices of bn, K = the kp channels (a multiple of 8) of the NHWC operand in
+// chunks of kKc, output tiles of th x tw, the TMA epilogue where W and TW
+// are multiples of 8. False where the shape is out of range.
+inline bool make_geo(Geo& g, int b, int h, int w, int nc, int kp, int bn, int th, int tw,
+                     int stages, int blocks) {
+  if (b <= 0 || nc <= 0 || kp <= 0 || kp % 8 != 0 || h <= 0 || w <= 0 ||
+      (bn != 64 && bn != 128) || th < 1 || tw < 1 || th + 2 > 256 || tw + 2 > 256 ||
+      stages < 2 || blocks <= 0)
+    return false;
+  g.b = b;
+  g.h = h;
+  g.w = w;
+  g.nc = nc;
+  g.kp = kp;
+  g.th = th;
+  g.tw = tw;
+  g.hc = tw + 2;
+  g.stages = stages;
+  g.nch = (kp + kKc - 1) / kKc;
+  g.ntn = (nc + bn - 1) / bn;
+  if (blocks % g.ntn != 0) return false;
+  g.tiles_y = (h + th - 1) / th;
+  g.tiles_x = (w + tw - 1) / tw;
+  const int64_t tiles = static_cast<int64_t>(b) * g.tiles_y * g.tiles_x;
+  if (tiles > 0x7fffffff) return false;
+  g.tiles = static_cast<int>(tiles);
+  // a group's box, and the rows past it that the last m64 instance's taps
+  // read (dropped positions), 128-byte aligned
+  const int mt = 64 * (bn <= 64 ? 4 : 2) * kConsumers;  // the tile's M rows
+  int positions = (th + 2) * g.hc;
+  if (mt + 2 * g.hc + 2 > positions) positions = mt + 2 * g.hc + 2;
+  g.plane = (positions * 16 + 127) / 128 * 128;
+  g.abytes = 2 * g.plane;
+  g.wbytes = 9 * kKc * bn * 2;
+  g.sbytes = (g.abytes + g.wbytes + 127) / 128 * 128;
+  // the TMA epilogue where the image's rows and the tile's are whole
+  // 16-byte runs
+  g.xs_bytes = w % 8 == 0 && tw % 8 == 0 ? (th * tw * bn * 2 + 127) / 128 * 128 : 0;
+  return true;
+}
+
+// Pack a weight into wpack (pack_weights_k6) for g's slices and chunks.
+inline cudaError_t pack_weights(const void* weight, void* wpack, int kdim, int ndim, int bn,
+                                const Geo& g, bool flip, cudaStream_t s) {
+  const int64_t total = static_cast<int64_t>(g.ntn) * g.nch * 9 * kKc * bn;
+  pack_weights_k6<<<conv3x3::grid_stride_blocks(total), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(weight), static_cast<__nv_bfloat16*>(wpack), kdim, ndim,
+      bn, g.nch, flip ? 1 : 0, total);
+  return cudaGetLastError();
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, int bytes, int blocks, cudaStream_t s,
+                          const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(gmap, xmap, dxmap, wpack, g);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(args...);
   return cudaGetLastError();
 }
 
 template <int kBn>
-cudaError_t launch(const CUtensorMap& gmap, const CUtensorMap& xmap, const CUtensorMap& dxmap,
-                   const __nv_bfloat16* wpack, const Geo& g, int blocks, bool prologue,
-                   cudaStream_t s) {
-  return prologue ? launch_as<kBn, true>(gmap, xmap, dxmap, wpack, g, blocks, s)
-                  : launch_as<kBn, false>(gmap, xmap, dxmap, wpack, g, blocks, s);
+cudaError_t launch_dgrad(const CUtensorMap& gmap, const CUtensorMap& xmap, const CUtensorMap& dxmap,
+                         const __nv_bfloat16* wpack, const Geo& g, int blocks, bool prologue,
+                         cudaStream_t s) {
+  const int bytes = smem_bytes(g, kBn, 1);
+  const bool tma = g.xs_bytes > 0;
+  auto kernel = prologue ? (tma ? dgrad_kernel<kBn, true, true> : dgrad_kernel<kBn, true, false>)
+                         : (tma ? dgrad_kernel<kBn, false, true> : dgrad_kernel<kBn, false, false>);
+  return launch_kernel(kernel, bytes, blocks, s, gmap, xmap, dxmap, wpack, g);
+}
+
+template <int kBn>
+cudaError_t launch_fwd(const CUtensorMap& xmap, const CUtensorMap& ymap,
+                       const __nv_bfloat16* wpack, const Geo& g, int blocks, bool stats,
+                       cudaStream_t s) {
+  const int bytes = smem_bytes(g, kBn, 2);
+  const bool tma = g.xs_bytes > 0;
+  auto kernel = stats ? (tma ? conv3x3_fwd_wgmma_kernel<kBn, true, true>
+                             : conv3x3_fwd_wgmma_kernel<kBn, true, false>)
+                      : (tma ? conv3x3_fwd_wgmma_kernel<kBn, false, true>
+                             : conv3x3_fwd_wgmma_kernel<kBn, false, false>);
+  return launch_kernel(kernel, bytes, blocks, s, xmap, ymap, wpack, g);
 }
 
 }  // namespace k6
@@ -719,6 +897,48 @@ extern "C" int im2im_nhwc_pass(const void* in, const void* y, const void* gst, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 and K4 in bf16 on wgmma: xp (b, h, w, cp) the NHWC operand (x, or the
+// prologue's activation: im2im_nhwc_pass mode 0), weight (cout, cin, 3, 3),
+// bias (cout) or null, y (b, cout, h, w), all bf16. The plan
+// (ops/conv_bwd.conv_plan): bn (64 or 128), tile th x tw, stages, blocks (a
+// multiple of the ceil(cout / bn) slices). wpack: the packed weights,
+// ceil(cout / bn) * ceil(cp / 16) * 9 * 16 * bn bf16. With stats not null,
+// part (b * ceil(h / th) * ceil(w / tw) rows of 2 cout floats) and stats
+// (b, 2, cout) f32 receive the per-(image, channel) sums of y and y^2 over
+// the stored values. Returns a cudaError_t value.
+extern "C" int im2im_conv3x3_wgmma(const void* xp, const void* weight, const void* bias, void* y,
+                                   void* wpack, void* part, void* stats, int b, int cin, int cp,
+                                   int cout, int h, int w, int bn, int th, int tw, int stages,
+                                   int blocks, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k6::Geo g{};
+  if (cin <= 0 || cp < cin || !k6::make_geo(g, b, h, w, cout, cp, bn, th, tw, stages, blocks) ||
+      (reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(wpack)) % 16 != 0 ||
+      (g.xs_bytes > 0 && reinterpret_cast<uintptr_t>(y) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.bias = static_cast<const __nv_bfloat16*>(bias);
+  g.out = static_cast<__nv_bfloat16*>(y);
+  g.part = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  CUtensorMap xmap, ymap;
+  err = tmak::nhwc_map(&xmap, xp, b, h, w, cp, g.hc, th + 2);
+  if (err == cudaSuccess && g.xs_bytes > 0)
+    err = tmak::nchw_map(&ymap, y, b, cout, h, w, tw, th, bn);
+  else
+    ymap = xmap;  // not read
+  if (err == cudaSuccess) err = k6::pack_weights(weight, wpack, cin, cout, bn, g, false, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* wp = static_cast<const __nv_bfloat16*>(wpack);
+  const bool with_stats = stats != nullptr;
+  err = bn == 64 ? k6::launch_fwd<64>(xmap, ymap, wp, g, blocks, with_stats, s)
+                 : k6::launch_fwd<128>(xmap, ymap, wp, g, blocks, with_stats, s);
+  if (err != cudaSuccess || !with_stats) return static_cast<int>(err);
+  return static_cast<int>(conv3x3::launch_reduce_rows(g.part, static_cast<float*>(stats), b,
+                                                      g.tiles_y * g.tiles_x, 2LL * cout, s));
+}
+
 // K6 in bf16 on wgmma: gp the NHWC cotangent (b, h, w, cp), weight (cout,
 // cin, 3, 3), x (b, cin, h, w) the forward's raw input, dx (b, cin, h, w),
 // all bf16; scale, shift (cin) f32 read with prologue != 0. The plan
@@ -734,54 +954,23 @@ extern "C" int im2im_dgrad3x3_wgmma(const void* gp, const void* weight, const vo
                                     int blocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b <= 0 || cin <= 0 || cout <= 0 || h <= 0 || w <= 0 || cp < cout || cp % 8 != 0 ||
-      (bn != 64 && bn != 128) || th < 1 || tw < 1 || th + 2 > 256 || tw + 2 > 256 ||
-      stages < 2 || blocks <= 0 ||
-      (reinterpret_cast<uintptr_t>(gp) | reinterpret_cast<uintptr_t>(wpack)) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   k6::Geo g{};
+  if (cout <= 0 || cp < cout || !k6::make_geo(g, b, h, w, cin, cp, bn, th, tw, stages, blocks) ||
+      (reinterpret_cast<uintptr_t>(gp) | reinterpret_cast<uintptr_t>(wpack)) % 16 != 0 ||
+      (g.xs_bytes > 0 &&
+       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dx)) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   g.x = static_cast<const __nv_bfloat16*>(x);
   g.scale = static_cast<const float*>(scale);
   g.shift = static_cast<const float*>(shift);
-  g.dx = static_cast<__nv_bfloat16*>(dx);
+  g.out = static_cast<__nv_bfloat16*>(dx);
   g.part = static_cast<float*>(part);
-  g.b = b;
-  g.h = h;
-  g.w = w;
-  g.cin = cin;
-  g.cp = cp;
-  g.th = th;
-  g.tw = tw;
-  g.hc = tw + 2;
-  g.stages = stages;
-  g.nch = (cp + k6::kKc - 1) / k6::kKc;
-  g.ntn = (cin + bn - 1) / bn;
-  if (blocks % g.ntn != 0) return static_cast<int>(cudaErrorInvalidValue);
-  g.tiles_y = (h + th - 1) / th;
-  g.tiles_x = (w + tw - 1) / tw;
-  const int64_t tiles = static_cast<int64_t>(b) * g.tiles_y * g.tiles_x;
-  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  g.tiles = static_cast<int>(tiles);
-  // a group's box, and the rows past it that the last m64 instance's taps
-  // read (dropped positions), 128-byte aligned
-  const int mt = 64 * (bn <= 64 ? 4 : 2) * k6::kConsumers;  // the tile's M rows
-  int positions = (th + 2) * g.hc;
-  if (mt + 2 * g.hc + 2 > positions) positions = mt + 2 * g.hc + 2;
-  g.plane = (positions * 16 + 127) / 128 * 128;
-  g.abytes = 2 * g.plane;
-  g.wbytes = 9 * k6::kKc * bn * 2;
-  g.sbytes = (g.abytes + g.wbytes + 127) / 128 * 128;
-  // the TMA epilogue where x's rows and the tile's are whole 16-byte runs
-  const bool tma_epilogue = w % 8 == 0 && tw % 8 == 0;
-  g.xs_bytes = tma_epilogue ? (th * tw * bn * 2 + 127) / 128 * 128 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   CUtensorMap gmap, xmap, dxmap;
   err = tmak::nhwc_map(&gmap, gp, b, h, w, cp, g.hc, th + 2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tma_epilogue) {
-    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dx)) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (g.xs_bytes > 0) {
     err = tmak::nchw_map(&xmap, x, b, cin, h, w, tw, th, bn);
     if (err == cudaSuccess) err = tmak::nchw_map(&dxmap, dx, b, cin, h, w, tw, th, bn);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -789,15 +978,11 @@ extern "C" int im2im_dgrad3x3_wgmma(const void* gp, const void* weight, const vo
     xmap = gmap;  // not read
     dxmap = gmap;
   }
-  const int64_t total = static_cast<int64_t>(g.ntn) * g.nch * 9 * k6::kKc * bn;
-  k6::pack_weights_k6<<<conv3x3::grid_stride_blocks(total), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(weight), static_cast<__nv_bfloat16*>(wpack), cin, cout, bn,
-      g.nch, total);
-  err = cudaGetLastError();
+  err = k6::pack_weights(weight, wpack, cout, cin, bn, g, true, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* wp = static_cast<const __nv_bfloat16*>(wpack);
-  err = bn == 64 ? k6::launch<64>(gmap, xmap, dxmap, wp, g, blocks, prologue != 0, s)
-                 : k6::launch<128>(gmap, xmap, dxmap, wp, g, blocks, prologue != 0, s);
+  err = bn == 64 ? k6::launch_dgrad<64>(gmap, xmap, dxmap, wp, g, blocks, prologue != 0, s)
+                 : k6::launch_dgrad<128>(gmap, xmap, dxmap, wp, g, blocks, prologue != 0, s);
   if (err != cudaSuccess || !prologue) return static_cast<int>(err);
   return static_cast<int>(conv3x3::launch_reduce_rows(g.part, static_cast<float*>(red), 1,
                                                       blocks / g.ntn, 2LL * cin, s));

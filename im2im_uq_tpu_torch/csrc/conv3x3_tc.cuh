@@ -1,10 +1,9 @@
 // The shared core of the 3x3 same-padding convolution kernels, NCHW,
 // float32, for sm_90a: the implicit GEMM on the tensor cores that K3/K4
-// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate, its bf16 form for K3/K4
-// on bf16 tensors (gemm_bf16 and its packing kernels, at the end), and the
+// (conv3x3.cu) and K6 (dgrad3x3.cu) instantiate in float32, and the
 // prologue, the dtype helpers and the fixed-order cross-block sums that
-// K3-K6 share (K5, wgrad3x3.cu, takes affine_relu, round_as and
-// reduce_rows).
+// K3-K6 share in both dtypes (K5, wgrad3x3.cu, and the bf16 kernels,
+// conv3x3_bf16.cu, take affine_relu, round_as and reduce_rows).
 //
 // The GEMM. A block owns M = the pixels of a box of one image (at most 256,
 // flattened) x N = 32 channels, and walks K = 9 taps x the K channels in
@@ -63,7 +62,6 @@
 #include <type_traits>
 
 #include "mma_tf32.cuh"
-#include "wgmma_bf16.cuh"
 
 namespace conv3x3 {
 
@@ -434,261 +432,10 @@ __device__ __forceinline__ void gemm(const Geo& ge, float* smem, float (&acc)[kM
   tc::cp_async_wait<0>();
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 GEMM (K3/K4 on bf16 tensors): the same blocks, boxes and
-// fragments, K in chunks of 16 channels x 9 taps, one wgmma.m64n32k16 with
-// bf16 operands and float32 accumulation per tap and m64 instance where the
-// float32 GEMM issues three m64n32k8 in 3xTF32. Its inputs are packed
-// first (pack_operands): the activation as 32-bit words of channel pairs
-// (channel 2 p in the low half, 2 p + 1 in the high half; the prologue
-// already applied and rounded to bf16; 0 past the channels), so that a
-// word is an A register of the bf16 fragment and the box is staged with the
-// float32 GEMM's 4-byte copies, a pair per warp where that stages a channel
-// per warp; the weights as one contiguous run per (channel tile, chunk) in
-// the order the stage holds them, 9 taps x (32 n x 16 k) in wgmma's K-major
-// layout without swizzle, copied 16 bytes at a time. As in the float32
-// GEMM, a chunk's products accumulate in the tensor core, 9 k-steps of 16
-// deep, into a partial zeroed per chunk that is then added in float32.
-
-constexpr int kPairs = kKc;          // channel pairs per chunk: 16 channels
-static_assert(kPairs == kWarps, "the box is staged a pair per warp");
-constexpr int kTapWords = 256;       // a tap's 32 n x 16 k bf16 B tile
-constexpr int kChunkWords = 9 * kTapWords;
-
-// A stage: the box [pair][row][col] of words, then the chunk's B tiles; a
-// multiple of 4 words (plane = 8 mod 32).
-__host__ __device__ __forceinline__ int stage_words_bf16(int plane) {
-  return kPairs * plane + kChunkWords;
-}
-
-inline int smem_bytes_bf16(int plane) {
-  return kStages * stage_words_bf16(plane) * static_cast<int>(sizeof(uint32_t));
-}
-
-// Word of pair p = k / 2 for B[(k, t), n] of a (channel tile, chunk)'s run:
-// tap t's tile, core matrices of 8 n x 8 k (16 bytes a row), k groups 128
-// bytes apart, n groups 256 bytes apart.
-__host__ __device__ __forceinline__ int b_word(int t, int n_l, int p) {
-  return t * kTapWords + (n_l >> 3) * 64 + (p >> 2) * 32 + (n_l & 7) * 4 + (p & 3);
-}
-
-// bf16 x (b, cin, h, w) → (b, ceil(cin / 2), h, w) words of channel pairs,
-// channel 2 p in the low half; with kPrologue each value is relu(x * scale
-// + shift) in float32 rounded to bf16; 0 past the channels.
-template <bool kPrologue>
-__global__ void pack_pairs_kernel(const __nv_bfloat16* __restrict__ x,
-                                  const float* __restrict__ scale,
-                                  const float* __restrict__ shift, uint32_t* __restrict__ out,
-                                  int64_t words, int cin, int64_t hw) {
-  const int pairs = (cin + 1) / 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t px = i % hw, bp = i / hw;
-    const int k = 2 * static_cast<int>(bp % pairs);
-    const __nv_bfloat16* src = x + ((bp / pairs) * cin + k) * hw + px;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      v[e] = k + e < cin ? __bfloat162float(src[e * hw]) : 0.0f;
-      if (kPrologue && k + e < cin) v[e] = affine_relu(v[e], scale[k + e], shift[k + e]);
-    }
-    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);  // .x, the low half: v[0]
-    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
-  }
-}
-
-// A bf16 weight → for each (channel tile of kBn N channels, chunk of 16 K
-// channels) its run of kChunkWords words in the stage's order (b_word), 0
-// past the channels: B[(k, t), n] = weight[n][k][t] of a (N, K, 3, 3)
-// forward weight. (A template, so that every source including this header
-// may instantiate it.)
-template <int = 0>
-__global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ weight,
-                                    uint32_t* __restrict__ out, int64_t words, int kdim,
-                                    int ndim, int chunks) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const int64_t run = i / kChunkWords;
-    const int r = static_cast<int>(i - run * kChunkWords);
-    const int tile = static_cast<int>(run / chunks), chunk = static_cast<int>(run % chunks);
-    // invert b_word: r = t * 256 + ng * 64 + pg * 32 + n7 * 4 + p3
-    const int t = r / kTapWords, q = r % kTapWords;
-    const int n_l = (q >> 6) * 8 + ((q >> 2) & 7), p = ((q >> 5) & 1) * 4 + (q & 3);
-    const int n = tile * kBn + n_l, k = chunk * 2 * kPairs + 2 * p;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int64_t src = (static_cast<int64_t>(n) * kdim + k + e) * 9 + t;
-      v[e] = n < ndim && k + e < kdim ? __bfloat162float(weight[src]) : 0.0f;
-    }
-    const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
-    out[i] = *reinterpret_cast<const uint32_t*>(&pr);
-  }
-}
-
+// Blocks of 256 threads for a grid-stride loop over n elements.
 inline unsigned grid_stride_blocks(int64_t n) {
   const int64_t blocks = (n + 255) / 256;
   return static_cast<unsigned>(blocks < (1 << 20) ? blocks : (1 << 20));
-}
-
-// Words of the packed operands of a bf16 GEMM: the activation's pairs over K
-// channels, rounded up to 4 words so that the weights after them are
-// 16-byte aligned, then the weights of K x N channels.
-inline int64_t packed_x_words(int b, int kdim, int h, int w) {
-  return (static_cast<int64_t>(b) * ((kdim + 1) / 2) * h * w + 3) & ~int64_t{3};
-}
-inline int64_t packed_w_words(int kdim, int ndim) {
-  return static_cast<int64_t>((ndim + kBn - 1) / kBn) * ((kdim + 2 * kPairs - 1) / (2 * kPairs)) *
-         kChunkWords;
-}
-
-// Pack a bf16 GEMM's operands into `packed` (packed_x_words(b, kdim, ...) +
-// packed_w_words(kdim, ndim) words): `in` (b, kdim, h, w) as pair words (the
-// prologue applied with kPrologue), the weight in the stage's order.
-template <bool kPrologue>
-cudaError_t pack_operands(const __nv_bfloat16* in, const __nv_bfloat16* weight,
-                          const float* scale, const float* shift, uint32_t* packed, int b,
-                          int kdim, int ndim, int h, int w, cudaStream_t s) {
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t xw = static_cast<int64_t>(b) * ((kdim + 1) / 2) * hw;
-  const int64_t ww = packed_w_words(kdim, ndim);
-  pack_pairs_kernel<kPrologue><<<grid_stride_blocks(xw), 256, 0, s>>>(in, scale, shift, packed,
-                                                                       xw, kdim, hw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  pack_weights_kernel<><<<grid_stride_blocks(ww), 256, 0, s>>>(
-      weight, packed + packed_x_words(b, kdim, h, w), ww, kdim, ndim,
-      (kdim + 2 * kPairs - 1) / (2 * kPairs));
-  return cudaGetLastError();
-}
-
-struct GeoBf16 {
-  const uint32_t* in;   // (B, pairs, h, w) words
-  const uint32_t* wpk;  // (ntn, chunks, kChunkWords) words
-  int pairs, chunks, h, w, th, tw, plane, tile, b, y0, x0;
-};
-
-__device__ __forceinline__ GeoBf16 geo_bf16(const Grid& g, const Place& at, const uint32_t* in,
-                                            const uint32_t* wpk, int pairs) {
-  return {in,  wpk,      pairs,         (pairs + kPairs - 1) / kPairs, g.h, g.w, g.box.th,
-          g.box.tw, g.plane, at.n0 / kBn, at.b, at.y0, at.x0};
-}
-
-// Start the copies of chunk `chunk` into one stage: the box of pairs 8
-// chunk .. 8 chunk + 7, a pair per warp (0 outside the image and past the
-// pairs), and the chunk's B tiles.
-__device__ __forceinline__ void stage_chunk_bf16(int chunk, const GeoBf16& ge, uint32_t* st) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t hw = static_cast<int64_t>(ge.h) * ge.w;
-  const int rs = ge.tw + 2;
-  const int hp = (ge.th + 2) * rs;
-  const float inv_rs = 1.0f / rs;
-  const int p = chunk * kPairs + warp;
-  const uint32_t* src = ge.in + (static_cast<int64_t>(ge.b) * ge.pairs + p) * hw;
-  for (int e = lane; e < hp; e += 32) {
-    const int rr = __float2int_rz((e + 0.5f) * inv_rs);
-    const int y = ge.y0 - 1 + rr, xx = ge.x0 - 1 + e - rr * rs;
-    const bool ok = p < ge.pairs && y >= 0 && y < ge.h && xx >= 0 && xx < ge.w;
-    tc::cp_async4(reinterpret_cast<float*>(st + warp * ge.plane + e),
-                  reinterpret_cast<const float*>(ok ? src + y * ge.w + xx : ge.in), ok);
-  }
-  const uint32_t* wsrc = ge.wpk + (static_cast<int64_t>(ge.tile) * ge.chunks + chunk) * kChunkWords;
-  uint32_t* wdst = st + kPairs * ge.plane;
-  for (int i = threadIdx.x; i < kChunkWords / 4; i += kThreads)
-    tc::cp_async16(reinterpret_cast<float*>(wdst + 4 * i),
-                   reinterpret_cast<const float*>(wsrc + 4 * i), true);
-}
-
-// acc[i][j][r] as gemm() gives it, from bf16 operands. smem:
-// smem_bytes_bf16(plane).
-__device__ __forceinline__ void gemm_bf16(const GeoBf16& ge, uint32_t* smem,
-                                          float (&acc)[kMt][kNt][4]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int rs = ge.tw + 2;
-  const int npx = ge.th * ge.tw;
-  const int plane = ge.plane;
-  const int sw = stage_words_bf16(plane);
-
-  // the lane's pixel rows: offsets in the staged box (0 past the box), in
-  // the plane of pair tig
-  int pix[kMt][2];
-#pragma unroll
-  for (int i = 0; i < kMt; ++i)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int p = pixel(warp, i, gid, u);
-      pix[i][u] = p < npx ? (p / ge.tw) * rs + p % ge.tw + tig * plane : tig * plane;
-    }
-
-#pragma unroll
-  for (int i = 0; i < kMt; ++i)
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
-
-  const int nch = ge.chunks;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nch) stage_chunk_bf16(s, ge, smem + s * sw);
-    tc::cp_async_commit();
-  }
-  for (int it = 0; it < nch; ++it) {
-    const uint32_t* st = smem + (it % kStages) * sw;
-    tc::cp_async_wait<kStages - 2>();
-    tc::fence_proxy_async();  // the landed B tiles, for wgmma's reads
-    __syncthreads();  // chunk it is staged; the stage of chunk it - 1 is free
-    const int nxt = it + kStages - 1;
-    if (nxt < nch) stage_chunk_bf16(nxt, ge, smem + (nxt % kStages) * sw);
-    tc::cp_async_commit();
-    float pt[kMt][4 * kNt];
-#pragma unroll
-    for (int i = 0; i < kMt; ++i)
-#pragma unroll
-      for (int r = 0; r < 4 * kNt; ++r) pt[i][r] = 0.0f;
-    // A of k-steps t and t + 1 in two register buffers, as in gemm()
-    uint32_t a[2][kMt][4];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int buf = t & 1;
-      if (t >= 2) {
-        tc::wgmma_wait<1>();
-#pragma unroll
-        for (int i = 0; i < kMt; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) tc::keep(a[buf][i][q]);
-      }
-      const uint32_t* ap = st + (t / 3) * rs + t % 3;
-#pragma unroll
-      for (int i = 0; i < kMt; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[buf][i][q] = ap[(q >> 1) * 4 * plane + pix[i][q & 1]];
-      tc::wgmma_fence();
-      const uint64_t db = tc::wgmma_desc(st + kPairs * plane + t * kTapWords, kLbo, kSbo);
-#pragma unroll
-      for (int i = 0; i < kMt; ++i) tc::wgmma_m64n32k16_rs(pt[i], a[buf][i], db);
-      tc::wgmma_commit();
-    }
-    tc::wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < kMt; ++i) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        tc::keep(a[0][i][q]);
-        tc::keep(a[1][i][q]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4 * kNt; ++r) {
-        tc::keep(pt[i][r]);
-        acc[i][r >> 2][r & 3] += pt[i][r];
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
 }
 
 }  // namespace conv3x3

@@ -1,5 +1,5 @@
 // K6: the input gradient of K4, NCHW, float32, for sm_90a (its bfloat16
-// instance is conv3x3_bwd_bf16.cu's).
+// instance is conv3x3_bf16.cu's).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `dgrad3x3_pallas_raw` (`_dgrad_kernel`).

@@ -1,5 +1,5 @@
 // TMA and mbarrier helpers for the wgmma kernels fed by TMA, for
-// sm_90a: K5 and K6 in bf16 (conv3x3_bwd_bf16.cu) and P2-P5's bf16 path
+// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu) and P2-P5's bf16 path
 // (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime, so the library
 // links no -lcuda.

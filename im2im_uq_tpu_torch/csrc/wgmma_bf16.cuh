@@ -1,9 +1,7 @@
 // wgmma.m64nNk16 with bfloat16 operands and float32 accumulation, for
 // sm_90a. WgmmaBf16<N>: A and B both from shared memory through descriptors
 // (no transpose: both K-major), the N widths that the NHWC probe conv
-// (conv3x3_nhwc.cu) and K6 in bf16 (conv3x3_bwd_bf16.cu) instantiate.
-// wgmma_m64n32k16_rs: A from registers, B from shared memory (K-major), the
-// product of the NCHW conv's bf16 GEMM (conv3x3_tc.cuh);
+// (conv3x3_nhwc.cu) and K3, K4 and K6 in bf16 (conv3x3_bf16.cu) instantiate.
 // wgmma_m64n64k16_ss_tt: A and B from shared memory, both MN-major (the
 // transpose immediates set: M and N contiguous), K5's in bf16. d holds the
 // thread's N / 2 accumulators in the layout of mma.m16n8k8's C per warp and
@@ -119,24 +117,6 @@ struct WgmmaBf16<128> {
       : "l"(da), "l"(db), "r"(scale_d));
   }
 };
-
-// d += a * b, m64n32k16, A from registers: per warp the fragment layout of
-// mma.m16n8k16's A (bf16 pairs), rows 16 w .. 16 w + 15 of the m64 tile for
-// warp w of the warpgroup: a[0] (row gid, k 2 tig, 2 tig + 1), a[1] (row
-// gid + 8, the same k), a[2] (row gid, k 2 tig + 8, + 9), a[3] (row gid + 8,
-// k 2 tig + 8, + 9), the lower k in the low half of each register.
-__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
-                                                   uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
-}
 
 // d += a * b, m64n64k16, A and B both from shared memory and both
 // MN-major (both transpose immediates set), through descriptors

@@ -1,5 +1,5 @@
 // K5: the weight and bias gradients of K4, NCHW, float32, for sm_90a (its
-// bfloat16 instance is conv3x3_bwd_bf16.cu's).
+// bfloat16 instance is conv3x3_bf16.cu's).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `wgrad3x3_pallas_raw` (`_wgrad_kernel`).

@@ -15,14 +15,19 @@ Counterpart of ``im2im_uq_tpu/ops/pallas_conv.py``:
 
 Layout NCHW, weights in ``nn.Conv2d``'s (Cout, Cin, 3, 3). On a CUDA tensor
 the forward wrappers :func:`conv3x3_fwd` and :func:`conv3x3_bn_act_fwd`
-launch the kernels of ``csrc/conv3x3.cu``; on a CPU tensor they run
-:func:`conv3x3_plain` and :func:`conv3x3_bn_act_plain`; any other device
-raises. x, weight, bias and y are float32 or bfloat16 (the TPU kernels'
-dtypes), scale, shift and the stats float32. A bf16 instance counts its
-launches apart, on ``conv3x3.bf16`` and ``conv3x3_bn_act.bf16``. K4's
-backward (K5, K6) runs in both dtypes. The JAX package's channel padding to
-128 lanes, its row tiles and its XLA fallbacks for ineligible shapes have no
-counterpart: the kernels take every shape.
+launch the kernels of ``csrc/conv3x3.cu`` (float32, and the Cin = 1 stem
+in bf16) or, in bf16 beyond the stem, the activation pass
+(``conv_bwd.activation_nhwc``: x NHWC, the prologue applied and rounded to
+bf16) and then the forward instance of K6's kernel body
+(``csrc/conv3x3_bf16.cu``, planned by ``conv_bwd.conv_plan``); on a CPU
+tensor they run :func:`conv3x3_plain` and :func:`conv3x3_bn_act_plain`;
+any other device raises. x, weight, bias and y are float32 or bfloat16
+(the TPU kernels' dtypes), scale, shift and the stats float32. A bf16
+instance counts its launches apart, on ``conv3x3.bf16`` and
+``conv3x3_bn_act.bf16``. K4's backward (K5, K6) runs in both dtypes. The
+JAX package's channel padding to 128 lanes, its row tiles and its XLA
+fallbacks for ineligible shapes have no counterpart: the kernels take
+every shape.
 """
 
 from __future__ import annotations
@@ -117,9 +122,11 @@ def _check_dtypes(kernel: str, x, weight, bias, scale, shift, prologue: bool) ->
 
 def _launch(wrapper, x, weight, bias, scale, shift, prologue: bool,
             st: Optional[torch.Tensor]) -> torch.Tensor:
-    """One launch of ``im2im_conv3x3_fused``, counted on ``wrapper`` (on
-    ``wrapper.bf16`` for a bf16 input); the stats go to ``st`` unless it is
-    None. K3 is its instance with neither the prologue nor the stats."""
+    """One launch of K3/K4, counted on ``wrapper`` (on ``wrapper.bf16`` for a
+    bf16 input); the stats go to ``st`` unless it is None. K3 is the call
+    with neither the prologue nor the stats. ``im2im_conv3x3_fused`` runs
+    float32 and the bf16 stem (Cin = 1); ``im2im_conv3x3_wgmma`` every other
+    bf16 shape, after the activation pass."""
     name = wrapper.__name__
     _check_dtypes(name, x, weight, bias, scale, shift, prologue)
     b, cin, cout, h, w = _check_conv(name, x, weight, bias)
@@ -128,21 +135,29 @@ def _launch(wrapper, x, weight, bias, scale, shift, prologue: bool,
     y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _build.library()
-    scratch = (torch.empty((lib.im2im_conv3x3_scratch(b, cout, h, w),), dtype=torch.float32,
-                           device=x.device) if st is not None else None)
+    lib, dev, stream = _build.library(), x.device.index, conv_bwd.stream_of(x)
+    bias_ptr = bias.data_ptr() if bias is not None else None
+    st_ptr = st.data_ptr() if st is not None else None
     bf16 = x.dtype == torch.bfloat16
-    packed = (torch.empty((lib.im2im_conv3x3_packed_words(b, cin, cout, h, w),),
-                          dtype=torch.int32, device=x.device) if bf16 else None)
-    err = lib.im2im_conv3x3_fused(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
-        scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
-        y.data_ptr(), scratch.data_ptr() if st is not None else None,
-        st.data_ptr() if st is not None else None,
-        packed.data_ptr() if packed is not None and packed.numel() else None,
-        b, cin, cout, h, w, int(prologue), int(st is not None), conv_bwd.KERNEL_DTYPES[x.dtype],
-        x.device.index, conv_bwd.stream_of(x),
-    )
+    if bf16 and cin > 1:
+        xp = conv_bwd.activation_nhwc(x, scale, shift, prologue)
+        plan = conv_bwd.conv_plan(b, cin, cout, h, w, conv_bwd.sm_count(dev))
+        wpack = torch.empty((plan.wpack_elems,), dtype=torch.bfloat16, device=x.device)
+        part = (torch.empty((plan.tiles * 2 * cout,), dtype=torch.float32, device=x.device)
+                if st is not None else None)
+        err = lib.im2im_conv3x3_wgmma(
+            xp.data_ptr(), weight.data_ptr(), bias_ptr, y.data_ptr(), wpack.data_ptr(),
+            part.data_ptr() if part is not None else None, st_ptr, b, cin, xp.shape[3], cout,
+            h, w, plan.bn, plan.th, plan.tw, plan.stages, plan.blocks, dev, stream)
+    else:
+        scratch = (torch.empty((lib.im2im_conv3x3_scratch(b, cout, h, w),), dtype=torch.float32,
+                               device=x.device) if st is not None else None)
+        err = lib.im2im_conv3x3_fused(
+            x.data_ptr(), weight.data_ptr(), bias_ptr,
+            scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
+            y.data_ptr(), scratch.data_ptr() if st is not None else None, st_ptr,
+            b, cin, cout, h, w, int(prologue), int(st is not None),
+            conv_bwd.KERNEL_DTYPES[x.dtype], dev, stream)
     (wrapper.bf16 if bf16 else wrapper).launches += 1
     _build.check(err, name)
     return y

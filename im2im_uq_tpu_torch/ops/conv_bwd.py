@@ -26,12 +26,15 @@ In bf16 both kernels read one cotangent, as the JAX package's read its one
 padded cotangent (``pallas_conv.py:371-376, 424-427``):
 :func:`cotangent_nhwc` writes it once, NHWC with the channels padded to a
 multiple of 8 (:func:`padded_channels`), the stats' terms added when given;
-:func:`wgrad3x3_nhwc` (K5, which writes its activation NHWC first and sums
-db as it reads g) and :func:`dgrad3x3_nhwc` (K6) read it through TMA into
-``wgmma`` (``csrc/conv3x3_bwd_bf16.cu``), planned by :func:`wgrad_plan` and
-:func:`dgrad_plan`. :func:`wgrad3x3` and :func:`dgrad3x3` on bf16 CUDA
-tensors run the cotangent pass on their ``g`` and then the same kernels.
-The pass counts its launches on ``cotangent_nhwc``.
+:func:`wgrad3x3_nhwc` (K5, which writes its activation NHWC first with
+:func:`activation_nhwc` and sums db as it reads g) and :func:`dgrad3x3_nhwc`
+(K6) read it through TMA into ``wgmma`` (``csrc/conv3x3_bf16.cu``),
+planned by :func:`wgrad_plan` and :func:`dgrad_plan`. :func:`wgrad3x3` and
+:func:`dgrad3x3` on bf16 CUDA tensors run the cotangent pass on their ``g``
+and then the same kernels. The passes count their launches on
+``cotangent_nhwc`` and ``activation_nhwc``. The bf16 K3/K4
+(``ops/conv.py``) run on K6's kernel body over :func:`activation_nhwc`'s
+copy of x, planned by :func:`conv_plan`.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ import torch.nn.functional as F
 from im2im_uq_tpu_torch import _build
 
 __all__ = [
-    "DgradPlan", "WgradPlan", "cotangent_nhwc", "cotangent_plain", "dgrad3x3", "dgrad3x3_nhwc",
-    "dgrad3x3_nhwc_plain", "dgrad3x3_plain", "dgrad_plan", "from_nhwc", "padded_channels",
+    "TilePlan", "WgradPlan", "activation_nhwc", "activation_plain", "conv_plan", "cotangent_nhwc",
+    "cotangent_plain", "dgrad3x3", "dgrad3x3_nhwc", "dgrad3x3_nhwc_plain", "dgrad3x3_plain",
+    "dgrad_plan", "from_nhwc", "padded_channels",
     "stem_slices", "to_nhwc", "wgrad3x3", "wgrad3x3_nhwc", "wgrad3x3_nhwc_plain",
     "wgrad3x3_plain", "wgrad_plan",
 ]
@@ -149,6 +153,16 @@ def from_nhwc(t: torch.Tensor, c: int) -> torch.Tensor:
     return t[..., :c].permute(0, 3, 1, 2).contiguous()
 
 
+def activation_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                     shift: Optional[torch.Tensor], prologue: bool) -> torch.Tensor:
+    """The activation pass's plain version → NHWC: with the prologue
+    relu(f32(x)·scale + shift) rounded to x's dtype (the product and the sum
+    each rounded, as the TPU kernel's bf16 operand, ``pallas_conv.py:153-160``),
+    else x; then the layout change (:func:`to_nhwc`)."""
+    a = prologue_activation(widened(x), scale, shift, prologue).to(x.dtype)
+    return to_nhwc(a)
+
+
 def cotangent_plain(gy: torch.Tensor, y: Optional[torch.Tensor],
                     gst: Optional[torch.Tensor]) -> torch.Tensor:
     """The cotangent pass's plain version → g NHWC.
@@ -164,12 +178,14 @@ def cotangent_plain(gy: torch.Tensor, y: Optional[torch.Tensor],
 
 
 @dataclasses.dataclass(frozen=True)
-class DgradPlan:
-    """K6 in bf16 at one shape: N slices of ``bn`` channels, output tiles of
-    ``th`` x ``tw`` pixels, a ring of ``stages`` chunks, ``blocks``
-    persistent blocks (``per_slice`` of each slice); bytes of a group's box
-    (``plane``), a stage, the x / dx tile of the TMA epilogue (0 where the
-    epilogue loads and stores itself) and the block's shared memory."""
+class TilePlan:
+    """K6, or K3/K4, in bf16 at one shape (the kernel body ``k6::run`` of
+    ``csrc/conv3x3_bf16.cu``): N slices of ``bn`` channels, output tiles of
+    ``th`` x ``tw`` pixels, a ring of ``stages`` chunks of 16 K channels,
+    ``blocks`` persistent blocks (``per_slice`` of each slice); bytes of a
+    group's box (``plane``), a stage, the output tile of the TMA epilogue
+    (K6: x, then dx; K3/K4: y; 0 where the epilogue stores itself) and the
+    block's shared memory."""
 
     bn: int
     th: int
@@ -194,20 +210,19 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-@functools.lru_cache(maxsize=256)
-def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> DgradPlan:
-    """The plan of K6 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k6).
-
-    N = Cin in slices of 64 (Cin ≤ 64) or 128; a tile's M rows are 512 or
-    256 flattened box positions (two warpgroups of 4 or 2 m64 instances).
-    Of the column splits whose haloed box is at most 256 wide, the tile
-    (th rows x tw columns, th the most rows whose positions fit M) that
-    computes the fewest M rows in all (its width a multiple of 8 where W
-    is). Where W and the tile's width are multiples of 8, x and dx pass
-    through shared memory by TMA (the TMA epilogue, ``xs_bytes``). Chunks of
-    16 cotangent channels; as many stages as fit, up to 4; one persistent
-    block per SM, the slices side by side."""
-    bn = 64 if cin <= 64 else 128
+def _tile_plan(b: int, kdim: int, ndim: int, h: int, w: int, sms: int,
+               sum_buffers: int) -> TilePlan:
+    """N = ``ndim`` channels in slices of 64 (N ≤ 64) or 128; a tile's M rows
+    are 512 or 256 flattened box positions (two warpgroups of 4 or 2 m64
+    instances). Of the column splits whose haloed box is at most 256 wide,
+    the tile (th rows x tw columns, th the most rows whose positions fit M)
+    that computes the fewest M rows in all (its width a multiple of 8 where
+    W is). Where W and the tile's width are multiples of 8, the output
+    passes through shared memory by TMA (the TMA epilogue, ``xs_bytes``).
+    Chunks of 16 of the ``kdim`` K channels; as many stages as fit beside
+    ``sum_buffers`` [warp][N][2] float buffers of sums, up to 4; one
+    persistent block per SM, the slices side by side."""
+    bn = 64 if ndim <= 64 else 128
     mt = 64 * (4 if bn == 64 else 2) * 2
     best = None
     for nx in range(1, w + 1):
@@ -223,14 +238,30 @@ def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> D
     plane = _round_up(max((th + 2) * hc, mt + 2 * hc + 2) * 16, 128)
     stage = _round_up(2 * plane + 9 * 16 * bn * 2, 128)
     xs = _round_up(th * tw * bn * 2, 128) if w % 8 == 0 and tw % 8 == 0 else 0
-    fixed = 8 * bn * 2 * 4 + xs + 16
+    fixed = sum_buffers * 8 * bn * 2 * 4 + xs + 16
     stages = min(4, (SMEM_BYTES - fixed) // (stage + 16))
-    ntn = -(-cin // bn)
+    ntn = -(-ndim // bn)
     per_slice = max(1, min(tiles, sms // ntn))
-    return DgradPlan(bn=bn, th=th, tw=tw, stages=stages, ntn=ntn, per_slice=per_slice,
-                     blocks=per_slice * ntn, tiles=tiles, chunks=-(-padded_channels(cout) // 16),
-                     plane=plane, stage_bytes=stage, xs_bytes=xs,
-                     smem=stages * stage + 16 * stages + fixed)
+    return TilePlan(bn=bn, th=th, tw=tw, stages=stages, ntn=ntn, per_slice=per_slice,
+                    blocks=per_slice * ntn, tiles=tiles, chunks=-(-padded_channels(kdim) // 16),
+                    plane=plane, stage_bytes=stage, xs_bytes=xs,
+                    smem=stages * stage + 16 * stages + fixed)
+
+
+@functools.lru_cache(maxsize=256)
+def dgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> TilePlan:
+    """The plan of K6 in bf16 (``csrc/conv3x3_bf16.cu``, ``k6::dgrad_kernel``):
+    N = Cin, K = Cout (the cotangent's channels), one buffer of each warp's
+    running reductions (:func:`_tile_plan`)."""
+    return _tile_plan(b, cout, cin, h, w, sms, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> TilePlan:
+    """The plan of K3/K4 in bf16 (``csrc/conv3x3_bf16.cu``,
+    ``k6::conv3x3_fwd_wgmma_kernel``): N = Cout, K = Cin (the NHWC copy's
+    channels), two buffers of a tile's stats (:func:`_tile_plan`)."""
+    return _tile_plan(b, cin, cout, h, w, sms, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,7 +295,7 @@ def _waves_filled(blocks: int, sms: int) -> float:
 
 @functools.lru_cache(maxsize=256)
 def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> WgradPlan:
-    """The plan of K5 in bf16 (``csrc/conv3x3_bwd_bf16.cu``, namespace k5).
+    """The plan of K5 in bf16 (``csrc/conv3x3_bf16.cu``, namespace k5).
 
     Tiles of th x tw pixels, tw a multiple of 8 up to 248 and th·tw a
     multiple of 16 up to 256 (k-steps of 16 pixels): the tile that computes
@@ -315,7 +346,8 @@ def stem_slices(npx: int, sms: int = SMS) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=8)
-def _sms(index: int) -> int:
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which the plans fill."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -372,6 +404,29 @@ def _launch_cotangent(gy, y, gst):
     return out
 
 
+def _launch_activation(x, scale, shift, prologue: bool):
+    kernel = "activation_nhwc"
+    if x.dtype != torch.bfloat16 or x.ndim != 4:
+        raise TypeError(f"{kernel} kernel takes a bf16 NCHW input, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    check_tensors(kernel, x.device, torch.bfloat16, x=x)
+    check_tensors(kernel, x.device, scale=scale if prologue else None,
+                  shift=shift if prologue else None)
+    b, c, h, w = x.shape
+    if prologue:
+        check_prologue(kernel, scale, shift, c)
+    out = torch.empty((b, h, w, padded_channels(c)), dtype=torch.bfloat16, device=x.device)
+    if x.numel() == 0:
+        return out.zero_()
+    sc, sh = (scale.data_ptr(), shift.data_ptr()) if prologue else (None, None)
+    err = _build.library().im2im_nhwc_pass(x.data_ptr(), None, None, sc, sh, out.data_ptr(), b, c,
+                                           padded_channels(c), h, w, 0, x.device.index,
+                                           stream_of(x))
+    activation_nhwc.launches += 1
+    _build.check(err, kernel)
+    return out
+
+
 def wgrad3x3_nhwc_plain(x, gp, cout: int, scale, shift, prologue: bool):
     """:func:`wgrad3x3_nhwc`'s plain version: :func:`wgrad3x3_plain` of the
     NCHW cotangent."""
@@ -407,24 +462,20 @@ def _launch_wgrad_nhwc(x, gp, cout: int, scale, shift, prologue: bool):
     lib, dev, stream = _build.library(), x.device.index, stream_of(x)
     sc, sh = (scale.data_ptr(), shift.data_ptr()) if prologue else (None, None)
     if cin == 1:
-        per_slice, slices = stem_slices(b * h * w, _sms(dev))
+        per_slice, slices = stem_slices(b * h * w, sm_count(dev))
         part = torch.empty((slices * cout * 10,), dtype=torch.float32, device=x.device)
         err = lib.im2im_wgrad3x3_stem(x.data_ptr(), gp.data_ptr(), sc, sh, part.data_ptr(),
                                       dw.data_ptr(), db.data_ptr(), b, cout, gp.shape[3], h, w,
                                       int(prologue), per_slice, slices, dev, stream)
     else:
-        plan = wgrad_plan(b, cin, cout, h, w, _sms(dev))
-        cpi = padded_channels(cin)
-        act = torch.empty((b, h, w, cpi), dtype=torch.bfloat16, device=x.device)
-        err = lib.im2im_nhwc_pass(x.data_ptr(), None, None, sc, sh, act.data_ptr(), b, cin, cpi,
-                                  h, w, 0, dev, stream)
-        if err == 0:
-            part = torch.empty((plan.slices * cout * (cin * 9 + 4),), dtype=torch.float32,
-                               device=x.device)
-            err = lib.im2im_wgrad3x3_wgmma(act.data_ptr(), gp.data_ptr(), part.data_ptr(),
-                                           dw.data_ptr(), db.data_ptr(), b, cin, cpi, cout,
-                                           gp.shape[3], h, w, plan.th, plan.tw, plan.stages,
-                                           plan.per_slice, plan.slices, dev, stream)
+        plan = wgrad_plan(b, cin, cout, h, w, sm_count(dev))
+        act = _launch_activation(x, scale, shift, prologue)
+        part = torch.empty((plan.slices * cout * (cin * 9 + 4),), dtype=torch.float32,
+                           device=x.device)
+        err = lib.im2im_wgrad3x3_wgmma(act.data_ptr(), gp.data_ptr(), part.data_ptr(),
+                                       dw.data_ptr(), db.data_ptr(), b, cin, act.shape[3], cout,
+                                       gp.shape[3], h, w, plan.th, plan.tw, plan.stages,
+                                       plan.per_slice, plan.slices, dev, stream)
     wgrad3x3.bf16.launches += 1
     _build.check(err, kernel)
     return dw, db
@@ -449,7 +500,7 @@ def _launch_dgrad_nhwc(gp, x, weight, scale, shift, prologue: bool):
     if cout == 0:
         return dx.zero_(), red
     dev = x.device.index
-    plan = dgrad_plan(b, cin, cout, h, w, _sms(dev))
+    plan = dgrad_plan(b, cin, cout, h, w, sm_count(dev))
     wpack = torch.empty((plan.wpack_elems,), dtype=torch.bfloat16, device=x.device)
     part = torch.empty((plan.per_slice * 2 * cin,), dtype=torch.float32, device=x.device)
     err = _build.library().im2im_dgrad3x3_wgmma(
@@ -579,6 +630,20 @@ def cotangent_nhwc(gy: torch.Tensor, y: Optional[torch.Tensor],
     raise RuntimeError(f"cotangent_nhwc runs on cuda or cpu tensors, not {gy.device}")
 
 
+def activation_nhwc(x: torch.Tensor, scale: Optional[torch.Tensor],
+                    shift: Optional[torch.Tensor], prologue: bool) -> torch.Tensor:
+    """The activation that the bf16 K3/K4 and K5 read, (B, H, W,
+    padded_channels(C)) bf16: bf16(relu(f32(x)·scale + shift)) with the
+    prologue, else x (:func:`activation_plain`). The kernel
+    (``im2im_nhwc_pass`` mode 0) on a CUDA tensor (bf16 only), the plain
+    version on a CPU tensor; any other device raises."""
+    if x.device.type == "cuda":
+        return _launch_activation(x, scale, shift, prologue)
+    if x.device.type == "cpu":
+        return activation_plain(x, scale, shift, prologue)
+    raise RuntimeError(f"activation_nhwc runs on cuda or cpu tensors, not {x.device}")
+
+
 def wgrad3x3_nhwc(
     x: torch.Tensor, gp: torch.Tensor, cout: int, scale: Optional[torch.Tensor],
     shift: Optional[torch.Tensor], prologue: bool,
@@ -615,3 +680,4 @@ dgrad3x3.launches = 0  # K6 kernel launches since the last reset (f32)
 wgrad3x3.bf16 = types.SimpleNamespace(launches=0)
 dgrad3x3.bf16 = types.SimpleNamespace(launches=0)
 cotangent_nhwc.launches = 0  # launches of the bf16 cotangent pass
+activation_nhwc.launches = 0  # launches of the bf16 activation pass

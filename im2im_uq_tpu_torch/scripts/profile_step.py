@@ -36,16 +36,17 @@ CASES = [(backend, dtype) for dtype in ("float32", "bfloat16") for backend in CO
 # (bucket, substrings of the kernel name), first match wins: the port's
 # kernels first, since their names contain "conv" too
 _BUCKETS = [
-    ("K3/K4 conv3x3 (port)", ("conv3x3_fwd",)),  # the stem too
+    # f32: conv3x3_fwd_kernel; bf16: conv3x3_fwd_wgmma_kernel (K6's body with
+    # the forward's epilogue); the stem, conv3x3_fwd_stem_kernel
+    ("K3/K4 conv3x3 (port)", ("conv3x3_fwd",)),
     # f32: wgrad3x3_tc_kernel; bf16: k5::wgrad_kernel and its stem (demangled
     # or mangled names)
     ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel", "k5::wgrad", "2k512wgrad_kernel",
                             "2k517wgrad_stem_kernel")),
     ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel", "k6::dgrad_kernel", "2k612dgrad_kernel")),
-    # the bf16 GEMMs' operands: K3/K4's pair words and packed weights, the
-    # NHWC cotangent and activation passes, K6's packed weights
-    ("bf16 packing (port)", ("pack_pairs_kernel", "pack_weights_kernel", "nhwc_kernel",
-                             "pack_weights_k6")),
+    # the bf16 GEMMs' operands: the NHWC activation (K3/K4's and K5's) and
+    # cotangent passes, the packed weights of K3/K4 and K6
+    ("bf16 packing (port)", ("nhwc_kernel", "pack_weights_k6")),
     ("fixed-order partial sums (port)", ("reduce_rows",)),
     ("K1f upsample (port)", ("upsample2x_kernel", "upsample2x_bf16_kernel")),
     ("K1b upsample backward (port)", ("upsample2x_bwd_kernel",)),

@@ -616,8 +616,12 @@ def test_profile_step_profiles_each_backend_in_bf16_and_buckets_its_kernels():
                                 "true>(...)") == "K6 dgrad3x3 (port)")
     assert (profile_step.bucket("void (anonymous namespace)::upsample2x_bf16_kernel(...)")
             == "K1f upsample (port)")
-    for name in ("void conv3x3::pack_pairs_kernel<true>(...)",
-                 "void conv3x3::pack_weights_kernel<0>(...)",
+    for name in ("void (anonymous namespace)::k6::conv3x3_fwd_wgmma_kernel<128, true, "
+                 "true>(...)",
+                 "_ZN48_GLOBAL__N__31468701_15_conv3x3_bf16_cu_bc4e87552k624conv3x3_fwd_wgmma_"
+                 "kernelILi64ELb0ELb1EEEv14CUtensorMap_stS2_PK13__nv_bfloat16NS0_3GeoE"):
+        assert profile_step.bucket(name) == "K3/K4 conv3x3 (port)", name
+    for name in ("void (anonymous namespace)::nhwc_kernel<0>(...)",
                  "void (anonymous namespace)::nhwc_kernel<1>(...)",
                  "void (anonymous namespace)::k6::pack_weights_k6(...)"):
         assert profile_step.bucket(name) == "bf16 packing (port)", name

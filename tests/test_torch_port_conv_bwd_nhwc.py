@@ -1,7 +1,7 @@
 """K5 and K6 in bf16 on ``wgmma`` over one NHWC cotangent: the cotangent
 pass's plain version, the layout and the kernels' plans, on the CPU.
 
-``csrc/conv3x3_bwd_bf16.cu`` runs only on the card. What decides and
+``csrc/conv3x3_bf16.cu`` runs only on the card. What decides and
 addresses it is checked here:
 
 - ``conv_bwd.cotangent_plain`` against the JAX package's g_tot expression
