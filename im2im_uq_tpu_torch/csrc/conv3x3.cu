@@ -254,13 +254,12 @@ extern "C" long long im2im_conv3x3_scratch(int b, int cout, int h, int w) {
 }
 
 // K3 and K4. x (b, cin, h, w), weight (cout, cin, 3, 3), bias (cout) or
-// null, y (b, cout, h, w): dtype 0 float32, 1 bfloat16 (the stem, cin = 1,
-// only), contiguous; scale,
-// shift (cin) float32 feed the prologue, read when prologue != 0; with
-// with_stats != 0, part (im2im_conv3x3_scratch floats) and stats (b, 2,
-// cout) float32 are written: stats[i][0] = sum of y[i], stats[i][1] = sum of
-// y[i]^2 per channel, over the stored values. K3 is the call with neither.
-// Returns a cudaError_t value.
+// null, y (b, cout, h, w): dtype 0 float32, 1 bfloat16 (cin = 1 only, the
+// stem), contiguous; scale, shift (cin) float32 feed the prologue, read
+// when prologue != 0; with with_stats != 0, part (im2im_conv3x3_scratch
+// floats) and stats (b, 2, cout) float32 are written: stats[i][0] = sum of
+// y[i], stats[i][1] = sum of y[i]^2 per channel, over the stored values. K3
+// is the call with neither. Returns a cudaError_t value.
 extern "C" int im2im_conv3x3_fused(const void* x, const void* weight, const void* bias,
                                    const void* scale, const void* shift, void* y, void* part,
                                    void* stats, int b, int cin, int cout, int h,
