@@ -1050,55 +1050,108 @@ def phase_conv_kernels_bf16() -> dict:
     return results
 
 
+def activation_sites() -> dict:
+    """The activation pass's launches in each bf16 main path at batch 32,
+    320x320 → {path: Counter of ((B, C, H, W), prologue)}: one for each K3
+    or K4 call beyond the stem (``bf16_conv_sites``; K4's prologue applied)
+    in the ``pallas`` train step's forward (``pallas``) and the
+    ``pallas_fused`` eval forward (``pallas_fused_eval``); the
+    ``pallas_fused`` train step (``pallas_fused``) adds one for each K5
+    beyond the stem, which writes its K4's activation again."""
+    sites = bf16_conv_sites()
+
+    def passes(*counters) -> collections.Counter:
+        out: collections.Counter = collections.Counter()
+        for counter in counters:
+            for ((b, cin, h, w, _), prologue), n in counter.items():
+                if cin > 1:  # the stem reads x itself
+                    out[(b, cin, h, w), prologue] += n
+        return out
+
+    k3, k4 = sites["conv3x3_bf16"], sites["conv3x3_bn_act_bf16"]["pallas_fused"]
+    return {"pallas": passes(k3["pallas"]),
+            "pallas_fused_eval": passes(k3["pallas_fused"], k4),
+            "pallas_fused": passes(k3["pallas_fused"], k4,
+                                   sites["wgrad3x3_bf16"]["pallas_fused"])}
+
+
 def phase_activation_bf16() -> dict:
     """The activation pass (``conv_bwd.activation_nhwc``, K3/K4's and K5's
     NHWC operand) against its plain version on the card, bit for bit and
-    the same bits twice, with the prologue and without, at every bf16 K3/K4
-    site beyond the stem (``bf16_conv_sites``) and the odd shapes. At the
-    bf16 ``pallas`` step's K3 sites the kernel, plain and bound times (x
-    read, the NHWC copy written once), summed over the step: the kernels
-    line's. No single PyTorch call computes it."""
+    the same bits twice, with the prologue and without, at every shape of
+    ``activation_sites`` and the odd shapes. At each main-path site the
+    kernel, plain and bound times (x read, scale and shift with the
+    prologue, the NHWC copy written once; the prologue's multiply, add and
+    max at the f32 rate) and, without the prologue, the library's:
+    ``x.contiguous(memory_format=torch.channels_last)``, which writes the
+    same bytes where C % 8 == 0 (every main-path site); with the prologue no
+    single PyTorch call computes it. Summed over each path of
+    ``activation_sites`` on an ``activation_bf16_path`` line, with the
+    prologue's and the plain copy's launches apart; the ``pallas`` step's
+    sums (its K3 sites, no prologue) are the kernels line's."""
     gen = torch.Generator(device="cuda").manual_seed(12)
-    sites = bf16_conv_sites()
-    step = collections.Counter()
-    for (shape, _), n in sites["conv3x3_bf16"]["pallas"].items():
-        step[shape] += n
-    main = list(dict.fromkeys(shape for c in (sites["conv3x3_bf16"], sites["conv3x3_bn_act_bf16"])
-                              for counts in c.values() for shape, _ in counts))
-    sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
-    for shape in main + CONV_ODD_SHAPES:
-        b, cin, h, w, _ = shape
-        if cin == 1:  # the stem reads x itself
-            continue
-        x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    paths = activation_sites()
+    main = list(dict.fromkeys(site for c in paths.values() for site in c))
+    cases = main + [((b, cin, h, w), p) for b, cin, h, w, _ in CONV_ODD_SHAPES if cin > 1
+                    for p in (True, False)]
+    per_site: dict = {}
+    for shape, prologue in cases:
+        b, cin, h, w = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         sc = 0.5 + torch.rand((cin,), generator=gen, device="cuda")
         sh = 0.3 * torch.randn((cin,), generator=gen, device="cuda")
-        for prologue in (True, False):
-            args = (x, sc, sh, prologue)
-            got, again = conv_bwd.activation_nhwc(*args), conv_bwd.activation_nhwc(*args)
-            want = conv_bwd.activation_plain(*args)
-            torch.cuda.synchronize()
-            differ = int((got != want).sum())
-            fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
-                      "outputs_differ": differ, "bit_identical": bool(torch.equal(got, again)),
-                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
-            if differ or not fields["bit_identical"]:
-                raise AssertionError(f"activation pass {shape} prologue={prologue} differs from "
-                                     f"its plain version: {fields}")
-            if not prologue and shape in step:
-                n = step[shape]
-                fields["launches_per_step"] = n
-                fields["ms"] = time_ms(lambda: conv_bwd.activation_nhwc(*args), 10)
-                fields["plain_ms"] = time_ms(lambda: conv_bwd.activation_plain(*args), 2)
-                nbytes = 2 * (x.numel() + got.numel())
-                fields["bound_ms"], fields["bound_by"] = bound(0.0, nbytes)
-                sums["max_abs_err"] = max(sums["max_abs_err"], fields["max_abs_err"])
-                for k in ("ms", "plain_ms"):
-                    sums[k] += n * fields[k]
-                add_bound(sums, 0.0, nbytes, n)
-            emit("activation_bf16", **fields)
-            del got, again, want
-    return {"activation_nhwc": close_bound(sums)}
+        args = (x, sc, sh, prologue)
+        got, again = conv_bwd.activation_nhwc(*args), conv_bwd.activation_nhwc(*args)
+        want = conv_bwd.activation_plain(*args)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        fields = {"shape": list(shape), "prologue": prologue, "dtype": "bfloat16",
+                  "outputs_differ": differ, "bit_identical": bool(torch.equal(got, again)),
+                  "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        if differ or not fields["bit_identical"]:
+            raise AssertionError(f"activation pass {shape} prologue={prologue} differs from "
+                                 f"its plain version: {fields}")
+        if (shape, prologue) in main:
+            fields["launches"] = {path: n[shape, prologue] for path, n in paths.items()
+                                  if n[shape, prologue]}
+            fields["ms"] = time_ms(lambda: conv_bwd.activation_nhwc(*args), 10)
+            fields["plain_ms"] = time_ms(lambda: conv_bwd.activation_plain(*args), 2)
+            fields["library_ms"] = None
+            if not prologue:
+                library = x.contiguous(memory_format=torch.channels_last)
+                if not torch.equal(library.permute(0, 2, 3, 1), got[..., :cin]):
+                    raise AssertionError(f"activation pass {shape}: the channels_last copy "
+                                         f"differs")
+                fields["library_ms"] = time_ms(
+                    lambda: x.contiguous(memory_format=torch.channels_last), 10)
+                del library
+            nbytes = 2 * (x.numel() + got.numel()) + (8 * cin if prologue else 0)
+            flops = 3.0 * x.numel() if prologue else 0.0
+            fields["bound_ms"], fields["bound_by"] = bound(flops, nbytes)
+            per_site[shape, prologue] = dict(fields, flops=flops, nbytes=nbytes)
+        emit("activation_bf16", **fields)
+        del got, again, want
+    results = {}
+    for path, counts in paths.items():
+        part = {k: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+                for k in ("prologue", "no_prologue")}
+        part["no_prologue"]["library_ms"] = 0.0
+        sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+        for (shape, prologue), n in counts.items():
+            site = per_site[shape, prologue]
+            split = part["prologue" if prologue else "no_prologue"]
+            split["launches"] += n
+            for k in ("ms", "plain_ms", "bound_ms") + (() if prologue else ("library_ms",)):
+                split[k] += n * site[k]
+            for k in ("ms", "plain_ms"):
+                sums[k] += n * site[k]
+            sums["max_abs_err"] = max(sums["max_abs_err"], site["max_abs_err"])
+            add_bound(sums, site["flops"], site["nbytes"], n)
+        sums["library_ms"] = (part["no_prologue"]["library_ms"]
+                              if not part["prologue"]["launches"] else None)
+        results[path] = close_bound(sums)
+        emit("activation_bf16_path", path=path, launches=sum(counts.values()), **sums, **part)
+    return {"activation_nhwc": results["pallas"]}
 
 
 def _bwd_bf16_calls(kernel: str, c: dict, prologue: bool):

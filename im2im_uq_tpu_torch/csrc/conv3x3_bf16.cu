@@ -241,19 +241,19 @@ __global__ void pack_weights_k6(const __nv_bfloat16* __restrict__ w, __nv_bfloat
   }
 }
 
-// A block's work, for the kernels below. kOpt: K6's prologue (the mask, the
-// scale and the reductions) or the forward's stats. kTma: the output tile
-// leaves shared memory by one TMA store (K6 with the prologue first loads
-// its x there by TMA, [n][r][c] of the tile, while the tile's products run);
-// else each lane stores its outputs (and K6 loads x) itself. amap: the A
-// operand (K6: the cotangent, the forward: x), NHWC; xmap: K6's x; omap:
-// the output.
-template <int kKind, int kBn, bool kOpt, bool kTma>
+// A block's work, for the kernels below. kPrologue: K6's prologue (the mask,
+// the scale and the reductions); kStats: the forward's stats. kTma: the
+// output tile leaves shared memory by one TMA store (K6 with the prologue
+// first loads its x there by TMA, [n][r][c] of the tile, while the tile's
+// products run); else each lane stores its outputs (and K6 loads x) itself.
+// amap: the A operand (K6: the cotangent, the forward: x), NHWC; xmap: K6's
+// x; omap: the output.
+template <int kKind, int kBn, bool kPrologue, bool kStats, bool kTma>
 __device__ __forceinline__ void run(const CUtensorMap& amap, const CUtensorMap& xmap,
                                     const CUtensorMap& omap, const __nv_bfloat16* __restrict__ wpack,
                                     const Geo& g) {
-  constexpr bool kPrologue = kKind == kDgrad && kOpt;
-  constexpr bool kStats = kKind == kForward && kOpt;
+  static_assert(!kPrologue || kKind == kDgrad, "only K6 has the prologue");
+  static_assert(!kStats || kKind == kForward, "only the forward has the stats");
   constexpr int kMi = kBn <= 64 ? 4 : 2;  // m64 instances a consumer warpgroup
   constexpr int kRed = 4 * kConsumers * kBn * 2;  // floats of one [warp][kBn][2] of sums
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -516,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     dgrad_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap dxmap, const __nv_bfloat16* __restrict__ wpack,
                  const __grid_constant__ Geo g) {
-  run<kDgrad, kBn, kPrologue, kTma>(gmap, xmap, dxmap, wpack, g);
+  run<kDgrad, kBn, kPrologue, false, kTma>(gmap, xmap, dxmap, wpack, g);
 }
 
 // K3 and K4: the forward conv of x (the prologue already applied by the NHWC
@@ -527,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const __grid_constant__ CUtensorMap ymap,
                              const __nv_bfloat16* __restrict__ wpack,
                              const __grid_constant__ Geo g) {
-  run<kForward, kBn, kStats, kTma>(xmap, ymap, ymap, wpack, g);
+  run<kForward, kBn, false, kStats, kTma>(xmap, ymap, ymap, wpack, g);
 }
 
 // Dynamic shared memory of a launch: the ring, the TMA epilogue's tile, the

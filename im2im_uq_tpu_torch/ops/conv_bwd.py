@@ -32,9 +32,12 @@ multiple of 8 (:func:`padded_channels`), the stats' terms added when given;
 planned by :func:`wgrad_plan` and :func:`dgrad_plan`. :func:`wgrad3x3` and
 :func:`dgrad3x3` on bf16 CUDA tensors run the cotangent pass on their ``g``
 and then the same kernels. The passes count their launches on
-``cotangent_nhwc`` and ``activation_nhwc``. The bf16 K3/K4
-(``ops/conv.py``) run on K6's kernel body over :func:`activation_nhwc`'s
-copy of x, planned by :func:`conv_plan`.
+``cotangent_nhwc`` and ``activation_nhwc``.
+
+This module also owns what K3-K6 share in bf16: the NHWC passes, the tile
+plans (:class:`TilePlan`, :func:`conv_plan` beside :func:`dgrad_plan`) and
+:func:`sm_count`. The bf16 K3/K4 (``ops/conv.py``) run on K6's kernel body
+over :func:`activation_nhwc`'s copy of x, planned by :func:`conv_plan`.
 """
 
 from __future__ import annotations

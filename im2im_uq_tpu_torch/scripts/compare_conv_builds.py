@@ -102,10 +102,9 @@ class Build:
     K3/K4 redesign; ``stem`` False for the ``--gemm-stem`` build, which
     runs f32 K3/K4 at Cin = 1 through the GEMM and bf16 there not at all."""
 
-    stem = True
-
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, stem: bool = True):
         self.lib = ctypes.CDLL(str(path))
+        self.stem = stem
         self.packed = hasattr(self.lib, "im2im_wgrad3x3_packed_words")
         self.pairs = hasattr(self.lib, "im2im_conv3x3_packed_words")
         signatures = dict(_build._SIGNATURES, **(_PACKED_SIGNATURES if self.packed else {}),
@@ -126,7 +125,7 @@ class Build:
             _build.library = saved
 
 
-def _build_all(builds: dict[str, Path]) -> dict[str, Build]:
+def _build_all(builds: dict[str, Path], gemm_stem: set[str]) -> dict[str, Build]:
     procs = {}
     for name, src in builds.items():
         out = src / "lib.so"
@@ -139,7 +138,7 @@ def _build_all(builds: dict[str, Path]) -> dict[str, Build]:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"build {name} failed:\n{log[-3000:]}")
-        libs[name] = Build(builds[name] / "lib.so")
+        libs[name] = Build(builds[name] / "lib.so", stem=name not in gemm_stem)
     return libs
 
 
@@ -342,7 +341,7 @@ def main(argv: list[str] | None = None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     root = _build.BUILD_ROOT / "compare"
     shutil.rmtree(root, ignore_errors=True)
-    builds = {}
+    builds, gemm_stem = {}, set()
     for i, src in enumerate(args.dirs):
         variants = {str(src): None}
         if args.gemm_stem and i == 0:
@@ -352,10 +351,9 @@ def main(argv: list[str] | None = None) -> int:
             shutil.copytree(src, dst)
             if edit is not None:
                 (dst / "conv3x3.cu").write_text(edit((dst / "conv3x3.cu").read_text()))
+                gemm_stem.add(name)
             builds[name] = dst
-    libs = _build_all(builds)
-    for name in libs:
-        libs[name].stem = not name.endswith("(gemm stem)")
+    libs = _build_all(builds, gemm_stem)
     gen = torch.Generator(device="cuda").manual_seed(7)
     _check(libs, gen)
 

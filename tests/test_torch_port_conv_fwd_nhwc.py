@@ -15,6 +15,8 @@ its forward instance (``k6::conv3x3_fwd_wgmma_kernel``) is checked here:
   (``chip_smoke.bf16_conv_sites``, the stem aside): tiles that cover the
   image, the ring within a block's 232,448 bytes, M a whole number of m64
   instances, N a ``wgmma`` width, 2-4 stages, one block per SM;
+- ``chip_smoke.activation_sites``: the activation pass's launches in each
+  bf16 main path, one for each K3/K4 call and each K5 beyond the stem;
 - ``pack_weights``: ``pack_weights_k6``'s index arithmetic in numpy, its B
   tiles the forward's unflipped W[n][k][tap] and K6's flipped, transposed
   W[k][n][8 - tap];
@@ -55,6 +57,24 @@ def test_sites_are_chip_smokes():
     got = {shape for kernel in ("conv3x3_bf16", "conv3x3_bn_act_bf16")
            for counts in sites[kernel].values() for shape, _ in counts if shape[1] > 1}
     assert got == set(SITES)
+
+
+def test_activation_sites_are_one_pass_a_k3_k4_or_k5_beyond_the_stem():
+    """``chip_smoke.activation_sites``: the ``pallas`` step's 21 K3 calls
+    beyond the stem, the fused eval forward's 8 K3 and 13 K4 calls (9 with
+    the prologue, one a DoubleConv's conv1), and the fused train step's
+    forward plus one pass for each of its 13 K5 calls beyond the stem, each
+    on its conv's x with its conv's prologue."""
+    paths = chip_smoke.activation_sites()
+    totals = {path: (sum(c.values()), sum(n for (_, p), n in c.items() if p))
+              for path, c in paths.items()}
+    assert totals == {"pallas": (21, 0), "pallas_fused_eval": (21, 9), "pallas_fused": (34, 18)}
+    inputs = {((b, cin, h, w), p) for (b, cin, h, w, _) in SITES for p in (True, False)}
+    for counts in paths.values():
+        assert set(counts) <= inputs
+    k5 = paths["pallas_fused"] - paths["pallas_fused_eval"]
+    assert paths["pallas_fused_eval"] <= paths["pallas_fused"]
+    assert set(k5) <= set(paths["pallas_fused_eval"]) and sum(k5.values()) == 13
 
 
 @pytest.mark.parametrize("shape", SITES)
