@@ -10,16 +10,23 @@ Phases, one JSON line each on stdout:
 2. build      compile ``im2im_uq_tpu_torch/csrc/*.cu`` (timed).
 3. k1         the upsample kernel against its plain PyTorch version on the
               card, at the four decoder shapes of a batch-32 320x320 UNet
-              and some odd shapes, in f32 and bf16 (0 outputs apart: the
-              TPU kernel's bf16 rounding), with both times; the bf16 sums
-              on a k1_bf16_sums line (so k1b and k7). k1_route: up1's input
-              (32, 512, 20, 20), which the TPU kernel does not take, routed
-              to the XLA form in f32 and bf16 (output and gradient equal to
-              ``upsample2x_xla``'s, no K1 launch); every UNet or WNet train
-              step launches K1f and K1b 3 times.
+              and some odd shapes, in f32 and bf16 (0 outputs apart, bit
+              for bit: the TPU kernel's bf16 rounding), the same bits
+              twice, with both times, summed over the three shapes a step
+              launches (K1_STEP_SHAPES); the bf16 sums on a k1_bf16_sums
+              line (so k1b and k7). k1_plan: the bf16 kernels' plan as the
+              library computes it against ``upsample.upsample_plan``;
+              k1_one_column: the bf16 kernel one column a thread at one
+              decoder shape, bit for bit with the vector instance, timed.
+              k1_route: up1's input (32, 512, 20, 20), which the TPU
+              kernel does not take, routed to the XLA form in f32 and bf16
+              (output and gradient equal to ``upsample2x_xla``'s, no K1
+              launch); every UNet or WNet train step launches K1f and K1b
+              3 times.
    k1b        the upsample's backward kernel against its plain version at
               the four decoder cotangent shapes and the odd shapes, both
-              dtypes, with both times.
+              dtypes (bf16 within one ulp and bit for bit), the same bits
+              twice, with both times; k1b_one_column as k1's.
 4. k2         the loss-table kernel against its plain version, 0 cells
               apart and the same bits twice, at (32, 102400) and L=1000 on
               the calibration grid and on edge grids (unsorted, duplicates,
@@ -145,6 +152,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import os
@@ -307,6 +315,10 @@ BF16_TRAIN_KERNELS = dict(BF16_KERNELS, pallas_fused=BF16_KERNELS["pallas_fused"
 K1_PER_STEP = 3
 # up1's input at batch 32, 320x320
 UP1_SHAPE = (32, 512, 20, 20)
+# the K1f / K1b launches of a step: the decoder shapes but up1's
+K1_STEP_SHAPES = [s for s in DECODER_SHAPES if s != UP1_SHAPE]
+# where the bf16 K1 kernels are also timed one column a thread
+K1_ONE_COLUMN_SHAPE = (32, 128, 80, 80)
 # a bf16 train step with the kernels against the same step with their plain
 # versions on the card (phase_bf16_gradcheck), relative: the loss, the whole
 # gradient (L2 over every tensor) and each running statistic; the bars of
@@ -474,46 +486,107 @@ def _emit_bf16_sums(phase: str, sums: dict) -> None:
     emit(f"{phase}_bf16_sums", dtype="bfloat16", **close_bound(sums[torch.bfloat16]))
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a bf16 or f32 tensor, so that ±0 count as apart."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` at an odd element offset: the bf16 K1
+    kernels take it one column a thread (``upsample.vector_width``)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def k1_plans() -> None:
+    """The bf16 K1 kernels' plan as the library computes it
+    (``im2im_upsample2x_plan``) against ``upsample.upsample_plan``, at every
+    shape the K1 phases run, one column a thread and at each vector width
+    that fits W."""
+    lib = _build.library()
+    cases = 0
+    for _, _, h, w in DECODER_SHAPES + ODD_SHAPES:
+        for vec in (1, upsample.FWD_VECTOR, upsample.BWD_VECTOR):
+            if w % vec:
+                continue
+            out = (ctypes.c_int * 6)()
+            _build.check(lib.im2im_upsample2x_plan(h, w, vec, out), "upsample2x_plan")
+            p = upsample.upsample_plan(h, w, vec)
+            want = [p.vec, p.units, p.col_tiles, p.rows, p.tiles, p.groups]
+            if list(out) != want:
+                raise AssertionError(f"K1 plan at {(h, w)} vec {vec}: the library's {list(out)}, "
+                                     f"upsample_plan's {want}")
+            cases += 1
+    emit("k1_plan", cases=cases, same=True)
+
+
+def _k1_one_column(phase: str, fn, t: torch.Tensor, want: torch.Tensor) -> None:
+    """The bf16 kernel one column a thread (its input at an odd element
+    offset): the same bits as the vector instance's ``want``, and its time."""
+    tu = unaligned_copy(t)
+    got = fn(tu)
+    torch.cuda.synchronize()
+    differ = int((bits(got) != bits(want)).sum())
+    if differ:
+        raise AssertionError(f"{phase}: one column a thread at {tuple(t.shape)}, {differ} "
+                             f"outputs apart from the vector instance's")
+    emit(f"{phase}_one_column", shape=list(t.shape), dtype="bfloat16", outputs_differ=differ,
+         ms=time_ms(lambda: fn(tu), 20), vector_ms=time_ms(lambda: fn(t), 20))
+
+
 def phase_k1() -> dict:
     """K1 vs plain: f32 within 1e-6·max|x|; bf16 bit for bit (0 outputs
-    differ): the plain version is the TPU kernel's bf16 function, with its
-    per-operation rounding, and the kernel computes the same operations.
-    → the f32 sums (the kernels line's); the bf16 sums on a k1_bf16_sums
-    line."""
+    differ, ±0 apart): the plain version is the TPU kernel's bf16 function,
+    with its per-operation rounding, and the kernel computes the same
+    operations; the same bits twice. Timed at the decoder shapes; the sums
+    run over K1_STEP_SHAPES (up1's line is timed on its own). → the f32
+    sums (the kernels line's); the bf16 sums on a k1_bf16_sums line; the
+    one-column instance at (32, 128, 80, 80) on a k1_one_column line."""
+    k1_plans()
     g = torch.Generator(device="cuda").manual_seed(1)
     sums = _dtype_sums()
     for dtype in (torch.float32, torch.bfloat16):
         for shape in DECODER_SHAPES + ODD_SHAPES:
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
             got = upsample.upsample2x(x)
+            again = upsample.upsample2x(x)
             want = upsample.upsample2x_plain(x)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
-            differ = int((got != want).sum().item())
+            differ = int((bits(got) != bits(want)).sum().item())
+            twice = torch.equal(bits(got), bits(again))
             if dtype == torch.float32:
                 tol = 1e-6 * x.abs().max().item()
                 ok = diff.max().item() <= tol
             else:
                 tol = 0.0
                 ok = differ == 0
-            if not ok:
+            if not ok or not twice:
                 raise AssertionError(
                     f"K1 disagrees with its plain version at {shape} {dtype}: "
-                    f"max abs err {diff.max().item()} > tol {tol}, {differ} outputs differ"
+                    f"max abs err {diff.max().item()} > tol {tol}, {differ} outputs differ, "
+                    f"the same bits twice: {twice}"
                 )
             fields = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                      "max_abs_err": diff.max().item(), "tol": tol, "outputs_differ": differ}
+                      "max_abs_err": diff.max().item(), "tol": tol, "outputs_differ": differ,
+                      "same_bits_twice": twice}
             if shape in DECODER_SHAPES:
                 fields["ms"] = time_ms(lambda: upsample.upsample2x(x), 20)
                 fields["plain_ms"] = time_ms(lambda: upsample.upsample2x_plain(x), 5)
                 fields["library_ms"] = time_ms(lambda: F.interpolate(
                     x, scale_factor=2, mode="bilinear", align_corners=True), 20)
+                fields["launched_by_step"] = shape in K1_STEP_SHAPES
+            if shape in K1_STEP_SHAPES:
                 result = sums[dtype]
                 result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
                 for k in ("ms", "plain_ms", "library_ms"):
                     result[k] += fields[k]
                 # 3 lerps of 2 operations per output; x read, y written
                 add_bound(result, 6 * 4 * x.numel(), x.element_size() * 5 * x.numel())
+            if shape == K1_ONE_COLUMN_SHAPE and dtype == torch.bfloat16:
+                _k1_one_column("k1", upsample.upsample2x, x, got)
             emit("k1", **fields)
     _emit_bf16_sums("k1", sums)
     k1_route(g)
@@ -650,30 +723,37 @@ def phase_k1b() -> dict:
     """K1b vs plain: f32 within 4e-6·max|g| (each dx sums up to 16 taps
     whose weights add up to about 4, so this is a few f32 ulps); bf16
     within one bf16 ulp of the plain result computed in f32 and rounded
-    once. Shapes are those of dx (the upsample's input)."""
+    once, and bit for bit: the kernel keeps the plain version's order (the
+    W axis first, every operation rounded); the same bits twice. Shapes are
+    those of dx (the upsample's input); sums as phase_k1's."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     sums = _dtype_sums()
     for dtype in (torch.float32, torch.bfloat16):
         for b, c, h, w in DECODER_SHAPES + ODD_SHAPES:
             g = torch.randn((b, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
             got = upsample.upsample2x_bwd(g)
+            again = upsample.upsample2x_bwd(g)
             want = upsample.upsample2x_bwd_plain(g)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
+            differ = int((bits(got) != bits(want)).sum().item())
+            twice = torch.equal(bits(got), bits(again))
             if dtype == torch.float32:
                 tol = 4e-6 * g.abs().max().item()
                 ok = diff.max().item() <= tol
             else:
                 tol = conv_probe.bf16_ulp(want)
-                ok = bool((diff <= tol).all())
+                ok = bool((diff <= tol).all()) and differ == 0
                 tol = tol.max().item()
-            if not ok:
+            if not ok or not twice:
                 raise AssertionError(
                     f"K1b disagrees with its plain version at {tuple(g.shape)} {dtype}: "
-                    f"max abs err {diff.max().item()} > tol {tol}"
+                    f"max abs err {diff.max().item()} > tol {tol} or {differ} outputs differ, "
+                    f"the same bits twice: {twice}"
                 )
             fields = {"cotangent": list(g.shape), "dtype": str(dtype).split(".")[-1],
-                      "max_abs_err": diff.max().item(), "tol": tol}
+                      "max_abs_err": diff.max().item(), "tol": tol, "outputs_differ": differ,
+                      "same_bits_twice": twice}
             if (b, c, h, w) in DECODER_SHAPES:
                 fields["ms"] = time_ms(lambda: upsample.upsample2x_bwd(g), 20)
                 fields["plain_ms"] = time_ms(lambda: upsample.upsample2x_bwd_plain(g), 5)
@@ -681,12 +761,16 @@ def phase_k1b() -> dict:
                 fields["library_ms"] = time_ms(
                     lambda: torch.ops.aten.upsample_bilinear2d_backward(
                         g, [2 * h, 2 * w], [b, c, h, w], True), 20)
+                fields["launched_by_step"] = (b, c, h, w) in K1_STEP_SHAPES
+            if (b, c, h, w) in K1_STEP_SHAPES:
                 result = sums[dtype]
                 result["max_abs_err"] = max(result["max_abs_err"], fields["max_abs_err"])
                 for k in ("ms", "plain_ms", "library_ms"):
                     result[k] += fields[k]
                 # each cotangent element feeds 4 inputs: 4 multiply-adds
                 add_bound(result, 8 * g.numel(), g.element_size() * (g.numel() + b * c * h * w))
+            if (b, c, h, w) == K1_ONE_COLUMN_SHAPE and dtype == torch.bfloat16:
+                _k1_one_column("k1b", upsample.upsample2x_bwd, g, got)
             emit("k1b", **fields)
     _emit_bf16_sums("k1b", sums)
     return close_bound(sums[torch.float32])

@@ -37,12 +37,14 @@ _LIB_NAME = "libim2im_uq_kernels.so"
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (x, y, wh, ww, planes, h, w, dtype, device, stream)
+    # (x, y, wh, ww, planes, h, w, kind, device, stream)
     "im2im_upsample2x": (
         [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
+    # the bf16 K1 kernels' plan: (h, w, vec, out[6])
+    "im2im_upsample2x_plan": ([ctypes.c_int] * 3 + [_P], ctypes.c_int),
     # (pred, label, dl, du, lam, out, scratch, n, num_px, num_lam, vec, device,
     #  stream)
     "im2im_loss_table": (
@@ -55,7 +57,7 @@ _SIGNATURES = {
     "im2im_loss_table_scratch": (
         [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
         ctypes.c_longlong),
-    # (g, dx, ah, aw, planes, h, w, dtype, device, stream); h, w are dx's
+    # (g, dx, ah, aw, planes, h, w, kind, device, stream); h, w are dx's
     "im2im_upsample2x_bwd": (
         [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, _P],

@@ -15,7 +15,9 @@ Layout is NCHW: the upsample works on the last two axes.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ from im2im_uq_tpu_torch import _build
 
 __all__ = [
     "Upsample2x",
+    "UpsamplePlan",
     "col_transpose_matrix",
     "pallas_upsample_eligible",
     "phase_weights",
@@ -35,9 +38,19 @@ __all__ = [
     "upsample2x_bwd_plain",
     "upsample2x_fwd",
     "upsample2x_plain",
+    "upsample_plan",
+    "vector_width",
 ]
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# columns a thread of the bf16 vector instances: K1f 4 (an 8-byte load a
+# row, one 16-byte store an output row, a warp's stores contiguous), K1b 8
+# (two 16-byte loads a cotangent row, one 16-byte dx store)
+FWD_VECTOR, BWD_VECTOR = 4, 8
+# a block's busy threads at least, and at most where whole warps are
+# sought (the kernels' launch bound); the rows a thread walks; threads
+# across a block's columns at most
+BLOCK_THREADS, MAX_THREADS, TILE_ROWS, UNITS_MAX = 128, 512, 4, 256
 
 
 def phase_weights(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -229,6 +242,62 @@ def _transpose_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(transpose_weights(n))).to(device)
 
 
+@dataclasses.dataclass(frozen=True)
+class UpsamplePlan:
+    """How the bf16 kernels (``csrc/upsample2x.cu``, ``csrc/upsample2x_bwd.cu``)
+    cut planes of (h, w) input (K1f) or dx (K1b) elements.
+
+    A thread owns ``vec`` adjacent columns of one plane and walks down a
+    tile of ``rows`` rows of them; ``tiles`` tiles cover h, the last one
+    ragged where ``rows`` does not divide h. A block is ``units`` threads
+    across the columns by ``groups`` planes, all at one tile: block x
+    index = plane group · tiles + tile, y index = the column tile (of
+    ``col_tiles``). ``csrc/upsample2x_tile.cuh`` computes the same plan
+    and the entry point ``im2im_upsample2x_plan`` returns it."""
+
+    vec: int
+    units: int
+    col_tiles: int
+    rows: int
+    tiles: int
+    groups: int
+
+
+@functools.lru_cache(maxsize=256)
+def upsample_plan(h: int, w: int, vec: int) -> UpsamplePlan:
+    """The plan of the bf16 K1f/K1b at a plane of (h, w) input (dx)
+    elements and ``vec`` columns a thread: tiles of ``TILE_ROWS`` rows (the
+    last one ragged), a block of at least ``BLOCK_THREADS`` threads, whole
+    warps where that stays within ``MAX_THREADS``."""
+    if vec not in (1, FWD_VECTOR, BWD_VECTOR) or w % vec:
+        raise ValueError(f"vector width {vec} does not fit W = {w}")
+    units_total = w // vec
+    units = min(units_total, UNITS_MAX)
+    groups = -(-BLOCK_THREADS // units)
+    step = 32 // math.gcd(units, 32)
+    aligned = -(-groups // step) * step
+    if units * aligned <= MAX_THREADS:
+        groups = aligned
+    rows = min(h, TILE_ROWS)
+    return UpsamplePlan(vec=vec, units=units, col_tiles=-(-units_total // units), rows=rows,
+                        tiles=-(-h // rows), groups=groups)
+
+
+def vector_width(vec: int, w: int, *data_ptrs: int) -> int:
+    """Columns a thread of a bf16 kernel whose vector instance takes
+    ``vec``: ``vec`` where W % vec == 0 and every pointer is 16-byte
+    aligned, else 1 (the same kernel body, one column a thread)."""
+    if w % vec == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return vec
+    return 1
+
+
+def _bf16_kind(vec: int, w: int, *tensors: torch.Tensor) -> int:
+    """The C entry points' kind argument for a bf16 launch: 1 the kernel's
+    vector instance, 2 one column a thread (0 is float32)."""
+    return 1 if vector_width(vec, w, *(t.data_ptr() for t in tensors)) > 1 else 2
+
+
 def _check(t: torch.Tensor, kernel: str) -> None:
     if t.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {t.dtype}")
@@ -246,11 +315,13 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
         return y
     if x.dtype == torch.bfloat16:
         wh, ww = _bf16_tables(h, w, x.device)
+        kind = _bf16_kind(FWD_VECTOR, w, x, y)
     else:
         wh, ww = _weight_table(h, x.device), _weight_table(w, x.device)
+        kind = 0
     err = _build.library().im2im_upsample2x(
         x.data_ptr(), y.data_ptr(), wh.data_ptr(), ww.data_ptr(),
-        b * c, h, w, _KERNEL_DTYPES[x.dtype], x.device.index,
+        b * c, h, w, kind, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     upsample2x.launches += 1
@@ -268,9 +339,10 @@ def _launch_bwd(g: torch.Tensor) -> torch.Tensor:
     if dx.numel() == 0:
         return dx
     ah, aw = _transpose_table(h, g.device), _transpose_table(w, g.device)
+    kind = _bf16_kind(BWD_VECTOR, w, g, dx) if g.dtype == torch.bfloat16 else 0
     err = _build.library().im2im_upsample2x_bwd(
         g.data_ptr(), dx.data_ptr(), ah.data_ptr(), aw.data_ptr(),
-        b * c, h, w, _KERNEL_DTYPES[g.dtype], g.device.index,
+        b * c, h, w, kind, g.device.index,
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     upsample2x_bwd.launches += 1

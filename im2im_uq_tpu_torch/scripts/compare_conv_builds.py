@@ -125,12 +125,15 @@ class Build:
             _build.library = saved
 
 
-def _build_all(builds: dict[str, Path], gemm_stem: set[str]) -> dict[str, Build]:
+def _build_all(builds: dict[str, Path], gemm_stem: set[str],
+               sources: tuple[str, ...] = _SOURCES) -> dict[str, Build]:
+    """Each directory's ``sources`` (those it has) into its own library, all
+    nvcc processes at once."""
     procs = {}
     for name, src in builds.items():
         out = src / "lib.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(out),
-               *[str(src / f) for f in _SOURCES if (src / f).exists()]]
+               *[str(src / f) for f in sources if (src / f).exists()]]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}

@@ -48,8 +48,10 @@ _BUCKETS = [
     # cotangent passes, the packed weights of K3/K4 and K6
     ("bf16 packing (port)", ("nhwc_kernel", "pack_weights_k6")),
     ("fixed-order partial sums (port)", ("reduce_rows",)),
-    ("K1f upsample (port)", ("upsample2x_kernel", "upsample2x_bf16_kernel")),
-    ("K1b upsample backward (port)", ("upsample2x_bwd_kernel",)),
+    # f32: upsample2x_kernel, upsample2x_bwd_kernel; bf16: the row-tiled
+    # upsample2x_tile_kernel<V>, upsample2x_bwd_tile_kernel<V>
+    ("K1f upsample (port)", ("upsample2x_kernel", "upsample2x_tile_kernel")),
+    ("K1b upsample backward (port)", ("upsample2x_bwd_kernel", "upsample2x_bwd_tile_kernel")),
     ("K7 max-pool backward (port)", ("maxpool2x2_bwd_kernel",)),
     ("batchnorm (cuDNN / torch)", ("batch_norm", "bn_fw", "bn_bw", "welford", "bn_")),
     ("conv (cuDNN)", ("conv", "xmma", "implicit", "winograd", "fft", "cudnn", "gemm",

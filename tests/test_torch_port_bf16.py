@@ -614,8 +614,15 @@ def test_profile_step_profiles_each_backend_in_bf16_and_buckets_its_kernels():
         assert profile_step.bucket(name) == "K5 wgrad3x3 (port)", name
     assert (profile_step.bucket("void (anonymous namespace)::k6::dgrad_kernel<128, true, "
                                 "true>(...)") == "K6 dgrad3x3 (port)")
-    assert (profile_step.bucket("void (anonymous namespace)::upsample2x_bf16_kernel(...)")
-            == "K1f upsample (port)")
+    for name in ("void (anonymous namespace)::upsample2x_tile_kernel<8>(...)",
+                 "void (anonymous namespace)::upsample2x_tile_kernel<1>(...)",
+                 "void (anonymous namespace)::upsample2x_kernel(...)"):
+        assert profile_step.bucket(name) == "K1f upsample (port)", name
+    for name in ("void (anonymous namespace)::upsample2x_bwd_tile_kernel<8>(...)",
+                 "_ZN12_GLOBAL__N_126upsample2x_bwd_tile_kernelILi1EEEvPK13__nv_bfloat16PS1_"
+                 "PKfS6_xiiii",
+                 "void (anonymous namespace)::upsample2x_bwd_kernel(...)"):
+        assert profile_step.bucket(name) == "K1b upsample backward (port)", name
     for name in ("void (anonymous namespace)::k6::conv3x3_fwd_wgmma_kernel<128, true, "
                  "true>(...)",
                  "_ZN48_GLOBAL__N__31468701_15_conv3x3_bf16_cu_bc4e87552k624conv3x3_fwd_wgmma_"
