@@ -40,7 +40,9 @@ from im2im_uq_tpu_torch.models.assembly import (
 from im2im_uq_tpu_torch.training.checkpoint import load_calibrated_checkpoint
 from im2im_uq_tpu_torch.utils.config import DEFAULTS, load_config
 
-__all__ = ["load_uq_state_for_inference", "main", "predict_intervals"]
+__all__ = [
+    "load_uq_state_for_inference", "main", "predict_intervals", "visible_devices",
+]
 
 
 def load_uq_state_for_inference(
@@ -50,6 +52,12 @@ def load_uq_state_for_inference(
     state = add_uncertainty(build_trunk(config), config, device=device)
     lhat, _epoch = load_calibrated_checkpoint(checkpoint, state.model)
     return state.replace(lhat=lhat)
+
+
+def visible_devices(device: str) -> int:
+    """How many devices of ``device``'s type this process sees: the CUDA
+    devices for a ``cuda`` device, else one."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
 def _iter_input_arrays(path: str) -> Iterator[tuple[str, np.ndarray]]:
@@ -127,15 +135,28 @@ def main(argv: Optional[list[str]] = None) -> int:
         help="which grid point of a sweep config describes the checkpointed model",
     )
     ap.add_argument("--device", default="cuda", help="torch device to serve on")
-    ap.add_argument("--data-parallel", action="store_true", help="not yet ported")
-    ap.add_argument("--spatial", action="store_true", help="not yet ported")
+    ap.add_argument(
+        "--data-parallel", action="store_true",
+        help="shard batches over all visible devices (not yet ported); "
+        "single-device runs are unaffected",
+    )
+    ap.add_argument(
+        "--spatial", action="store_true",
+        help="shard each image's height over the devices (not yet ported); "
+        "single-device runs are unaffected",
+    )
     args = ap.parse_args(argv)
 
-    for flag in ("artifact", "data_parallel", "spatial"):
-        if getattr(args, flag):
-            raise SystemExit(
-                f"--{flag.replace('_', '-')} is not yet ported to im2im_uq_tpu_torch"
-            )
+    if args.artifact:
+        raise SystemExit("--artifact is not yet ported to im2im_uq_tpu_torch")
+    if args.data_parallel and args.spatial:
+        raise SystemExit("--data-parallel and --spatial are mutually exclusive")
+    # as the JAX CLI builds its mesh only over more than one device, the two
+    # flags change nothing where one device of --device's type is visible
+    if (args.data_parallel or args.spatial) and visible_devices(args.device) > 1:
+        flag = "--data-parallel" if args.data_parallel else "--spatial"
+        raise SystemExit(f"{flag} over more than one device is not yet ported "
+                         "to im2im_uq_tpu_torch")
     if not (args.config and args.checkpoint):
         raise SystemExit("--config and --checkpoint are both required")
 

@@ -189,6 +189,10 @@ def test_infer_main_writes_the_jax_outputs(pair, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--artifact=x", "--data-parallel", "--spatial"])
-def test_infer_main_rejects_unported_modes(flag, tmp_path):
+def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
+    """The sharded modes are refused over more than one CUDA device (one
+    visible device leaves them without effect:
+    ``test_torch_port_serving_export.py``)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit, match="not yet ported"):
         tinfer.main([flag, "--input", str(tmp_path), "--output", str(tmp_path)])
