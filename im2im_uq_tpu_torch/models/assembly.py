@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from im2im_uq_tpu_torch.models.heads import build_head
+from im2im_uq_tpu_torch.models.heads import build_head, head_loss_fn
 from im2im_uq_tpu_torch.models.unet import UNet, WNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
 
@@ -76,6 +76,10 @@ class UQState:
         with torch.inference_mode():
             return self.model(x)
 
+    def loss_fn(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The head's scalar training loss (``heads.head_loss_fn``)."""
+        return head_loss_fn(self.uncertainty_type)(pred, target, self.params)
+
     def interval_params(self, output: torch.Tensor) -> set_ops.IntervalParams:
         return set_ops.interval_params(output, self.uncertainty_type)
 
@@ -88,13 +92,16 @@ class UQState:
             lam = self.lhat
         return lam
 
+    def nested_sets_from_output(self, output: torch.Tensor, lam=None):
+        """(lower, pred, upper) of a head output at λ (default λ̂), λ a
+        float32 scalar on the output's device."""
+        lam = torch.tensor(self._resolve_lam(lam), dtype=torch.float32, device=output.device)
+        return set_ops.nested_sets_from_output(output, lam, self.uncertainty_type)
+
     def nested_sets(self, x: torch.Tensor, lam=None):
         """(lower, pred, upper), each (B, C, H, W), at λ (default λ̂)."""
-        lam = torch.tensor(self._resolve_lam(lam), dtype=torch.float32, device=x.device)
         with torch.inference_mode():
-            return set_ops.nested_sets_from_output(
-                self.forward(x), lam, self.uncertainty_type
-            )
+            return self.nested_sets_from_output(self.forward(x), lam)
 
     def set_lhat(self, lhat: float) -> "UQState":
         return dataclasses.replace(self, lhat=float(lhat))

@@ -33,6 +33,7 @@ __all__ = [
     "SoftmaxHead",
     "build_head",
     "gaussian_loss_pe",
+    "head_loss_fn",
     "head_loss_pe_fn",
     "inn_loss_pe",
     "quantile_l1_loss_pe",
@@ -234,3 +235,14 @@ def head_loss_pe_fn(uncertainty_type: str):
         return HEAD_LOSS_PE_FNS[uncertainty_type]
     except KeyError:
         raise NotImplementedError(f"unknown uncertainty_type {uncertainty_type!r}") from None
+
+
+def head_loss_fn(uncertainty_type: str):
+    """Scalar training loss of a head type: the batch mean of
+    :func:`head_loss_pe_fn`'s per-example losses."""
+    loss_pe = head_loss_pe_fn(uncertainty_type)
+
+    def loss(pred: torch.Tensor, target: torch.Tensor, params: dict) -> torch.Tensor:
+        return loss_pe(pred, target, params).mean()
+
+    return loss

@@ -14,6 +14,11 @@ Usage:
         --input inputs.npy --output out/ [--lam 2.5] [--batch-size 32] \
         [--device cuda]
 
+or, from a serving artifact of ``scripts.export_serving`` (λ̂ and the
+batch shape baked in, no config or checkpoint):
+    python -m im2im_uq_tpu_torch.scripts.infer --artifact model.uq.pt2 \
+        --input inputs.npy --output out/ [--device cuda]
+
 Inputs: a ``.npy``/``.npz`` array of shape (N, H, W, C) or (H, W, C), or a
 directory of such files (sorted order), normalized as in training.
 """
@@ -24,6 +29,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Iterator, Optional
@@ -122,10 +128,16 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", help="experiment config YAML")
     ap.add_argument("--checkpoint", help="calibrated checkpoint (.pt)")
-    ap.add_argument("--artifact", help="AOT serving artifact (not yet ported)")
+    ap.add_argument(
+        "--artifact",
+        help="serving artifact (scripts.export_serving) — replaces "
+        "--config/--checkpoint; λ̂ and batch shape are baked in",
+    )
     ap.add_argument("--input", required=True, help=".npy/.npz file or directory")
     ap.add_argument("--output", required=True, help="output directory for .npz results")
-    ap.add_argument("--batch-size", type=int, default=32, help="serving batch shape")
+    # None means "not passed", whatever spelling of the flag was used
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="serving batch shape (default 32)")
     ap.add_argument(
         "--lam", type=float, default=None,
         help="interval scale λ override (default: the checkpoint's calibrated λ̂)",
@@ -147,27 +159,57 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     args = ap.parse_args(argv)
 
-    if args.artifact:
-        raise SystemExit("--artifact is not yet ported to im2im_uq_tpu_torch")
+    if bool(args.artifact) == bool(args.config or args.checkpoint):
+        raise SystemExit("pass either --artifact OR --config + --checkpoint")
     if args.data_parallel and args.spatial:
         raise SystemExit("--data-parallel and --spatial are mutually exclusive")
     # as the JAX CLI builds its mesh only over more than one device, the two
     # flags change nothing where one device of --device's type is visible
     if (args.data_parallel or args.spatial) and visible_devices(args.device) > 1:
+        if args.artifact:
+            raise SystemExit(
+                "--data-parallel/--spatial only apply to --config/--checkpoint "
+                "serving: an artifact's sharding is baked in at export time, and a "
+                "data-parallel artifact (export_serving --n-devices) is not yet "
+                "ported to im2im_uq_tpu_torch; serve per-device processes."
+            )
         flag = "--data-parallel" if args.data_parallel else "--spatial"
         raise SystemExit(f"{flag} over more than one device is not yet ported "
                          "to im2im_uq_tpu_torch")
-    if not (args.config and args.checkpoint):
-        raise SystemExit("--config and --checkpoint are both required")
 
-    config = dict(DEFAULTS)
-    config.update(load_config(args.config, grid_index=args.grid_index)[0])
-    state = load_uq_state_for_inference(
-        config, os.path.expanduser(args.checkpoint), torch.device(args.device)
-    )
-    lam = args.lam if args.lam is not None else state.lhat
+    if args.artifact:
+        from im2im_uq_tpu_torch.scripts.export_serving import load_serving_artifact
+
+        state = load_serving_artifact(args.artifact, torch.device(args.device))
+        if args.lam is not None and abs(args.lam - state.lhat) > 1e-9:
+            raise SystemExit(
+                f"--lam {args.lam} conflicts with the artifact's baked "
+                f"λ̂={state.lhat} — re-export to change λ"
+            )
+        lam = state.lhat
+        if args.batch_size is not None and args.batch_size != state.batch_size:
+            print(
+                f"warning: --batch-size {args.batch_size} ignored — the "
+                f"artifact's program has a fixed batch shape of "
+                f"{state.batch_size} (baked at export time)",
+                file=sys.stderr,
+            )
+        args.batch_size = state.batch_size
+        utype = state.uncertainty_type
+    else:
+        if not (args.config and args.checkpoint):
+            raise SystemExit("--config and --checkpoint are both required")
+        config = dict(DEFAULTS)
+        config.update(load_config(args.config, grid_index=args.grid_index)[0])
+        state = load_uq_state_for_inference(
+            config, os.path.expanduser(args.checkpoint), torch.device(args.device)
+        )
+        lam = args.lam if args.lam is not None else state.lhat
+        utype = config["uncertainty_type"]
     if lam is None:
         raise SystemExit("checkpoint has no calibrated λ̂ — pass --lam or calibrate first")
+    if args.batch_size is None:
+        args.batch_size = 32
 
     out_dir = Path(os.path.expanduser(args.output))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -184,7 +226,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         "seconds": round(dt, 3),
         "imgs_per_sec": round(total / dt, 2) if dt > 0 else math.inf,
         "lam": lam,
-        "uncertainty_type": config["uncertainty_type"],
+        "uncertainty_type": utype,
     }
     with open(out_dir / "inference_summary.json", "w") as fh:
         json.dump(summary, fh)

@@ -192,7 +192,10 @@ def test_infer_main_writes_the_jax_outputs(pair, tmp_path):
 def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
     """The sharded modes are refused over more than one CUDA device (one
     visible device leaves them without effect:
-    ``test_torch_port_serving_export.py``)."""
+    ``test_torch_port_serving_export.py``); an artifact's sharding is fixed
+    at export, and the data-parallel artifact is not yet ported."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    model = (["--data-parallel"] if flag.startswith("--artifact")
+             else ["--config", "c.yml", "--checkpoint", "c.pt"])
     with pytest.raises(SystemExit, match="not yet ported"):
-        tinfer.main([flag, "--input", str(tmp_path), "--output", str(tmp_path)])
+        tinfer.main([flag, *model, "--input", str(tmp_path), "--output", str(tmp_path)])

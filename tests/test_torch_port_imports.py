@@ -41,6 +41,8 @@ def _port_modules() -> list[str]:
 def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert len(modules) > 15
+    assert {f"im2im_uq_tpu_torch.scripts.{m}" for m in (
+        "calibrate", "export_serving", "infer", "router", "sweep")} <= set(modules)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
