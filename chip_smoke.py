@@ -135,11 +135,27 @@ Phases, one JSON line each on stdout:
               ``xla`` in f32 and ``pallas_fused`` in bf16: one step's loss,
               gradients and statistics against remat off, the peak of
               device memory and the step time beside remat off's.
+22. deploy    the seed-0 weights of phase 5, saved as an uncalibrated
+              training checkpoint, calibrated by ``scripts/calibrate.main``
+              on the 128 images under the default config (calibrate_cli)
+              and under ``pallas_fused`` (calibrate_cli_fused): λ̂ and the
+              table bit for bit those of ``calibrate_model`` on the same
+              state and data, K2 and K1f (and K3/K4) launched. Then
+              ``scripts/export_serving.main`` on the calibrated checkpoint,
+              traced on the card and stored on the CPU (export), and
+              ``infer.main --artifact`` on the 64 serve images
+              (artifact_serve): no port kernel launched, the intervals
+              those of ``infer.main --config --checkpoint`` under the
+              "xla" backends bit for bit (else within rtol 1e-6 / atol
+              1e-7, the JAX artifact test's bars), and the default
+              config's (K1f) within phase 7's rtol 1e-4 / atol 1e-5; the
+              same export and serving once in bf16.
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
 under the fused config, each head's, WNet's and the softmax router's, the
-bf16 paths and the remat steps) and read just after it; the ``kernels`` line
+bf16 paths, the remat steps, the calibrate CLI and the serving paths of
+the deploy phase) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -189,10 +205,14 @@ from im2im_uq_tpu_torch.ops import (
     upsample,
 )
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
+from im2im_uq_tpu_torch.scripts import calibrate as calibrate_script
+from im2im_uq_tpu_torch.scripts import export_serving
 from im2im_uq_tpu_torch.training import train
 from im2im_uq_tpu_torch.training.checkpoint import (
     calibrated_checkpoint_path,
+    checkpoint_path,
     save_calibrated_checkpoint,
+    save_checkpoint,
 )
 from im2im_uq_tpu_torch.utils.timing import time_ms
 
@@ -2394,6 +2414,203 @@ def phase_bf16_models(config: dict) -> dict:
     return launches
 
 
+# the artifact against the live portable model when the two are not bit
+# for bit (cuDNN may pick another algorithm): the bars of the JAX
+# package's artifact test (tests/test_serving_export.py:74-84)
+ARTIFACT_RTOL, ARTIFACT_ATOL = 1e-6, 1e-7
+XLA_BACKENDS = {"conv_backend": "xla", "pool_backend": "xla", "resize_backend": "xla"}
+
+
+def _write_config(tmp: str, tag: str, cfg: dict) -> str:
+    path = os.path.join(tmp, f"{tag}.yml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return path
+
+
+def _last_json(run, *args) -> tuple[int, dict]:
+    """``run(*args)`` with its standard output captured → (its return code,
+    the JSON object it printed last)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run(*args)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def calibrate_cli(phase: str, cfg: dict, weights: dict, calib, tmp: str,
+                  kernels: list) -> tuple[str, dict]:
+    """``weights`` saved as an uncalibrated training checkpoint of a model
+    under ``cfg``, then ``scripts/calibrate.main`` on the card: λ̂ and the
+    table bit for bit those of ``calibrate_model`` on the same state and
+    ``calib``, ``kernels`` launched. → (the calibrated checkpoint, the
+    CLI's launches)."""
+    state = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    state.model.load_state_dict(weights)
+    ckpt = checkpoint_path(os.path.join(tmp, phase), 1, cfg)
+    save_checkpoint(ckpt, state.model, torch.optim.Adam(state.model.parameters()), None, 1)
+    args = ["--config", _write_config(tmp, phase, cfg), "--checkpoint", ckpt,
+            "--output-dir", os.path.join(tmp, phase, "out"), "--device", DEVICE]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, summary = _last_json(calibrate_script.main, args)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"{phase}: calibrate.main returned {rc}")
+    with np.load(summary["loss_table"]) as z:
+        table = z["loss_table"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_table = calibrate_model(state, calib, cfg)
+    torch.cuda.synchronize()
+    in_process_s = time.perf_counter() - t0
+    same_table = bool(np.array_equal(table, want_table))
+    emit(phase, conv_backend=cfg.get("conv_backend", "auto"),
+         images=summary["num_calibration_examples"], num_lambdas=summary["num_lambdas"],
+         lhat=summary["lhat"], lhat_calibrate_model=want.lhat, table_bit_identical=same_table,
+         calibration_seconds=summary["calibration_seconds"], cli_wall_s=wall,
+         calibrate_model_s=in_process_s, launches=counts)
+    if summary["lhat"] != want.lhat or not same_table:
+        raise AssertionError(f"{phase}: λ̂ {summary['lhat']} or the table differ from "
+                             f"calibrate_model's (λ̂ {want.lhat})")
+    if summary["num_calibration_examples"] != len(calib):
+        raise AssertionError(f"{phase}: calibrated on {summary['num_calibration_examples']} "
+                             f"images, not {len(calib)}")
+    require_launches(phase, counts, ["loss_table", "upsample2x"] + kernels)
+    return summary["checkpoint"], counts
+
+
+def _serve_cli(args: list, out_dir: str) -> tuple[dict, dict, dict]:
+    """``infer.main`` on the card → (the intervals, the summary, the
+    launches)."""
+    reset_counts()
+    rc = infer.main(args + ["--output", out_dir, "--device", DEVICE])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"infer.main returned {rc}")
+    with np.load(os.path.join(out_dir, "serve_intervals.npz")) as z:
+        out = {k: z[k] for k in z.files}
+    with open(os.path.join(out_dir, "inference_summary.json")) as fh:
+        summary = json.load(fh)
+    return out, summary, counts
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               for k in ("lower", "prediction", "upper"))
+
+
+def export_and_serve(cfg: dict, ckpt: str, inputs: str, tmp: str,
+                     default: dict | None) -> None:
+    """``scripts/export_serving.main`` on ``ckpt`` under ``cfg``, traced on
+    the card and stored on the CPU (export), then ``infer.main --artifact``
+    on ``inputs`` (artifact_serve): no port kernel launched, the intervals
+    those of ``infer.main --config --checkpoint`` under the "xla" backends,
+    bit for bit or within ARTIFACT_RTOL / ATOL, and those of ``default``
+    (the live default config's, when given) within phase 7's bars. Each
+    serving path runs twice, the first time warming it up."""
+    dtype = cfg.get("compute_dtype", "float32")
+    art = os.path.join(tmp, f"model_{dtype}.uq.pt2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, meta = _last_json(export_serving.main, [
+        "--config", _write_config(tmp, f"export_{dtype}", cfg), "--checkpoint", ckpt,
+        "--output", art, "--batch-size", str(cfg["batch_size"]), "--height", str(IMAGE),
+        "--width", str(IMAGE), "--device", DEVICE])
+    export_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"export_serving.main returned {rc}")
+    stored = torch.export.load(art)
+    tensors = [t for t in [*stored.state_dict.values(), *stored.constants.values()]
+               if isinstance(t, torch.Tensor)]
+    devices = sorted({t.device.type for t in tensors})
+    node_devices = sorted({str(n.kwargs["device"]) for n in stored.graph.nodes
+                           if isinstance(n.kwargs.get("device"), torch.device)})
+    emit("export", compute_dtype=dtype, seconds=export_s, artifact_mb=meta["artifact_mb"],
+         tensor_mb=sum(t.numel() * t.element_size() for t in tensors) / 1e6,
+         tensors=len(tensors), param_count=meta["param_count"], platforms=meta["platforms"],
+         program=meta["program"], lam=meta["lam"], tensor_devices=devices,
+         graph_devices=node_devices, torch_version=meta["torch_version"])
+    if devices != ["cpu"] or any(d != "cpu" for d in node_devices):
+        raise AssertionError(f"the artifact is not stored on the CPU: {devices} {node_devices}")
+    if meta["program"] != "portable_xla" or meta["platforms"] != ["cpu", "cuda"]:
+        raise AssertionError(f"unexpected artifact metadata {meta}")
+    del stored, tensors
+
+    portable = _write_config(tmp, f"portable_{dtype}", dict(cfg, **XLA_BACKENDS))
+    runs: dict = {"artifact": [], "live": []}
+    for _ in range(2):
+        for kind, args in (("artifact", ["--artifact", art]),
+                           ("live", ["--config", portable, "--checkpoint", ckpt,
+                                     "--batch-size", str(cfg["batch_size"])])):
+            runs[kind].append(_serve_cli(args + ["--input", inputs],
+                                         os.path.join(tmp, f"{kind}_{dtype}")))
+    (art_out, art_summary, _), (live_out, _, _) = runs["artifact"][-1], runs["live"][-1]
+    launched = {k: v for _, _, c in runs["artifact"] + runs["live"] for k, v in c.items() if v}
+    same = all(np.array_equal(art_out[k], live_out[k]) for k in ("lower", "prediction", "upper"))
+    diff = _max_abs(art_out, live_out)
+    fields = {}
+    if default is not None:
+        fields["max_abs_diff_vs_default"] = _max_abs(art_out, default)
+    emit("artifact_serve", compute_dtype=dtype, images=art_summary["images"],
+         artifact_imgs_per_sec=[r[1]["imgs_per_sec"] for r in runs["artifact"]],
+         live_portable_imgs_per_sec=[r[1]["imgs_per_sec"] for r in runs["live"]],
+         bit_identical=same, max_abs_diff=diff, rtol=ARTIFACT_RTOL, atol=ARTIFACT_ATOL,
+         lam=art_summary["lam"], cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, launched=launched, **fields)
+    if launched:
+        raise AssertionError(f"the portable paths launched port kernels: {launched}")
+    if art_summary["lam"] != meta["lam"] or float(art_out["lam"]) != meta["lam"]:
+        raise AssertionError(f"served λ {art_summary['lam']} != baked λ̂ {meta['lam']}")
+    for k in ("lower", "prediction", "upper"):
+        if art_out[k].shape != live_out[k].shape or not np.isfinite(art_out[k]).all():
+            raise AssertionError(f"bad artifact {k}: shape {art_out[k].shape}")
+        if not np.allclose(art_out[k], live_out[k], rtol=ARTIFACT_RTOL, atol=ARTIFACT_ATOL):
+            raise AssertionError(f"the artifact's {k} is {diff} from the live portable model")
+        if default is not None and not np.allclose(art_out[k], default[k], rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"the artifact's {k} is {fields['max_abs_diff_vs_default']} "
+                                 "from the live default config")
+
+
+def phase_deploy(config: dict, calib, serve) -> dict:
+    """Phase 22: train once, recalibrate, export, serve from the artifact.
+    The seed-0 weights of phase 5 go through the calibrate CLI under the
+    default config and under ``pallas_fused`` (``calibrate_cli``), the
+    default one's calibrated checkpoint through export and serving from
+    the artifact in f32 and bf16 (``export_and_serve``), beside the live
+    default config's serving in f32. → launches."""
+    cfg = dict(config, num_examples=CALIB_N, image_size=IMAGE, seed=0, num_inputs=1)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    weights = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+    del st
+    launches = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, counts = calibrate_cli("calibrate_cli", cfg, weights, calib, tmp, [])
+        for name in KERNELS:
+            launches[name] += counts[name]
+        fused = dict(cfg, conv_backend="pallas_fused")
+        _, counts = calibrate_cli("calibrate_cli_fused", fused, weights, calib, tmp,
+                                  ["conv3x3", "conv3x3_bn_act"])
+        for name in KERNELS:
+            launches[name] += counts[name]
+
+        inputs = os.path.join(tmp, "serve.npy")
+        np.save(inputs, np.stack([serve[i][0] for i in range(len(serve))]))
+        default, _, counts = _serve_cli(
+            ["--config", _write_config(tmp, "default", cfg), "--checkpoint", ckpt,
+             "--input", inputs, "--batch-size", str(cfg["batch_size"])],
+            os.path.join(tmp, "default"))
+        require_launches("deploy default serve", counts, ["upsample2x"])
+        for name in KERNELS:
+            launches[name] += counts[name]
+        export_and_serve(cfg, ckpt, inputs, tmp, default)
+        export_and_serve(dict(cfg, compute_dtype="bfloat16"), ckpt, inputs, tmp, None)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -2465,12 +2682,14 @@ def main() -> int:
     router_bf16_fused_counts = phase_router(
         "router_bf16_fused", {"compute_dtype": "bfloat16", "conv_backend": "pallas_fused"},
         DEFAULT_PATH_KERNELS + BF16_TRAIN_KERNELS["pallas_fused"])
-    # 22. remat
+    # 21. remat
     remat_counts = phase_remat(config)
+    # 22. deploy: the calibrate CLI, the serving artifact, serving from it
+    deploy_counts = phase_deploy(config, calib, serve)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
                    bf16_counts, bf16_model_counts, router_bf16_counts, router_bf16_fused_counts,
-                   remat_counts):
+                   remat_counts, deploy_counts):
         for name, n in counts.items():
             launches[name] += n
 
