@@ -15,6 +15,13 @@ package's order:
 - the per-pixel miss map averaged over images and channels;
 - the risk in the size quartiles, with ``searchsorted(side="left") − 1``
   buckets (torch.bucketize(right=False)).
+
+Over a ``mesh`` of several ranks each rank runs the forward and the sets
+on its slice of each batch (the batch size rounded up to a multiple of the
+ranks), and the per-image results are gathered in the global batch's order
+before any draw, so that ``rng`` is drawn from in the one-device order and
+the miss map is summed over the global batch; every rank returns the same
+metrics.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from im2im_uq_tpu_torch.calibration.rcps import compute_loss_table
 from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.ops import sets as set_ops
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+from im2im_uq_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["RCPSMetrics", "eval_risk_only", "eval_set_metrics"]
 
@@ -43,43 +52,46 @@ class RCPSMetrics(NamedTuple):
     spatial_miscoverage: np.ndarray  # (H, W) mean miss map
 
 
-def _batch_metrics(uq_state: UQState, x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor):
-    """(losses (B,), sizes, residuals, miss (B, H, W, C)) as numpy."""
+def _batch_metrics(uq_state: UQState, x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+                   mesh: Optional[Mesh]):
+    """(losses (B,), sizes, residuals, miss (B, H, W, C)) of the global
+    batch as numpy, from this rank's slice (x, y)."""
     lower, pred, upper = set_ops.nested_sets_from_output(
         uq_state.forward(x), lam, uq_state.uncertainty_type
     )
     losses = set_ops.fraction_missed(lower, upper, y)
     maps = (upper - lower, (y - pred).abs(), set_ops.miss_map(lower, upper, y))
-    return (losses.cpu().numpy(), *(m.permute(0, 2, 3, 1).cpu().numpy() for m in maps))
+    return tuple(mesh_lib.fetch(mesh, t).cpu().numpy()
+                 for t in (losses, *(m.permute(0, 2, 3, 1) for m in maps)))
 
 
 def eval_set_metrics(
     uq_state: UQState,
     dataset,
     config: dict,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     batch_size: Optional[int] = None,
     lam: Optional[float] = None,
     rng: Optional[np.random.RandomState] = None,
 ) -> RCPSMetrics:
     """Full metric sweep over ``dataset`` at λ̂ (or an explicit ``lam``);
     random draws come from ``rng``, else from the global ``np.random``."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not yet ported")
+    mesh_lib.check_mesh(mesh)
     if lam is None:
         if uq_state.lhat is None:
             raise ValueError("calibrate first or pass an explicit lam")
         lam = uq_state.lhat
     rng = rng or np.random
-    bs = batch_size or config.get("batch_size", 64)
+    bs = mesh_lib.mesh_batch_size(batch_size or config.get("batch_size", 64), mesh)
     device = uq_state.device
     lam_t = torch.tensor(lam, dtype=torch.float32, device=device)
 
     losses_l, sizes_l, resid_l, spatial_sum, n_seen = [], [], [], None, 0
     with torch.inference_mode():
         for x, y, mask in iterate_batches(dataset, bs, shuffle=False):
+            xs, ys = mesh_lib.put_batch(mesh, x, y)
             losses, sizes, residuals, miss = _batch_metrics(
-                uq_state, nchw_from_nhwc(x, device), nchw_from_nhwc(y, device), lam_t
+                uq_state, nchw_from_nhwc(xs, device), nchw_from_nhwc(ys, device), lam_t, mesh
             )
             real = mask.astype(bool)
             losses, sizes, residuals, miss = losses[real], sizes[real], residuals[real], miss[real]
@@ -121,14 +133,13 @@ def eval_set_metrics(
     )
 
 
-def eval_risk_only(uq_state: UQState, dataset, config: dict, mesh=None) -> float:
+def eval_risk_only(uq_state: UQState, dataset, config: dict,
+                   mesh: Optional[Mesh] = None) -> float:
     """Cheap risk check at λ̂ (no sampling or ranking)."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not yet ported")
     if uq_state.lhat is None:
         raise ValueError("calibrate first or pass an explicit lam")
     table = compute_loss_table(
         uq_state, dataset, np.array([uq_state.lhat], dtype=np.float64),
-        batch_size=config.get("batch_size", 64),
+        batch_size=config.get("batch_size", 64), mesh=mesh,
     )
     return float(table.mean())

@@ -13,6 +13,14 @@ reference semantics, which are kept exactly:
 The bounds are the port's copy of the JAX package's host code
 (``calibration/bounds.py``).
 Images arrive NHWC from the dataset and are transposed to NCHW here.
+
+Over a ``mesh`` of several ranks (``parallel/mesh.py``) the batch size is
+rounded up to a multiple of the ranks, every rank runs the forward and the
+loss table's kernel on its slice of each batch, and the slabs come back in
+the global batch's order before the mask drops the padding, so that every
+rank holds the one-device table and selects the same λ̂.
+:func:`compute_risks_device` sums each λ's losses and the count on each
+rank and over the ranks, and only the sums reach the host.
 """
 
 from __future__ import annotations
@@ -27,10 +35,13 @@ from im2im_uq_tpu_torch.calibration.bounds import HB_mu_plus, WSR_mu_plus
 from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.ops import sets as set_ops
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+from im2im_uq_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
     "calibrate_model",
     "compute_loss_table",
+    "compute_risks_device",
     "default_table_method",
     "evaluate_from_loss_table",
     "evaluate_from_loss_table_fast",
@@ -65,38 +76,84 @@ def default_table_method(config: Optional[dict], device: torch.device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "direct"
 
 
+def _slabs(uq_state: UQState, dataset, lam_values: np.ndarray, batch_size: int,
+           mesh: Optional[Mesh], method: str):
+    """Per batch: (this rank's (B/ranks, L) slab of fraction missed at the λ
+    values, its mask as a device tensor, the global batch's host mask)."""
+    device = uq_state.device
+    lam = torch.from_numpy(np.asarray(lam_values, np.float64).astype(np.float32)).to(device)
+    batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
+    with torch.inference_mode():
+        for x, y, mask in iterate_batches(dataset, batch_size, shuffle=False):
+            xs, ys, ms = mesh_lib.put_batch(mesh, x, y, mask)
+            out = uq_state.forward(nchw_from_nhwc(xs, device))
+            params = uq_state.interval_params(out)
+            slab = set_ops.rcps_loss_table(params, nchw_from_nhwc(ys, device), lam, method=method)
+            yield slab, torch.from_numpy(np.asarray(ms, np.float32)).to(device), mask
+
+
 def compute_loss_table(
     uq_state: UQState,
     dataset,
     lam_values: np.ndarray,
     batch_size: int = 64,
+    mesh: Optional[Mesh] = None,
     method: str = "direct",
 ) -> np.ndarray:
     """(N, L) fraction-missed table for ``dataset`` at the given λ values.
 
     Batches are fixed-shape; the padded rows of the last one are dropped
-    by the batch mask.
+    by the batch mask. Over a ``mesh`` every rank gets the whole table.
     """
-    device = uq_state.device
-    lam = torch.from_numpy(np.asarray(lam_values, np.float64).astype(np.float32)).to(device)
+    mesh_lib.check_mesh(mesh)
     rows = []
-    with torch.inference_mode():
-        for x, y, mask in iterate_batches(dataset, batch_size, shuffle=False):
-            out = uq_state.forward(nchw_from_nhwc(x, device))
-            params = uq_state.interval_params(out)
-            slab = set_ops.rcps_loss_table(params, nchw_from_nhwc(y, device), lam, method=method)
-            rows.append(slab.cpu().numpy()[mask.astype(bool)])
+    for slab, _, mask in _slabs(uq_state, dataset, lam_values, batch_size, mesh, method):
+        rows.append(mesh_lib.fetch(mesh, slab).cpu().numpy()[mask.astype(bool)])
     return np.concatenate(rows, axis=0)
+
+
+def compute_risks_device(
+    uq_state: UQState,
+    dataset,
+    lam_values: np.ndarray,
+    batch_size: int = 64,
+    mesh: Optional[Mesh] = None,
+    method: str = "direct",
+) -> np.ndarray:
+    """(L,) empirical risks R̂ at ``lam_values``, reduced on the device.
+
+    Each batch's masked per-λ sums and its count of real examples are taken
+    on the device (over a ``mesh``, on each rank's slice and then summed
+    over the ranks), and only those L + 1 numbers reach the host, where
+    they accumulate in float64, as the JAX package's
+    ``compute_risks_device``. To replicate ``calibrate_model``'s stopping
+    rule with it, pass ``lambda_grid(config) − dλ``, not the raw grid.
+    """
+    mesh_lib.check_mesh(mesh)
+    total = np.zeros(len(lam_values), np.float64)
+    count = 0.0
+    for slab, m, _ in _slabs(uq_state, dataset, lam_values, batch_size, mesh, method):
+        sums = torch.cat([(slab * m[:, None]).sum(0), m.sum()[None]])
+        if mesh_lib.spans(mesh):
+            sums = mesh.all_reduce(sums)
+        sums = sums.cpu().numpy()
+        total += np.asarray(sums[:-1], np.float64)
+        count += float(sums[-1])
+    if count == 0:
+        raise ValueError("compute_risks_device: dataset produced no examples")
+    return total / count
 
 
 def calibrate_model(
     uq_state: UQState,
     dataset,
     config: dict,
+    mesh: Optional[Mesh] = None,
     batch_size: Optional[int] = None,
     method: Optional[str] = None,
 ) -> tuple[UQState, np.ndarray]:
-    """RCPS calibration → (calibrated UQState, (N, num_lambdas) table)."""
+    """RCPS calibration → (calibrated UQState, (N, num_lambdas) table); over
+    a ``mesh`` the same table and λ̂ on every rank."""
     method = method or default_table_method(config, uq_state.device)
     alpha, delta = config["alpha"], config["delta"]
     lambdas = lambda_grid(config)
@@ -106,7 +163,7 @@ def calibrate_model(
 
     bs = batch_size or config.get("batch_size", 64)
     table = compute_loss_table(
-        uq_state, dataset, lambdas - dlambda, batch_size=bs, method=method
+        uq_state, dataset, lambdas - dlambda, batch_size=bs, mesh=mesh, method=method
     )
     n = table.shape[0]
     bound = config.get("bound", "hb")

@@ -20,6 +20,7 @@ from torch import nn
 from im2im_uq_tpu_torch.models.heads import build_head, head_loss_fn
 from im2im_uq_tpu_torch.models.unet import UNet, WNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 
 __all__ = [
     "UQModel", "UQState", "add_uncertainty", "build_trunk", "nchw_from_nhwc", "resolve_dtype",
@@ -98,10 +99,24 @@ class UQState:
         lam = torch.tensor(self._resolve_lam(lam), dtype=torch.float32, device=output.device)
         return set_ops.nested_sets_from_output(output, lam, self.uncertainty_type)
 
-    def nested_sets(self, x: torch.Tensor, lam=None):
-        """(lower, pred, upper), each (B, C, H, W), at λ (default λ̂)."""
+    def nested_sets(self, x: torch.Tensor, lam=None, mesh=None):
+        """(lower, pred, upper), each (B, C, H, W), at λ (default λ̂).
+
+        Over a ``mesh`` of several ranks, ``x`` is the global batch on every
+        rank: each rank runs its slice (zero rows pad B to a multiple of
+        the ranks; eval-mode BatchNorm leaves the real rows as they are)
+        and every rank gets the global sets, in order."""
+        mesh_lib.check_mesh(mesh)
+        if not mesh_lib.spans(mesh):
+            with torch.inference_mode():
+                return self.nested_sets_from_output(self.forward(x), lam)
+        b = x.shape[0]
+        pad = mesh_lib.pad_to_multiple(b, mesh.size) - b
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
         with torch.inference_mode():
-            return self.nested_sets_from_output(self.forward(x), lam)
+            sets = self.nested_sets_from_output(self.forward(mesh_lib.shard_batch(mesh, x)), lam)
+            return tuple(mesh_lib.fetch(mesh, t)[:b] for t in sets)
 
     def set_lhat(self, lhat: float) -> "UQState":
         return dataclasses.replace(self, lhat=float(lhat))

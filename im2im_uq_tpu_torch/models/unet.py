@@ -52,6 +52,18 @@ kernels run through ctypes, where no dispatcher op marks their outputs.
 Every mode computes the same function as off, and a recompute does not move
 the BatchNorm running statistics again (:func:`checkpointed`).
 
+Under :func:`global_batch` (a data-parallel train step over several ranks,
+``parallel/mesh.py``) every BatchNorm in train mode normalises over the
+global batch, as GSPMD's program does in a JAX mesh step: the per-channel
+sums of each rank's shard are summed over the ranks by a differentiable
+all-reduce (so the cotangents of the statistics are the global ones too),
+the element count is the global one, and the running statistics move with
+the global unbiased variance. ``batch_norm`` takes Σx, then Σ(x − mean)²;
+``batch_norm_low_precision`` Σx and Σx² (flax's fast variance); under
+``pallas_fused`` K4's per-image stats (Σy, Σy²) are reduced before they
+fold. A checkpointed region's recompute issues the same collectives again
+inside the backward.
+
 An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
 ``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
 the kernel, so the concatenation is never built (``unet.py:615-629,
@@ -76,11 +88,12 @@ from torch.utils.checkpoint import checkpoint
 from im2im_uq_tpu_torch.ops.conv import conv3x3, conv3x3_bn_act
 from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
 from im2im_uq_tpu_torch.ops.resize import resize_bilinear_align_corners, upsample2x_align_corners
+from im2im_uq_tpu_torch.parallel.mesh import all_reduce_sum, spans
 
 __all__ = [
     "CONV_BACKENDS", "REMAT_MODES", "DoubleConv", "Down", "OutConv", "UNet", "Up", "UpNoSkip",
     "WNet", "batch_norm", "batch_norm_low_precision", "checkpointed", "compute_cast",
-    "fold_batchnorm",
+    "fold_batchnorm", "global_batch",
 ]
 
 CONV_BACKENDS = ("xla", "pallas", "pallas_fused")
@@ -89,6 +102,11 @@ REMAT_MODES = (False, "full", "conv", "bn")
 # True while a checkpointed region is recomputed in the backward: the
 # BatchNorm running statistics moved in its forward and stay as they are
 _recomputing = False
+
+
+# The mesh whose ranks' batches together are the batch that BatchNorm
+# normalises over in train mode; None: this process's batch alone
+_mesh = None
 
 
 @contextlib.contextmanager
@@ -101,6 +119,24 @@ def _recompute(on: bool):
         _recomputing = saved
 
 
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Train-mode BatchNorm inside normalises over the global batch of
+    ``mesh``'s ranks (module docstring); a mesh of one rank, or None,
+    changes nothing."""
+    global _mesh
+    saved, _mesh = _mesh, (mesh if spans(mesh) else None)
+    try:
+        yield
+    finally:
+        _mesh = saved
+
+
+def _global_sums(*sums: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Per-channel sums over the ranks of ``_mesh``, differentiably."""
+    return tuple(all_reduce_sum(torch.stack(sums), _mesh).unbind(0))
+
+
 def checkpointed(fn: Callable, *args: torch.Tensor):
     """``fn(*args)`` under activation checkpointing (non-reentrant): what
     ``fn`` saves for its backward is dropped and recomputed from ``args``
@@ -111,9 +147,10 @@ def checkpointed(fn: Callable, *args: torch.Tensor):
     if not torch.is_grad_enabled():
         return fn(*args)
     calls = []
+    mesh = _mesh  # the recompute runs in the backward, outside the caller's scope
 
     def run(*a):
-        with _recompute(bool(calls)):
+        with _recompute(bool(calls)), global_batch(mesh):
             calls.append(None)
             return fn(*a)
 
@@ -139,11 +176,30 @@ def compute_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """``bn(x)``; in a checkpointed region's recompute the same call on
-    copies of the running statistics, so that they move once a step."""
+    copies of the running statistics, so that they move once a step. In
+    train mode under :func:`global_batch`, :func:`_sync_batch_norm`."""
+    if bn.training and _mesh is not None:
+        return _sync_batch_norm(bn, x)
     if not (bn.training and _recomputing):
         return bn(x)
     return F.batch_norm(x, bn.running_mean.clone(), bn.running_var.clone(), bn.weight, bn.bias,
                         True, bn.momentum, bn.eps)
+
+
+def _sync_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode ``bn(x)`` over the global batch of ``_mesh``: mean =
+    ΣΣx / n, var = ΣΣ(x − mean)² / n over the ranks' n elements per channel
+    (two passes, as ``F.batch_norm`` takes the variance), the running
+    statistics moved with the global unbiased variance."""
+    n = x.numel() // x.shape[1] * _mesh.size
+    (s,) = _global_sums(x.sum((0, 2, 3)))
+    mean = s / n
+    d = x - _per_channel(mean)
+    (q,) = _global_sums((d * d).sum((0, 2, 3)))
+    var = q / n
+    if not _recomputing:
+        _move_running_stats(bn, mean, var, n)
+    return d * _per_channel(torch.rsqrt(var + bn.eps) * bn.weight) + _per_channel(bn.bias)
 
 
 def batch_norm_low_precision(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -156,13 +212,21 @@ def batch_norm_low_precision(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -
     place, without gradient, by torch's momentum with the unbiased variance
     var·n/(n−1), and ``num_batches_tracked`` counts the step. Eval: the
     running statistics. Then ((x − mean)·(rsqrt(var + ε)·γ) + β) in float32,
-    in flax's order, rounded once to ``x.dtype``."""
+    in flax's order, rounded once to ``x.dtype``. Under :func:`global_batch`
+    E[x] and E[x²] are taken over the global batch."""
     xf = x.float()
     if train:
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        n = x.numel() // x.shape[1]
+        if _mesh is None:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            n *= _mesh.size
+            s, q = _global_sums(xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)))
+            mean = s / n
+            var = torch.clamp(q / n - mean * mean, min=0.0)
         if not _recomputing:
-            _move_running_stats(bn, mean, var, x.numel() // x.shape[1])
+            _move_running_stats(bn, mean, var, n)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
@@ -195,9 +259,14 @@ def fold_batchnorm(
     running statistics move in place, without gradient, by torch's momentum
     with the unbiased variance var·n/(n−1); ``num_batches_tracked`` counts
     the step as ``nn.BatchNorm2d`` does. Eval: the running statistics.
-    Then scale = γ·rsqrt(var + ε), shift = β − mean·scale.
+    Then scale = γ·rsqrt(var + ε), shift = β − mean·scale. Under
+    :func:`global_batch` the sums are this rank's and ``n`` its count: both
+    are summed over the ranks first.
     """
     if train:
+        if _mesh is not None:
+            sums, sumsqs = _global_sums(sums, sumsqs)
+            n *= _mesh.size
         mean = sums / n
         var = sumsqs / n - mean * mean
         if not _recomputing:

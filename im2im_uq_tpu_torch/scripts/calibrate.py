@@ -24,6 +24,13 @@ The whole dataset is calibrated on unless ``--calib-fraction`` asks for a
 random subset, drawn as the JAX CLI draws it. The model runs on
 ``--device`` (default ``cuda``; ``cpu`` on request), where the loss table
 takes K2 unless the config names a ``loss_table_method``.
+
+As the JAX CLI calibrates over its mesh of every visible device, this one
+calibrates over every visible GPU (``CUDA_VISIBLE_DEVICES`` limits them),
+one process each: it starts one worker per GPU itself, or each process
+joins the group under a launcher (``python -m torch.distributed.run
+--nproc_per_node N -m im2im_uq_tpu_torch.scripts.calibrate ...``). Every
+rank computes the same table and λ̂; rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 
 from im2im_uq_tpu_torch.calibration.rcps import calibrate_model
 from im2im_uq_tpu_torch.data.core import random_split, split_lengths
+from im2im_uq_tpu_torch.parallel import distributed
 from im2im_uq_tpu_torch.scripts.infer import load_uq_state_for_inference
 from im2im_uq_tpu_torch.scripts.router import build_dataset, resolve_device
 from im2im_uq_tpu_torch.training.checkpoint import save_calibrated_checkpoint
@@ -77,6 +85,11 @@ def main(argv: Optional[list[str]] = None) -> int:
         config["delta"] = args.delta
     fix_randomness(args.seed)
     device = resolve_device(args.device)
+    rc, mesh = distributed.join_or_spawn("im2im_uq_tpu_torch.scripts.calibrate", argv, device)
+    if rc is not None:
+        return rc  # the workers, one per GPU, calibrated and wrote
+    if mesh is not None:
+        device = mesh.device
 
     state = load_uq_state_for_inference(config, os.path.expanduser(args.checkpoint), device)
     dataset = build_dataset(config)
@@ -90,11 +103,14 @@ def main(argv: Optional[list[str]] = None) -> int:
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     state, loss_table = calibrate_model(
-        state, dataset, config, batch_size=args.batch_size or config.get("batch_size", 32),
+        state, dataset, config, mesh=mesh,
+        batch_size=args.batch_size or config.get("batch_size", 32),
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     calib_seconds = time.perf_counter() - t0
+    if mesh is not None and not mesh.is_main:
+        return 0
 
     out_dir = Path(os.path.expanduser(args.output_dir))
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -21,6 +21,16 @@ batch shape baked in, no config or checkpoint):
 
 Inputs: a ``.npy``/``.npz`` array of shape (N, H, W, C) or (H, W, C), or a
 directory of such files (sorted order), normalized as in training.
+
+``--data-parallel`` with more than one visible GPU (``CUDA_VISIBLE_DEVICES``
+limits them) serves over all of them, one process each, as the JAX CLI
+serves over its mesh: without a launcher the CLI starts one worker per GPU
+itself, under one (``python -m torch.distributed.run --nproc_per_node N -m
+im2im_uq_tpu_torch.scripts.infer --data-parallel ...``) each process joins
+the group. Each rank runs its slice of every batch (the batch size rounded
+up to a multiple of the ranks), every rank gathers the intervals, and rank
+0 writes the files. ``--spatial`` over more than one device is not yet
+ported, nor is a data-parallel artifact.
 """
 
 from __future__ import annotations
@@ -43,11 +53,13 @@ from im2im_uq_tpu_torch.models.assembly import (
     build_trunk,
     nchw_from_nhwc,
 )
+from im2im_uq_tpu_torch.parallel import distributed
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 from im2im_uq_tpu_torch.training.checkpoint import load_calibrated_checkpoint
 from im2im_uq_tpu_torch.utils.config import DEFAULTS, load_config
 
 __all__ = [
-    "load_uq_state_for_inference", "main", "predict_intervals", "visible_devices",
+    "load_uq_state_for_inference", "main", "predict_intervals",
 ]
 
 
@@ -58,12 +70,6 @@ def load_uq_state_for_inference(
     state = add_uncertainty(build_trunk(config), config, device=device)
     lhat, _epoch = load_calibrated_checkpoint(checkpoint, state.model)
     return state.replace(lhat=lhat)
-
-
-def visible_devices(device: str) -> int:
-    """How many devices of ``device``'s type this process sees: the CUDA
-    devices for a ``cuda`` device, else one."""
-    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
 def _iter_input_arrays(path: str) -> Iterator[tuple[str, np.ndarray]]:
@@ -101,11 +107,17 @@ def predict_intervals(
     inputs: np.ndarray,
     batch_size: int = 32,
     lam: Optional[float] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> dict[str, np.ndarray]:
     """Calibrated nested sets over (N,H,W,C) inputs at a fixed batch shape.
 
-    Returns {"lower", "prediction", "upper"}, each (N,H,W,C) float32.
+    Returns {"lower", "prediction", "upper"}, each (N,H,W,C) float32. Over
+    a ``mesh`` the batch size is rounded up to a multiple of the ranks,
+    each rank runs its slice of every batch and every rank gets the whole
+    result.
     """
+    mesh_lib.check_mesh(mesh)
+    batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
     n = inputs.shape[0]
     if n == 0:
         empty = np.zeros(inputs.shape, np.float32)
@@ -118,7 +130,7 @@ def predict_intervals(
         if real < batch_size:
             pad = np.zeros((batch_size - real, *chunk.shape[1:]), chunk.dtype)
             chunk = np.concatenate([chunk, pad], axis=0)
-        sets = state.nested_sets(nchw_from_nhwc(chunk, device), lam=lam)
+        sets = state.nested_sets(nchw_from_nhwc(chunk, device), lam=lam, mesh=mesh)
         for key, t in zip(("lower", "prediction", "upper"), sets):
             outs[key].append(t[:real].permute(0, 2, 3, 1).cpu().numpy())
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
@@ -149,7 +161,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device to serve on")
     ap.add_argument(
         "--data-parallel", action="store_true",
-        help="shard batches over all visible devices (not yet ported); "
+        help="shard batches over all visible GPUs, one process each; "
         "single-device runs are unaffected",
     )
     ap.add_argument(
@@ -165,7 +177,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         raise SystemExit("--data-parallel and --spatial are mutually exclusive")
     # as the JAX CLI builds its mesh only over more than one device, the two
     # flags change nothing where one device of --device's type is visible
-    if (args.data_parallel or args.spatial) and visible_devices(args.device) > 1:
+    devices = (int(os.environ["WORLD_SIZE"]) if distributed.launched()
+               else distributed.visible_devices(args.device))
+    mesh = None
+    if (args.data_parallel or args.spatial) and devices > 1:
         if args.artifact:
             raise SystemExit(
                 "--data-parallel/--spatial only apply to --config/--checkpoint "
@@ -173,9 +188,16 @@ def main(argv: Optional[list[str]] = None) -> int:
                 "data-parallel artifact (export_serving --n-devices) is not yet "
                 "ported to im2im_uq_tpu_torch; serve per-device processes."
             )
-        flag = "--data-parallel" if args.data_parallel else "--spatial"
-        raise SystemExit(f"{flag} over more than one device is not yet ported "
-                         "to im2im_uq_tpu_torch")
+        if args.spatial:
+            raise SystemExit("--spatial over more than one device is not yet ported "
+                             "to im2im_uq_tpu_torch")
+        rc, mesh = distributed.join_or_spawn("im2im_uq_tpu_torch.scripts.infer", argv,
+                                             args.device)
+        if rc is not None:
+            return rc  # the workers, one per GPU, served and wrote
+        args.device = str(mesh.device)
+    elif distributed.launched():
+        raise SystemExit("launched as one of several ranks: pass --data-parallel")
 
     if args.artifact:
         from im2im_uq_tpu_torch.scripts.export_serving import load_serving_artifact
@@ -211,16 +233,20 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.batch_size is None:
         args.batch_size = 32
 
+    writes = mesh is None or mesh.is_main
     out_dir = Path(os.path.expanduser(args.output))
     out_dir.mkdir(parents=True, exist_ok=True)
     total, t0 = 0, time.perf_counter()
     for name, arr in _iter_input_arrays(args.input):
-        result = predict_intervals(state, arr, args.batch_size, lam=lam)
+        result = predict_intervals(state, arr, args.batch_size, lam=lam, mesh=mesh)
         out = out_dir / f"{name}_intervals.npz"
-        np.savez(out, lam=np.float64(lam), **result)
+        if writes:
+            np.savez(out, lam=np.float64(lam), **result)
+            print(f"{out}  ({arr.shape[0]} images)")
         total += arr.shape[0]
-        print(f"{out}  ({arr.shape[0]} images)")
     dt = time.perf_counter() - t0
+    if not writes:
+        return 0
     summary = {
         "images": total,
         "seconds": round(dt, 3),

@@ -1,8 +1,7 @@
 """Experiment router: config → train → calibrate → evaluate → artifacts.
 
-Counterpart of ``im2im_uq_tpu/scripts/router.py`` on one PyTorch device,
-with the same sweep-YAML schema, the same order of work and the same
-artifacts. Per grid point:
+Counterpart of ``im2im_uq_tpu/scripts/router.py``, with the same sweep-YAML
+schema, the same order of work and the same artifacts. Per grid point:
 
   fix randomness → skip if the results pickle exists → build the dataset →
   trunk + uncertainty head → 4-way split → train → validation loss table
@@ -18,6 +17,17 @@ device comes from ``--device`` (default ``cuda``), never from the config's
     python -m im2im_uq_tpu_torch.scripts.router \\
         --config experiments/synthetic_test/config.yml [--grid-index 0] \\
         [--data-path DIR] [--output-dir DIR] [--device cuda]
+
+As the JAX router runs over a mesh of every visible device, this one runs
+data-parallel over every visible GPU (``CUDA_VISIBLE_DEVICES`` limits
+them), one process each (``parallel/``): with ``--device cuda`` and more
+than one GPU it starts one worker per GPU itself, and under a launcher
+(``python -m torch.distributed.run --nproc_per_node N -m
+im2im_uq_tpu_torch.scripts.router ...``) each process joins the group.
+Training, the loss tables, calibration and the metrics then run over the
+mesh; every rank computes the same results and rank 0 alone writes the
+checkpoints, the pickles and the logs. With one GPU the path is the
+one-device one.
 
 Not ported: ``on_device_transform`` for the datasets whose JAX classes
 act on it (FastMRI and TEMCA, which move their preprocessing onto the
@@ -40,6 +50,8 @@ from im2im_uq_tpu_torch.calibration.metrics import eval_set_metrics
 from im2im_uq_tpu_torch.calibration.rcps import calibrate_model
 from im2im_uq_tpu_torch.data.core import random_split, split_lengths
 from im2im_uq_tpu_torch.models.assembly import add_uncertainty, build_trunk
+from im2im_uq_tpu_torch.parallel import distributed
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 from im2im_uq_tpu_torch.training.checkpoint import save_calibrated_checkpoint
 from im2im_uq_tpu_torch.training.evaluate import get_images, get_loss_table
 from im2im_uq_tpu_torch.training.train import PreemptionInterrupt, train_net
@@ -159,25 +171,39 @@ def resolve_device(name: str) -> torch.device:
 ON_DEVICE_TRANSFORM_DATASETS = ("fastmri", "temca")
 
 
-def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optional[dict]:
+def run_experiment(config: dict, device: torch.device | str = "cuda",
+                   mesh: Optional[mesh_lib.Mesh] = None) -> Optional[dict]:
     """One grid point end to end on ``device``; returns the results dict
-    (or None when its results pickle already exists)."""
+    (or None when its results pickle already exists).
+
+    Over ``mesh`` (by default the mesh of every rank when this process is
+    one of a group, as the JAX router defaults to every device) the grid
+    point runs data-parallel on ``mesh.device``; rank 0 writes."""
     if config.get("on_device_transform") and config["dataset"] in ON_DEVICE_TRANSFORM_DATASETS:
         raise NotImplementedError(
             f"on_device_transform for dataset {config['dataset']!r} is not yet ported")
+    mesh_lib.check_mesh(mesh)
+    if mesh is None and distributed.process_shard_info()[1] > 1:
+        mesh = mesh_lib.data_parallel_mesh(device)
+    if mesh is not None:
+        device = mesh.device
+    writes = mesh is None or mesh.is_main
     seed = config.get("seed", 0)
     generator = fix_randomness(seed)
     if config.get("output_dir"):
         os.makedirs(config["output_dir"], exist_ok=True)
         fname = results_filename(config)
-        if os.path.exists(fname):
+        done = os.path.exists(fname)
+        if mesh_lib.spans(mesh):
+            done = mesh.agree(done)  # every rank skips, or none
+        if done:
             print(f"Results already precomputed and stored in {fname}!")
             return None
     else:
         fname = None
     print("Computing the results from scratch!")
 
-    logger = MetricsLogger(config.get("output_dir"), config=config)
+    logger = MetricsLogger(config.get("output_dir") if writes else None, config=config)
     dataset = build_dataset(config)
     train_ds, calib_ds, val_ds, _ = split_dataset(dataset, config, np.random.RandomState(seed))
     state = add_uncertainty(build_trunk(config), config, generator=generator, device=device)
@@ -198,7 +224,7 @@ def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optiona
             state,
             train_ds,
             val_ds,
-            None,
+            mesh,
             epochs=config["epochs"],
             batch_size=config["batch_size"],
             lr=config["lr"],
@@ -218,16 +244,16 @@ def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optiona
     print("Done training!")
 
     print("Get the validation loss table.")
-    val_loss_table = get_loss_table(state, val_ds, config)
+    val_loss_table = get_loss_table(state, val_ds, config, mesh=mesh)
     print("Calibrate the model.")
-    state, calib_loss_table = calibrate_model(state, calib_ds, config)
+    state, calib_loss_table = calibrate_model(state, calib_ds, config, mesh=mesh)
     print(f"Model calibrated! lambda hat = {state.lhat}")
 
-    if config.get("checkpoint_dir"):
+    if config.get("checkpoint_dir") and writes:
         cal_path = save_calibrated_checkpoint(state, config, config["checkpoint_dir"])
         print(f"Calibrated checkpoint saved: {cal_path}")
 
-    if config.get("output_dir"):
+    if config.get("output_dir") and writes:
         table = np.concatenate([calib_loss_table, val_loss_table], axis=0)
         with open(loss_table_filename(config), "wb") as fh:
             pickle.dump(table, fh, protocol=pickle.HIGHEST_PROTOCOL)
@@ -238,7 +264,7 @@ def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optiona
         logger.log_images(tag, imgs, step="final")
 
     print("GET THE METRICS INCLUDING SPATIAL MISCOVERAGE")
-    metrics = eval_set_metrics(state, val_ds, config)
+    metrics = eval_set_metrics(state, val_ds, config, mesh=mesh)
     print(
         f"Risk: {metrics.risk}  |  Mean size: {metrics.sizes.mean()}  |  "
         f"Spearman: {metrics.spearman}  |  Size-stratified risk: {metrics.stratified_risks} | "
@@ -265,7 +291,7 @@ def run_experiment(config: dict, device: torch.device | str = "cuda") -> Optiona
         "lhat": state.lhat,
     }
     results.update(images["raw"])
-    if fname is not None:
+    if fname is not None and writes:
         with open(fname, "wb") as fh:
             pickle.dump(results, fh, protocol=pickle.HIGHEST_PROTOCOL)
         print(f"Results saved to file {fname}!")
@@ -283,6 +309,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
+    rc, mesh = distributed.join_or_spawn("im2im_uq_tpu_torch.scripts.router", argv, device)
+    if rc is not None:
+        return rc  # the workers, one per GPU, ran every grid point
     grid = load_config(args.config, args.grid_index)
     print(f"{len(grid)} grid point(s).")
     for i, config in enumerate(grid):
@@ -291,7 +320,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         if args.output_dir:
             config["output_dir"] = args.output_dir
         print(f"--- grid point {i}: {config['uncertainty_type']}, lr={config['lr']} ---")
-        run_experiment(config, device)
+        run_experiment(config, device, mesh)
     return 0
 
 

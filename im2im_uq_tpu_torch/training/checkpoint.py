@@ -12,7 +12,9 @@ Counterpart of ``im2im_uq_tpu/training/checkpoint.py``:
   "lhat", "epoch"}``.
 
 Every file is written to a temporary name and renamed into place, so a
-reader never sees half a checkpoint. The JAX package's orbax and msgpack
+reader never sees half a checkpoint. Over a data-parallel mesh rank 0
+alone writes (``train_net``, the router and the calibrate CLI call these
+functions there only, then wait at a barrier), and every rank loads. The JAX package's orbax and msgpack
 backends and its mid-epoch checkpoints are not ported.
 """
 

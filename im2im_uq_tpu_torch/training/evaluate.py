@@ -36,14 +36,14 @@ def get_loss_table(
 
     The validation table is evaluated at λ itself, unlike calibration's
     λ − dλ. On a CUDA model the default method is the loss-table kernel K2.
+    Over a ``mesh`` every rank gets the whole table.
     """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not yet ported")
     return compute_loss_table(
         uq_state,
         dataset,
         lambda_grid(config),
         batch_size=config.get("batch_size", 64),
+        mesh=mesh,
         method=method or default_table_method(config, uq_state.device),
     )
 

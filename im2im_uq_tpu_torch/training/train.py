@@ -1,4 +1,4 @@
-"""Training engine: train step, epoch loop, checkpoint and resume, one device.
+"""Training engine: train step, epoch loop, checkpoint and resume.
 
 Counterpart of ``im2im_uq_tpu/training/train.py``, with its control flow and
 its accounting:
@@ -19,9 +19,24 @@ its accounting:
   (SIGTERM/SIGINT → checkpoint at the end of the epoch →
   :class:`PreemptionInterrupt`).
 
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh`` of several ranks, one
+process per GPU) computes what the JAX mesh step computes, the program of
+the global batch: the batch size is rounded up to a multiple of the ranks
+(``mesh_batch_size``), every rank takes its slice of each batch,
+BatchNorm normalises over the global batch (``models/unet.global_batch``),
+the loss is the local masked sum over the **global** mask count, and the
+gradients are summed over the ranks after the backward, in one collective
+per dtype, so that they never interleave with the BatchNorm collectives.
+Plain DDP would average per-rank means, which is wrong where the ranks hold
+different numbers of real examples (a rounded batch, the wrapped last
+batch). Adam's state stays replicated: every rank applies the same sums.
+Rank 0 alone writes checkpoints and the logger's records, with a barrier
+after each epoch's writes; every rank loads a checkpoint to resume, and a
+stop signal on any rank stops every rank at the end of the epoch.
+
 Unlike the JAX engine, which returns new arrays, training updates the
 caller's model in place: the returned ``UQState`` holds the same module.
-Not ported, and refused when asked for: a device ``mesh``, ``preprocess`` /
+Not ported, and refused when asked for: ``preprocess`` /
 ``preprocess_pair`` (on-device input transforms), ``input_pipeline: grain``
 (and its mid-epoch checkpoints), ``loader_procs``,
 ``precompile_calibration`` and ``make_train_multistep``.
@@ -39,6 +54,9 @@ import torch
 from im2im_uq_tpu_torch.data.core import iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQModel, UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
+from im2im_uq_tpu_torch.models.unet import global_batch
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+from im2im_uq_tpu_torch.parallel.mesh import Mesh
 from im2im_uq_tpu_torch.training import checkpoint as ckpt
 from im2im_uq_tpu_torch.utils.logging import MetricsLogger
 
@@ -88,11 +106,22 @@ def put_batch(x: np.ndarray, y: np.ndarray, mask: np.ndarray, device: torch.devi
             torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
 
 
+def _global_masked_mean(per_example: torch.Tensor, mask: torch.Tensor,
+                        mesh: Optional[Mesh]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(this rank's Σ loss·mask over the global max(Σ mask, 1), the global
+    Σ mask): summed over the ranks, the global batch's masked mean."""
+    if not mesh_lib.spans(mesh):
+        return _masked_mean(per_example, mask), mask.sum()
+    count = mesh.all_reduce(mask.sum())
+    return (per_example * mask).sum() / torch.clamp(count, min=1.0), count
+
+
 def make_train_step(
     model: UQModel,
     loss_pe_fn: Callable,
     hyper: dict,
     optimizer: torch.optim.Optimizer,
+    mesh: Optional[Mesh] = None,
 ):
     """Build the train step: (x, y, mask) → loss, or (loss, grad norms) when
     ``hyper["watch_gradients"]`` is set. It updates ``model`` and
@@ -102,14 +131,24 @@ def make_train_step(
     The step puts the model in train mode itself: ``UQState.forward`` (used
     by validation and by validation hooks) leaves it in eval mode, and a
     step in eval mode would normalise with the running statistics.
+
+    Over a ``mesh`` of several ranks the step takes this rank's slice of
+    the global batch and computes the global batch's step (module
+    docstring); the loss it returns, the gradients and the norms are the
+    global ones, the same on every rank.
     """
     watch = bool(hyper.get("watch_gradients"))
+    multi = mesh_lib.spans(mesh)
 
     def train_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = _masked_mean(loss_pe_fn(model(x), y, hyper), mask)
-        loss.backward()
+        with global_batch(mesh):
+            loss, _ = _global_masked_mean(loss_pe_fn(model(x), y, hyper), mask, mesh)
+            loss.backward()
+        if multi:
+            mesh_lib.reduce_gradients(model.parameters(), mesh)
+            loss = mesh.all_reduce(loss.detach())
         norms = None
         if watch:
             # gradient observability (counterpart of wandb.watch): global
@@ -128,45 +167,45 @@ def make_train_step(
     return train_step
 
 
-def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict):
-    """Eval-mode loss: (x, y, mask) → (masked mean, number of real examples)."""
+def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict,
+                        mesh: Optional[Mesh] = None):
+    """Eval-mode loss: (x, y, mask) → (masked mean, number of real examples),
+    of the global batch over a ``mesh`` (this rank's slice in)."""
 
     def eval_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
         model.eval()
         with torch.inference_mode():
             out = model(x)
-            return _masked_mean(loss_pe_fn(out, y, hyper), mask), mask.sum()
+            loss, count = _global_masked_mean(loss_pe_fn(out, y, hyper), mask, mesh)
+            return (mesh.all_reduce(loss) if mesh_lib.spans(mesh) else loss), count
 
     return eval_step
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data-parallel training) is not yet ported")
-
-
 def eval_net(
-    uq_state: UQState, dataset, batch_size: int, mesh=None, step=None
+    uq_state: UQState, dataset, batch_size: int, mesh: Optional[Mesh] = None, step=None
 ) -> float:
     """Mean validation loss: sum(batch mean losses) / number of examples.
 
-    Pass a prebuilt ``step`` to reuse one across epochs.
+    Pass a prebuilt ``step`` to reuse one across epochs; over a ``mesh`` it
+    must be one built for it.
     """
-    _refuse_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     if step is None:
         loss_pe = head_loss_pe_fn(uq_state.uncertainty_type)
-        step = make_eval_loss_step(uq_state.model, loss_pe, uq_state.params)
+        step = make_eval_loss_step(uq_state.model, loss_pe, uq_state.params, mesh)
     device = uq_state.device
     total, count = 0.0, 0
+    batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
     for x, y, mask in iterate_batches(dataset, batch_size, shuffle=False):
-        loss, n = step(*put_batch(x, y, mask, device))
+        loss, n = step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device))
         total += float(loss)
         count += int(n)
     return total / count if count else 0.0
 
 
 def _refuse_unported(config: dict, mesh, preprocess, preprocess_pair) -> None:
-    _refuse_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     if preprocess is not None or preprocess_pair is not None:
         raise NotImplementedError("preprocess / preprocess_pair (on-device transforms) are not yet ported")
     if config.get("input_pipeline", "threaded") != "threaded":
@@ -206,9 +245,13 @@ def train_net(
     preprocess_pair: Optional[Callable] = None,
 ) -> UQState:
     """Train ``uq_state.model`` in place; returns the UQState with λ̂ as
-    restored (or as given). ``mesh`` must be None: one device."""
+    restored (or as given). ``mesh``: None (one device) or a
+    ``parallel.mesh.Mesh`` whose ranks train together (module docstring);
+    the model must already sit on this rank's device."""
     config = dict(config or uq_state.params)
     _refuse_unported(config, mesh, preprocess, preprocess_pair)
+    if mesh is not None and not mesh.is_main:
+        logger = None  # rank 0 writes the records
     logger = logger or MetricsLogger(None)
     model = uq_state.model
     loss_pe = head_loss_pe_fn(uq_state.uncertainty_type)
@@ -225,8 +268,11 @@ def train_net(
             if start >= epochs:
                 return uq_state.replace(lhat=lhat)
 
-    train_step = make_train_step(model, loss_pe, config, optimizer)
-    eval_step = make_eval_loss_step(model, loss_pe, config)
+    # every rank starts from rank 0's weights and statistics
+    mesh_lib.replicate_tree(mesh, model)
+    batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
+    train_step = make_train_step(model, loss_pe, config, optimizer, mesh)
+    eval_step = make_eval_loss_step(model, loss_pe, config, mesh)
 
     # graceful_shutdown: SIGTERM/SIGINT request a checkpoint at the end of
     # the current epoch instead of killing the run. The first signal
@@ -252,7 +298,7 @@ def train_net(
             uq_state, model, optimizer, lhat, train_dataset, val_dataset,
             starting_epoch, epochs, batch_size, seed, checkpoint_dir,
             checkpoint_every, validate_every, config, logger, validation_hook,
-            train_step, eval_step, stop_signal,
+            train_step, eval_step, stop_signal, mesh,
         )
     finally:
         for s, old in restore_handlers:
@@ -264,10 +310,11 @@ def _run_epochs(
     uq_state, model, optimizer, lhat, train_dataset, val_dataset,
     starting_epoch, epochs, batch_size, seed, checkpoint_dir,
     checkpoint_every, validate_every, config, logger, validation_hook,
-    train_step, eval_step, stop_signal,
+    train_step, eval_step, stop_signal, mesh,
 ):
     """The epoch loop of :func:`train_net`; returns λ̂."""
     device = uq_state.device
+    writes = mesh is None or mesh.is_main
     global_step = _optimizer_steps(optimizer)
     for epoch in range(starting_epoch, epochs):
         batches = iterate_batches(
@@ -288,7 +335,7 @@ def _run_epochs(
                 break
             x, y, mask = item
             t0 = time.perf_counter()
-            out = train_step(*put_batch(x, y, mask, device))
+            out = train_step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device))
             t_dispatch += time.perf_counter() - t0
             if isinstance(out, tuple):
                 out, grad_norms = out  # the last step's norms are logged
@@ -311,7 +358,7 @@ def _run_epochs(
         t_val = 0.0
         if epoch % validate_every == 0:
             t0 = time.perf_counter()
-            val_loss = eval_net(current, val_dataset, batch_size, step=eval_step)
+            val_loss = eval_net(current, val_dataset, batch_size, mesh, step=eval_step)
             t_val = time.perf_counter() - t0
             logger.log({"epoch": epoch, "iter": global_step, "val_loss": val_loss})
             print(f"Val loss: {val_loss}")
@@ -319,7 +366,7 @@ def _run_epochs(
                 validation_hook(current, epoch, global_step)
 
         t0 = time.perf_counter()
-        if (epoch + 1) % checkpoint_every == 0 and checkpoint_dir:
+        if (epoch + 1) % checkpoint_every == 0 and checkpoint_dir and writes:
             path = ckpt.checkpoint_path(checkpoint_dir, epoch + 1, config)
             ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1)
             print(f"Checkpoint {epoch + 1} saved!")
@@ -335,11 +382,19 @@ def _run_epochs(
             "time/checkpoint_s": round(t_ckpt, 3),
         })
 
-        if stop_signal["signum"] is not None and checkpoint_dir:
+        stop = stop_signal["signum"] is not None
+        if mesh_lib.spans(mesh):
+            # a signal to any rank stops them all at this epoch's end
+            stop = mesh.agree(stop)
+        if stop and checkpoint_dir:
             # graceful preemption: the epoch is finished; persist it as a
             # whole-epoch checkpoint if the periodic save did not, and stop
             path = ckpt.checkpoint_path(checkpoint_dir, epoch + 1, config)
-            if (epoch + 1) % checkpoint_every != 0:
+            if (epoch + 1) % checkpoint_every != 0 and writes:
                 ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1)
+            if mesh_lib.spans(mesh):
+                mesh.barrier()
             raise PreemptionInterrupt(path)
+        if mesh_lib.spans(mesh):
+            mesh.barrier()  # rank 0's checkpoint and records are written
     return lhat

@@ -35,6 +35,7 @@ from im2im_uq_tpu.utils.config import DEFAULTS
 from im2im_uq_tpu_torch.calibration import rcps as trcps
 from im2im_uq_tpu_torch.interop.from_jax import load_jax_variables
 from im2im_uq_tpu_torch.models import assembly as tasm
+from im2im_uq_tpu_torch.parallel import distributed as tdistributed
 from im2im_uq_tpu_torch.scripts import infer as tinfer
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
 
@@ -190,12 +191,23 @@ def test_infer_main_writes_the_jax_outputs(pair, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--artifact=x", "--data-parallel", "--spatial"])
 def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
-    """The sharded modes are refused over more than one CUDA device (one
-    visible device leaves them without effect:
-    ``test_torch_port_serving_export.py``); an artifact's sharding is fixed
-    at export, and the data-parallel artifact is not yet ported."""
+    """Over more than one CUDA device (one visible device leaves the flags
+    without effect: ``test_torch_port_serving_export.py``) ``--spatial`` is
+    not yet ported, nor is serving an artifact data-parallel (its sharding
+    is fixed at export, and the data-parallel artifact is not yet ported);
+    ``--data-parallel`` is: it starts one rank per GPU running the same
+    command (``test_torch_port_parallel.py`` runs the ranks)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    spawned = []
+    monkeypatch.setattr(tdistributed, "spawn_per_device",
+                        lambda module, argv, n, **kw: spawned.append((module, argv, n)) or 0)
     model = (["--data-parallel"] if flag.startswith("--artifact")
              else ["--config", "c.yml", "--checkpoint", "c.pt"])
+    argv = [flag, *model, "--input", str(tmp_path), "--output", str(tmp_path)]
+    if flag == "--data-parallel":
+        assert tinfer.main(argv) == 0
+        assert spawned == [("im2im_uq_tpu_torch.scripts.infer", argv, 2)]
+        return
     with pytest.raises(SystemExit, match="not yet ported"):
-        tinfer.main([flag, *model, "--input", str(tmp_path), "--output", str(tmp_path)])
+        tinfer.main(argv)
+    assert spawned == []

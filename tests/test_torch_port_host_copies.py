@@ -37,6 +37,7 @@ from im2im_uq_tpu.data import transforms as jtf
 from im2im_uq_tpu.interop.torch_export import export_state_dict
 from im2im_uq_tpu.interop.torch_import import port_state_dict
 from im2im_uq_tpu.models import assembly as jasm
+from im2im_uq_tpu.parallel import mesh as jmesh
 from im2im_uq_tpu.utils import config as jconfig
 from im2im_uq_tpu.utils import logging as jlog
 
@@ -52,6 +53,7 @@ from im2im_uq_tpu_torch.data import temca as ttemca
 from im2im_uq_tpu_torch.data import transforms as ttf
 from im2im_uq_tpu_torch.interop.from_jax import state_dict_from_jax
 from im2im_uq_tpu_torch.models import assembly as tasm
+from im2im_uq_tpu_torch.parallel import mesh as tmesh
 from im2im_uq_tpu_torch.utils import config as tconfig
 from im2im_uq_tpu_torch.utils import logging as tlog
 
@@ -233,3 +235,19 @@ def test_weight_carrier_matches_export_state_dict_for_every_layout(model, utype,
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
     tstate = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device="cpu")
     tstate.model.load_state_dict(got, strict=True)
+
+
+def test_mesh_batch_rounding_matches():
+    """``mesh_batch_size`` and ``pad_to_multiple`` are copied verbatim; on
+    meshes of 1, 2 and 8 ranks / devices they round alike and warn alike,
+    once per (batch, mesh size)."""
+    for fn in ("mesh_batch_size", "pad_to_multiple"):
+        assert inspect.getsource(getattr(tmesh, fn)) == inspect.getsource(getattr(jmesh, fn))
+    for n in (1, 2, 8):
+        jm = jmesh.data_parallel_mesh(n)
+        tm = tmesh.Mesh(group=None, size=n, rank=0, device=torch.device("cpu"))
+        for b in (1, 7, 8, 78):
+            assert tmesh.mesh_batch_size(b, tm) == jmesh.mesh_batch_size(b, jm)
+            assert tmesh.pad_to_multiple(b, n) == jmesh.pad_to_multiple(b, n)
+    assert tmesh.mesh_batch_size(78, None) == jmesh.mesh_batch_size(78, None) == 78
+    assert (78, 8) in tmesh._ROUNDING_WARNED and (78, 8) in jmesh._ROUNDING_WARNED

@@ -492,9 +492,14 @@ def test_steps_train_batchnorm_after_a_validation_hook(tmp_path):
     ],
 )
 def test_unported_training_options_raise(kw):
+    """The options that are not ported raise; a mesh is ported
+    (``test_torch_port_parallel.py``), and anything but a
+    ``parallel.mesh.Mesh`` or None in its place is a TypeError."""
     kw = dict(kw)
     mesh = kw.pop("mesh", None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    expected = (pytest.raises(TypeError, match="Mesh") if mesh is not None
+                else pytest.raises(NotImplementedError, match="not yet ported"))
+    with expected:
         ttrain.train_net(_small_state(), _small_ds(), _small_ds(), mesh, epochs=1, batch_size=4,
                          lr=1e-3, config=dict(SMALL, **kw.pop("config", {})), **kw)
 
