@@ -150,12 +150,29 @@ Phases, one JSON line each on stdout:
               1e-7, the JAX artifact test's bars), and the default
               config's (K1f) within phase 7's rtol 1e-4 / atol 1e-5; the
               same export and serving once in bf16.
+23. dp        data parallelism over 2 ranks of one process group (the port's
+              ``parallel/``): one process per GPU with two or more GPUs
+              (NCCL), else both ranks on the one card over gloo, every
+              collective staged through host memory, a rehearsal that gives
+              no scaling number. The main path's model at 320x320, a global
+              batch of 32 (16 a rank): one SGD step under ``xla`` f32,
+              ``pallas_fused`` f32 and ``pallas_fused`` bf16 against the
+              one-process step on rank 0's card (dp_train: loss, gradients,
+              parameters and running statistics; each rank's K1f, K1b, K7
+              and K3-K6 launches; ms per DP step); calibration of the
+              phase-5 weights under ``pallas_fused`` on the 128 images
+              sharded (dp_calibrate: the table against the one-process
+              table, λ̂ equal, ``compute_risks_device`` equal to the
+              table's column means); ``infer.main --data-parallel`` on the
+              64 serve images (dp_serve: the intervals against one
+              process). ``python3 chip_smoke.py --dp-worker DIR`` is a rank.
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
 under the fused config, each head's, WNet's and the softmax router's, the
 bf16 paths, the remat steps, the calibrate CLI and the serving paths of
-the deploy phase) and read just after it; the ``kernels`` line
+the deploy phase, and in each rank the dp phase's steps, calibration and
+serving) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -169,6 +186,8 @@ import collections
 import contextlib
 import copy
 import ctypes
+import datetime
+import gc
 import io
 import json
 import os
@@ -186,7 +205,12 @@ import torch.nn.functional as F
 import yaml
 
 from im2im_uq_tpu_torch import _build
-from im2im_uq_tpu_torch.calibration.rcps import calibrate_model, lambda_grid
+from im2im_uq_tpu_torch.calibration.rcps import (
+    calibrate_model,
+    compute_loss_table,
+    compute_risks_device,
+    lambda_grid,
+)
 from im2im_uq_tpu_torch.models.assembly import (
     UQState,
     add_uncertainty,
@@ -204,6 +228,8 @@ from im2im_uq_tpu_torch.ops import (
     resize,
     upsample,
 )
+from im2im_uq_tpu_torch.parallel import distributed
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
 from im2im_uq_tpu_torch.scripts import calibrate as calibrate_script
 from im2im_uq_tpu_torch.scripts import export_serving
@@ -2611,6 +2637,304 @@ def phase_deploy(config: dict, calib, serve) -> dict:
     return launches
 
 
+# the dp phase: two ranks, their train step cases (config overrides), SGD's
+# rate (tests/test_parallel.py's), the timed DP steps after the compared one
+DP_RANKS = 2
+DP_CASES = {"xla": {}, "pallas_fused": {"conv_backend": "pallas_fused"},
+            "pallas_fused_bf16": {"conv_backend": "pallas_fused", "compute_dtype": "bfloat16"}}
+DP_LR, DP_TIMED_STEPS = 1e-2, 3
+# the CPU tests' bars on the parameters after one SGD step and the running
+# statistics, printed beside the card's (tests/test_torch_port_parallel.py)
+DP_CPU_RTOL, DP_CPU_ATOL = 1e-4, 2e-6
+# how long the ranks may take, and a collective may wait, in seconds
+DP_TIMEOUT_S, DP_COLLECTIVE_S = 400, 300
+# the kernels each rank's DP step must launch under pallas_fused, beside
+# K1f, K1b and K7
+DP_FUSED_KERNELS = {"pallas_fused": ["conv3x3", "conv3x3_bn_act", "wgrad3x3", "dgrad3x3"],
+                    "pallas_fused_bf16": BF16_TRAIN_KERNELS["pallas_fused"]}
+
+
+class _Pairs:
+    """(x, y) items of NHWC arrays, a map-style dataset."""
+
+    def __init__(self, xs: np.ndarray, ys: np.ndarray):
+        self.xs, self.ys = xs, ys
+
+    def __len__(self) -> int:
+        return len(self.xs)
+
+    def __getitem__(self, i: int):
+        return self.xs[i], self.ys[i]
+
+
+def _max_rel_diff(got: dict, want: dict) -> tuple[float, str]:
+    """max |got − want| / max |want| over each tensor, the worst and its name."""
+    errs = {k: float((got[k].double() - w.double()).abs().max() / w.double().abs().max().clamp_min(1e-30))
+            for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _within(got: dict, want: dict, rtol: float, atol: float) -> bool:
+    return all(torch.allclose(got[k].double(), w.double(), rtol=rtol, atol=atol)
+               for k, w in want.items())
+
+
+def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> dict:
+    """One SGD step of ``weights`` under ``cfg`` over ``mesh``, counted and
+    then timed; on rank 0 against the one-process step on its card."""
+    def one_step(m):
+        st = add_uncertainty(build_trunk(cfg), cfg, device=mesh.device)
+        st.model.load_state_dict(weights)
+        opt = torch.optim.SGD(st.model.parameters(), lr=DP_LR)
+        step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt, m)
+        tensors = train.put_batch(*mesh_lib.put_batch(m, *batch), mesh.device)
+        loss = float(step(*tensors))
+        torch.cuda.synchronize()
+        out = (loss, {n: p.grad.detach().clone() for n, p in st.model.named_parameters()},
+               {n: p.detach().clone() for n, p in st.model.named_parameters()},
+               {n: b.detach().clone() for n, b in st.model.named_buffers() if "running" in n})
+        return out, step, tensors
+
+    reset_counts()
+    (loss, grads, params, stats), step, tensors = one_step(mesh)
+    counts = read_counts()
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    if bad:
+        raise AssertionError(f"dp_train {name}: gradients not finite or zero: {bad}")
+    mesh.barrier()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(DP_TIMED_STEPS):
+        step(*tensors)
+    t1.record()
+    mesh.barrier()
+    t1.synchronize()
+    res = {"loss": loss, "launches": counts, "step_ms": t0.elapsed_time(t1) / DP_TIMED_STEPS}
+    del step, tensors
+    if mesh.is_main:
+        (ref_loss, ref_grads, ref_params, ref_stats), _, _ = one_step(None)
+        grad_err = _rel_errors({k: v.double().cpu() for k, v in grads.items()},
+                               {k: v.double().cpu() for k, v in ref_grads.items()})
+        worst_g = max(grad_err, key=grad_err.get)
+        res.update(
+            loss_one_process=ref_loss, loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+            max_grad_err=grad_err[worst_g], worst_grad=worst_g,
+            whole_grad_err=_rel_l2(torch.cat([grads[k].flatten() for k in ref_grads]),
+                                   torch.cat([ref_grads[k].flatten() for k in ref_grads])),
+            max_rel_param_diff=_max_rel_diff(params, ref_params),
+            max_rel_stat_diff=_max_rel_diff(stats, ref_stats),
+            max_stat_err=max(_rel_l2(stats[k], v) for k, v in ref_stats.items()),
+            within_cpu_bars=_within({**params, **stats}, {**ref_params, **ref_stats},
+                                    DP_CPU_RTOL, DP_CPU_ATOL))
+    return res
+
+
+def dp_worker(tmp: Path) -> int:
+    """One rank of the dp phase (``--dp-worker DIR``): the train steps,
+    calibration and serving over the mesh, results to DIR/dp_rank{r}.json."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
+    distributed.init_distributed(device="cuda", backend=backend,
+                                 timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+    mesh = mesh_lib.data_parallel_mesh("cuda")
+    config = dict(infer.DEFAULTS, **CONFIG)
+    weights = torch.load(tmp / "weights.pt", map_location=mesh.device, weights_only=True)
+    with np.load(tmp / "data.npz") as z:
+        data = {k: z[k] for k in z.files}
+    batch = (data["x"], data["y"], data["mask"])
+    out = {"rank": mesh.rank, "backend": backend, "staged": mesh.staged,
+           "device": str(mesh.device), "train": {}}
+    launches = {k: 0 for k in KERNELS}
+
+    def count(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for name, extra in DP_CASES.items():
+        res = _dp_train_case(name, dict(config, **extra), weights, batch, mesh)
+        count(res["launches"])
+        out["train"][name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = dict(config, conv_backend="pallas_fused")
+    calib = _Pairs(data["calib_x"], data["calib_y"])
+    state = add_uncertainty(build_trunk(cfg), cfg, device=mesh.device,
+                            generator=torch.Generator(device=mesh.device).manual_seed(0))
+    mesh_lib.replicate_tree(mesh, state.model)
+    grid = lambda_grid(cfg)
+    shifted = grid - (grid[1] - grid[0])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal, table = calibrate_model(state, calib, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    raw = compute_loss_table(state, calib, shifted, batch_size=cfg["batch_size"], mesh=mesh,
+                             method="pallas")
+    risks = compute_risks_device(state, calib, shifted, batch_size=cfg["batch_size"], mesh=mesh,
+                                 method="pallas")
+    cal_counts = read_counts()
+    count(cal_counts)
+    res = {"lhat": cal.lhat, "seconds": cal_s, "launches": cal_counts,
+           "risks_vs_table": float(np.abs(risks - raw.mean(axis=0)).max())}
+    if mesh.is_main:
+        ref, ref_table = calibrate_model(state, calib, cfg)
+        res.update(lhat_one_process=ref.lhat,
+                   table_max_abs_diff=float(np.abs(table - ref_table).max()),
+                   table_bit_identical=bool(np.array_equal(table, ref_table)))
+        ckpt = save_calibrated_checkpoint(cal, cfg, str(tmp / "ckpt"))
+        with open(tmp / "dp.yml", "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        res["checkpoint"] = ckpt
+    out["calibrate"] = res
+    mesh.barrier()  # rank 0's checkpoint and config are written
+
+    ckpt = calibrated_checkpoint_path(str(tmp / "ckpt"), cfg)
+    reset_counts()
+    rc = infer.main(["--config", str(tmp / "dp.yml"), "--checkpoint", ckpt, "--input",
+                     str(tmp / "serve.npy"), "--output", str(tmp / "served"), "--batch-size",
+                     str(cfg["batch_size"]), "--data-parallel", "--device", "cuda"])
+    torch.cuda.synchronize()
+    serve_counts = read_counts()
+    count(serve_counts)
+    res = {"rc": rc, "launches": serve_counts}
+    mesh.barrier()  # rank 0's intervals are written
+    if mesh.is_main:
+        with np.load(tmp / "served" / "serve_intervals.npz") as z:
+            served = {k: z[k] for k in z.files}
+        with open(tmp / "served" / "inference_summary.json") as fh:
+            res["summary"] = json.load(fh)
+        want = infer.predict_intervals(cal, np.load(tmp / "serve.npy"), cfg["batch_size"])
+        res["max_abs_diff"] = _max_abs(served, want)
+        res["bit_identical"] = all(np.array_equal(served[k], want[k]) for k in want)
+        res["lam"] = float(served["lam"])
+    out["serve"] = res
+    out["launches"] = launches
+    with open(tmp / f"dp_rank{mesh.rank}.json", "w") as fh:
+        json.dump(out, fh)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn_dp_ranks(tmp: Path) -> list[dict]:
+    """The dp phase's ranks, this script with ``--dp-worker``; each rank's
+    log goes to tmp/rank{r}.log. Every rank is killed if one fails or the
+    phase outlasts DP_TIMEOUT_S."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
+               WORLD_SIZE=str(DP_RANKS))
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(DP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                               str(tmp)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DP_RANKS)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode for p in procs
+                                                  if p.returncode is not None):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in logs:
+            fh.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (tmp / f"rank{r}.log").read_text()[-6000:]
+            raise AssertionError(f"dp rank {r} exited {p.returncode}:\n{tail}")
+    results = []
+    for r in range(DP_RANKS):
+        with open(tmp / f"dp_rank{r}.json") as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def phase_dp(config: dict, calib, serve, smi: str) -> dict:
+    """Phase 23: the dp phase's ranks (module docstring), their lines and
+    checks → the launches of both ranks' DP paths."""
+    cfg = dict(config)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+    weights = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+    del st
+    x, y, mask = path_batch(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        torch.save(weights, tmp / "weights.pt")
+        np.savez(tmp / "data.npz", x=x, y=y, mask=mask,
+                 calib_x=np.stack([calib[i][0] for i in range(len(calib))]),
+                 calib_y=np.stack([calib[i][1] for i in range(len(calib))]))
+        np.save(tmp / "serve.npy", np.stack([serve[i][0] for i in range(len(serve))]))
+        t0 = time.perf_counter()
+        ranks = _spawn_dp_ranks(tmp)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for name, res in r0["train"].items():
+        per_rank = [r["train"][name]["launches"] for r in ranks]
+        emit("dp_train", case=name, ranks=DP_RANKS, backend=r0["backend"], staged=r0["staged"],
+             devices=[r["device"] for r in ranks], global_batch=cfg["batch_size"], image=IMAGE,
+             lr=DP_LR, cpu_bars={"rtol": DP_CPU_RTOL, "atol": DP_CPU_ATOL},
+             card=smi, **{k: v for k, v in res.items() if k != "launches"},
+             step_ms_per_rank=[r["train"][name]["step_ms"] for r in ranks],
+             launches_per_rank=per_rank)
+        if {r["train"][name]["loss"] for r in ranks} != {res["loss"]}:
+            raise AssertionError(f"dp_train {name}: the ranks' losses differ")
+        for r, counts in enumerate(per_rank):
+            require_launches(f"dp_train {name} rank {r}", counts,
+                             ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
+                             + DP_FUSED_KERNELS.get(name, []))
+        bf16 = name.endswith("bf16")
+        loss_bar = BF16_LOSS_RTOL if bf16 else FUSED_LOSS_RTOL
+        stat_bar = BF16_STAT_RTOL if bf16 else FUSED_STAT_RTOL
+        grad_bad = (res["whole_grad_err"] > BF16_GRAD_RTOL if bf16
+                    else res["max_grad_err"] > GRAD_RTOL)
+        if res["loss_rel_err"] > loss_bar or grad_bad or res["max_stat_err"] > stat_bar:
+            raise AssertionError(f"dp_train {name}: the 2-rank step is off the one-process step: "
+                                 f"{res}")
+    cal = [r["calibrate"] for r in ranks]
+    emit("dp_calibrate", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(calib),
+         num_lambdas=cfg["num_lambdas"], lhat=[c["lhat"] for c in cal],
+         lhat_one_process=cal[0]["lhat_one_process"],
+         table_max_abs_diff=cal[0]["table_max_abs_diff"],
+         table_bit_identical=cal[0]["table_bit_identical"],
+         risks_vs_table=[c["risks_vs_table"] for c in cal],
+         seconds=[c["seconds"] for c in cal], launches_per_rank=[c["launches"] for c in cal])
+    if len({c["lhat"] for c in cal} | {cal[0]["lhat_one_process"]}) != 1:
+        raise AssertionError(f"dp_calibrate: λ̂ differs between the ranks or from one process")
+    if max(c["risks_vs_table"] for c in cal) > 1e-6:
+        raise AssertionError("dp_calibrate: compute_risks_device is off the table's column means")
+    for r, c in enumerate(cal):
+        require_launches(f"dp_calibrate rank {r}", c["launches"],
+                         ["loss_table", "upsample2x", "conv3x3", "conv3x3_bn_act"])
+    srv = [r["serve"] for r in ranks]
+    emit("dp_serve", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(serve),
+         rc=[s["rc"] for s in srv], max_abs_diff=srv[0]["max_abs_diff"],
+         bit_identical=srv[0]["bit_identical"], lam=srv[0]["lam"],
+         imgs_per_sec=srv[0]["summary"]["imgs_per_sec"], seconds=srv[0]["summary"]["seconds"],
+         launches_per_rank=[s["launches"] for s in srv])
+    if any(s["rc"] != 0 for s in srv) or srv[0]["lam"] != cal[0]["lhat"]:
+        raise AssertionError(f"dp_serve: infer.main failed or served another λ: {srv}")
+    if srv[0]["max_abs_diff"] > 1e-4:
+        raise AssertionError(f"dp_serve: the intervals are {srv[0]['max_abs_diff']} from one "
+                             "process")
+    for r, s in enumerate(srv):
+        require_launches(f"dp_serve rank {r}", s["launches"],
+                         ["upsample2x", "conv3x3", "conv3x3_bn_act"])
+    emit("dp", ranks=DP_RANKS, backend=r0["backend"], seconds=wall, card=smi,
+         cards="one, shared by the ranks" if r0["device"] == ranks[1]["device"] else "one a rank")
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -2686,10 +3010,12 @@ def main() -> int:
     remat_counts = phase_remat(config)
     # 22. deploy: the calibrate CLI, the serving artifact, serving from it
     deploy_counts = phase_deploy(config, calib, serve)
+    # 23. dp: training, calibration and serving over two ranks
+    dp_counts = phase_dp(config, calib, serve, smi)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
                    bf16_counts, bf16_model_counts, router_bf16_counts, router_bf16_fused_counts,
-                   remat_counts, deploy_counts):
+                   remat_counts, deploy_counts, dp_counts):
         for name, n in counts.items():
             launches[name] += n
 
@@ -2729,4 +3055,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        raise SystemExit(dp_worker(Path(sys.argv[2])))
     raise SystemExit(main())
