@@ -152,27 +152,31 @@ Phases, one JSON line each on stdout:
               same export and serving once in bf16.
 23. dp        data parallelism over 2 ranks of one process group (the port's
               ``parallel/``): one process per GPU with two or more GPUs
-              (NCCL), else both ranks on the one card over gloo, every
-              collective staged through host memory, a rehearsal that gives
-              no scaling number. The main path's model at 320x320, a global
-              batch of 32 (16 a rank): one SGD step under ``xla`` f32,
+              (NCCL), else both ranks on the one card over gloo (its own
+              CUDA collectives), a rehearsal that gives no scaling number.
+              The main path's model at 320x320, a global batch of 32 (16 a
+              rank): one SGD step under ``xla`` f32,
               ``pallas_fused`` f32 and ``pallas_fused`` bf16 against the
               one-process step on rank 0's card (dp_train: loss, gradients,
-              parameters and running statistics; each rank's K1f, K1b, K7
-              and K3-K6 launches; ms per DP step); calibration of the
-              phase-5 weights under ``pallas_fused`` on the 128 images
-              sharded (dp_calibrate: the table against the one-process
-              table, λ̂ equal, ``compute_risks_device`` equal to the
-              table's column means); ``infer.main --data-parallel`` on the
-              64 serve images (dp_serve: the intervals against one
-              process). ``python3 chip_smoke.py --dp-worker DIR`` is a rank.
+              parameters and running statistics, the f32 ones within the
+              CPU test's bars; each rank's K1f, K1b, K7 and K3-K6
+              launches; ms per DP step); calibration of the phase-5
+              weights under ``pallas_fused`` on the 128 images sharded
+              (dp_calibrate: the calibrated table and the whole table over
+              the mesh within DP_TABLE_ATOL of one process's, λ̂ equal,
+              ``compute_risks_device`` within 1e-6 of the whole table's
+              column means, over the mesh and in one process; the
+              calibration's launches and compute_risks_device's, each
+              counted alone); ``infer.main --data-parallel`` on the 64
+              serve images (dp_serve: the intervals against one process).
+              ``python3 chip_smoke.py --dp-worker DIR`` is a rank.
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
 under the fused config, each head's, WNet's and the softmax router's, the
 bf16 paths, the remat steps, the calibrate CLI and the serving paths of
-the deploy phase, and in each rank the dp phase's steps, calibration and
-serving) and read just after it; the ``kernels`` line
+the deploy phase, and in each rank the dp phase's steps, calibration,
+``compute_risks_device`` and serving) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -272,7 +276,11 @@ RESULT_KEYS = sorted([
     "risk", "sizes", "spearman", "size-stratified risk", "mse", "spatial_miscoverage",
     "lhat", "inputs", "gt", "predictions", "lower_edge", "upper_edge",
 ])
-DEVICE = "cuda"  # where phases 8-10 run the port
+# where phases 8-10 and the single-process CLIs run the port: an indexed
+# device, so that the router and the calibrate and infer CLIs run in this
+# process on one GPU also where more are visible (with plain "cuda" they
+# would start one worker per GPU)
+DEVICE = "cuda:0"
 # each kernel's wrapper, which counts its launches
 KERNELS = {
     "upsample2x": upsample.upsample2x,
@@ -1918,7 +1926,7 @@ def calibrate_and_serve(tag: str, state: UQState, config: dict, calib, serve,
         rc = infer.main([
             "--config", cfg_path, "--checkpoint", ckpt, "--input",
             os.path.join(tmp, "serve.npy"), "--output", out_dir,
-            "--batch-size", "32", "--device", "cuda",
+            "--batch-size", "32", "--device", DEVICE,
         ])
         torch.cuda.synchronize()
         serve_counts = read_counts()
@@ -2644,8 +2652,12 @@ DP_CASES = {"xla": {}, "pallas_fused": {"conv_backend": "pallas_fused"},
             "pallas_fused_bf16": {"conv_backend": "pallas_fused", "compute_dtype": "bfloat16"}}
 DP_LR, DP_TIMED_STEPS = 1e-2, 3
 # the CPU tests' bars on the parameters after one SGD step and the running
-# statistics, printed beside the card's (tests/test_torch_port_parallel.py)
+# statistics (tests/test_torch_port_parallel.py), required of the f32 cases
 DP_CPU_RTOL, DP_CPU_ATOL = 1e-4, 2e-6
+# the loss tables over the mesh against one process's: below one pixel's
+# share of one image's loss (1 / 320² = 9.8e-6), so a row dropped,
+# duplicated or out of order fails
+DP_TABLE_ATOL = 1e-6
 # how long the ranks may take, and a collective may wait, in seconds
 DP_TIMEOUT_S, DP_COLLECTIVE_S = 400, 300
 # the kernels each rank's DP step must launch under pallas_fused, beside
@@ -2696,25 +2708,32 @@ def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> d
                {n: b.detach().clone() for n, b in st.model.named_buffers() if "running" in n})
         return out, step, tensors
 
+    def time_step(step, tensors, m):
+        if m is not None:
+            m.barrier()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(DP_TIMED_STEPS):
+            step(*tensors)
+        t1.record()
+        if m is not None:
+            m.barrier()
+        t1.synchronize()
+        return t0.elapsed_time(t1) / DP_TIMED_STEPS
+
     reset_counts()
     (loss, grads, params, stats), step, tensors = one_step(mesh)
     counts = read_counts()
     bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool(g.any())]
     if bad:
         raise AssertionError(f"dp_train {name}: gradients not finite or zero: {bad}")
-    mesh.barrier()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(DP_TIMED_STEPS):
-        step(*tensors)
-    t1.record()
-    mesh.barrier()
-    t1.synchronize()
-    res = {"loss": loss, "launches": counts, "step_ms": t0.elapsed_time(t1) / DP_TIMED_STEPS}
+    res = {"loss": loss, "launches": counts, "step_ms": time_step(step, tensors, mesh)}
     del step, tensors
     if mesh.is_main:
-        (ref_loss, ref_grads, ref_params, ref_stats), _, _ = one_step(None)
+        (ref_loss, ref_grads, ref_params, ref_stats), step, tensors = one_step(None)
+        res["step_ms_one_process"] = time_step(step, tensors, None)
+        del step, tensors
         grad_err = _rel_errors({k: v.double().cpu() for k, v in grads.items()},
                                {k: v.double().cpu() for k, v in ref_grads.items()})
         worst_g = max(grad_err, key=grad_err.get)
@@ -2745,8 +2764,7 @@ def dp_worker(tmp: Path) -> int:
     with np.load(tmp / "data.npz") as z:
         data = {k: z[k] for k in z.files}
     batch = (data["x"], data["y"], data["mask"])
-    out = {"rank": mesh.rank, "backend": backend, "staged": mesh.staged,
-           "device": str(mesh.device), "train": {}}
+    out = {"rank": mesh.rank, "backend": backend, "device": str(mesh.device), "train": {}}
     launches = {k: 0 for k in KERNELS}
 
     def count(counts):
@@ -2773,19 +2791,31 @@ def dp_worker(tmp: Path) -> int:
     cal, table = calibrate_model(state, calib, cfg, mesh=mesh)
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
-    raw = compute_loss_table(state, calib, shifted, batch_size=cfg["batch_size"], mesh=mesh,
-                             method="pallas")
+    cal_counts = read_counts()
+    reset_counts()
     risks = compute_risks_device(state, calib, shifted, batch_size=cfg["batch_size"], mesh=mesh,
                                  method="pallas")
-    cal_counts = read_counts()
+    torch.cuda.synchronize()
+    risk_counts = read_counts()
     count(cal_counts)
+    count(risk_counts)
+    # for the comparison alone: the whole table over the mesh (calibrate_model
+    # zeroes the columns below λ̂'s)
+    raw = compute_loss_table(state, calib, shifted, batch_size=cfg["batch_size"], mesh=mesh,
+                             method="pallas")
     res = {"lhat": cal.lhat, "seconds": cal_s, "launches": cal_counts,
+           "risks_launches": risk_counts,
            "risks_vs_table": float(np.abs(risks - raw.mean(axis=0)).max())}
     if mesh.is_main:
         ref, ref_table = calibrate_model(state, calib, cfg)
+        ref_raw = compute_loss_table(state, calib, shifted, batch_size=cfg["batch_size"],
+                                     method="pallas")
         res.update(lhat_one_process=ref.lhat,
-                   table_max_abs_diff=float(np.abs(table - ref_table).max()),
-                   table_bit_identical=bool(np.array_equal(table, ref_table)))
+                   table_max_abs_diff=_table_diff(table, ref_table),
+                   table_bit_identical=bool(np.array_equal(table, ref_table)),
+                   whole_table_max_abs_diff=_table_diff(raw, ref_raw),
+                   whole_table_bit_identical=bool(np.array_equal(raw, ref_raw)),
+                   risks_vs_one_process=float(np.abs(risks - ref_raw.mean(axis=0)).max()))
         ckpt = save_calibrated_checkpoint(cal, cfg, str(tmp / "ckpt"))
         with open(tmp / "dp.yml", "w") as fh:
             yaml.safe_dump(cfg, fh)
@@ -2821,35 +2851,28 @@ def dp_worker(tmp: Path) -> int:
     return 0
 
 
+def _table_diff(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a − b|, or inf where the tables' shapes differ."""
+    return float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+
+
 def _spawn_dp_ranks(tmp: Path) -> list[dict]:
-    """The dp phase's ranks, this script with ``--dp-worker``; each rank's
-    log goes to tmp/rank{r}.log. Every rank is killed if one fails or the
-    phase outlasts DP_TIMEOUT_S."""
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
-               WORLD_SIZE=str(DP_RANKS))
+    """The dp phase's ranks, this script with ``--dp-worker``, started by
+    the port's ``spawn_per_device``; each rank's log goes to
+    tmp/rank{r}.log. Every rank is killed if one fails or the phase
+    outlasts DP_TIMEOUT_S."""
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(DP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
-                               str(tmp)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(DP_RANKS)]
-    deadline = time.monotonic() + DP_TIMEOUT_S
     try:
-        while any(p.poll() is None for p in procs):
-            if time.monotonic() > deadline or any(p.returncode for p in procs
-                                                  if p.returncode is not None):
-                break
-            time.sleep(0.5)
+        rc = distributed.spawn_per_device(
+            [str(Path(__file__).resolve()), "--dp-worker", str(tmp)], DP_RANKS,
+            timeout=DP_TIMEOUT_S, stdout=logs)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
         for fh in logs:
             fh.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            tail = (tmp / f"rank{r}.log").read_text()[-6000:]
-            raise AssertionError(f"dp rank {r} exited {p.returncode}:\n{tail}")
+    if rc != 0:
+        tails = "\n".join(f"--- rank {r}:\n" + (tmp / f"rank{r}.log").read_text()[-3000:]
+                          for r in range(DP_RANKS))
+        raise AssertionError(f"the dp ranks exited {rc}:\n{tails}")
     results = []
     for r in range(DP_RANKS):
         with open(tmp / f"dp_rank{r}.json") as fh:
@@ -2881,7 +2904,7 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
     r0 = ranks[0]
     for name, res in r0["train"].items():
         per_rank = [r["train"][name]["launches"] for r in ranks]
-        emit("dp_train", case=name, ranks=DP_RANKS, backend=r0["backend"], staged=r0["staged"],
+        emit("dp_train", case=name, ranks=DP_RANKS, backend=r0["backend"],
              devices=[r["device"] for r in ranks], global_batch=cfg["batch_size"], image=IMAGE,
              lr=DP_LR, cpu_bars={"rtol": DP_CPU_RTOL, "atol": DP_CPU_ATOL},
              card=smi, **{k: v for k, v in res.items() if k != "launches"},
@@ -2901,21 +2924,33 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
         if res["loss_rel_err"] > loss_bar or grad_bad or res["max_stat_err"] > stat_bar:
             raise AssertionError(f"dp_train {name}: the 2-rank step is off the one-process step: "
                                  f"{res}")
+        if not bf16 and not res["within_cpu_bars"]:
+            raise AssertionError(f"dp_train {name}: the parameters or running statistics are "
+                                 f"outside the CPU test's bars: {res}")
     cal = [r["calibrate"] for r in ranks]
     emit("dp_calibrate", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(calib),
          num_lambdas=cfg["num_lambdas"], lhat=[c["lhat"] for c in cal],
          lhat_one_process=cal[0]["lhat_one_process"],
-         table_max_abs_diff=cal[0]["table_max_abs_diff"],
+         table_atol=DP_TABLE_ATOL, table_max_abs_diff=cal[0]["table_max_abs_diff"],
          table_bit_identical=cal[0]["table_bit_identical"],
+         whole_table_max_abs_diff=cal[0]["whole_table_max_abs_diff"],
+         whole_table_bit_identical=cal[0]["whole_table_bit_identical"],
          risks_vs_table=[c["risks_vs_table"] for c in cal],
-         seconds=[c["seconds"] for c in cal], launches_per_rank=[c["launches"] for c in cal])
+         risks_vs_one_process=cal[0]["risks_vs_one_process"],
+         seconds=[c["seconds"] for c in cal], launches_per_rank=[c["launches"] for c in cal],
+         risks_launches_per_rank=[c["risks_launches"] for c in cal])
+    # λ̂ of random weights sits at the grid's top, so its equality alone shows
+    # little: the tables carry the check
     if len({c["lhat"] for c in cal} | {cal[0]["lhat_one_process"]}) != 1:
         raise AssertionError(f"dp_calibrate: λ̂ differs between the ranks or from one process")
-    if max(c["risks_vs_table"] for c in cal) > 1e-6:
+    if max(cal[0]["table_max_abs_diff"], cal[0]["whole_table_max_abs_diff"]) > DP_TABLE_ATOL:
+        raise AssertionError("dp_calibrate: the loss table over the mesh is off one process's")
+    if max(c["risks_vs_table"] for c in cal) > 1e-6 or cal[0]["risks_vs_one_process"] > 1e-6:
         raise AssertionError("dp_calibrate: compute_risks_device is off the table's column means")
     for r, c in enumerate(cal):
-        require_launches(f"dp_calibrate rank {r}", c["launches"],
-                         ["loss_table", "upsample2x", "conv3x3", "conv3x3_bn_act"])
+        for what in ("launches", "risks_launches"):
+            require_launches(f"dp_calibrate rank {r} {what}", c[what],
+                             ["loss_table", "upsample2x", "conv3x3", "conv3x3_bn_act"])
     srv = [r["serve"] for r in ranks]
     emit("dp_serve", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(serve),
          rc=[s["rc"] for s in srv], max_abs_diff=srv[0]["max_abs_diff"],

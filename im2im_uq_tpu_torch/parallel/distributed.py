@@ -95,21 +95,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_per_device(module: str, argv: list[str], nprocs: int,
-                     timeout: Optional[float] = None, stdout=None) -> int:
-    """Run ``python -m module *argv`` in ``nprocs`` processes as ranks 0 ..
-    nprocs − 1 of one group on localhost, and wait for them.
+def spawn_per_device(command: list[str], nprocs: int, timeout: Optional[float] = None,
+                     stdout=None) -> int:
+    """Run ``python *command`` (e.g. ``["-m", module, *argv]``) in ``nprocs``
+    processes as ranks 0 .. nprocs − 1 of one group on localhost, and wait
+    for them.
 
     Each gets the launcher's variables (``LOCAL_RANK`` picks its GPU) and
-    writes its output to ``stdout`` (a file; default: this process's). If a
-    rank fails, or ``timeout`` seconds pass, the others are killed. Returns
-    0, or the first nonzero exit code (124 on the timeout)."""
+    writes its output to ``stdout``: a file, a list of one file per rank, or
+    None for this process's. If a rank fails, or ``timeout`` seconds pass,
+    the others are killed. Returns 0, or the first nonzero exit code (124 on
+    the timeout)."""
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                WORLD_SIZE=str(nprocs), LOCAL_WORLD_SIZE=str(nprocs))
+    outs = stdout if isinstance(stdout, (list, tuple)) else [stdout] * nprocs
     procs = [
-        subprocess.Popen([sys.executable, "-m", module, *argv],
-                         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=stdout,
-                         stderr=None if stdout is None else subprocess.STDOUT)
+        subprocess.Popen([sys.executable, *command], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                         stdout=outs[r], stderr=None if outs[r] is None else subprocess.STDOUT)
         for r in range(nprocs)
     ]
     deadline = None if timeout is None else time.monotonic() + timeout
@@ -153,5 +155,6 @@ def join_or_spawn(module: str, argv: Optional[list[str]],
         return None, data_parallel_mesh(device)
     n = visible_devices(device)
     if n > 1:
-        return spawn_per_device(module, sys.argv[1:] if argv is None else list(argv), n), None
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return spawn_per_device(["-m", module, *argv], n), None
     return None, None

@@ -18,10 +18,11 @@ BatchNorm statistics over the global batch (``models/unet.py``), the
 gradients summed and the loss normalised by the global mask count
 (``training/train.py``), the calibration sums (``calibration/rcps.py``).
 
-A one-rank mesh, or none, is the one-device path exactly. Under gloo with
-CUDA tensors (two ranks rehearsing on one GPU, ``parallel/distributed.py``)
-every collective is staged through host memory, since gloo lacks some CUDA
-collectives; NCCL and CPU tensors take them directly.
+A one-rank mesh, or none, is the one-device path exactly. Every backend
+takes the collectives on the tensors' own device: NCCL on CUDA, gloo on
+the CPU and also on CUDA (two ranks rehearsing on one GPU,
+``parallel/distributed.py``; gloo's all-reduce, broadcast and all-gather
+accept CUDA tensors in f32, f64, bf16, int64 and bool).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 __all__ = [
@@ -50,14 +52,12 @@ DATA_AXIS = "data"
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The ranks of ``group`` (None: the default group) along the data
-    axis: ``size`` of them, this process ``rank``, driving ``device``.
-    ``staged`` collectives go through host memory."""
+    axis: ``size`` of them, this process ``rank``, driving ``device``."""
 
     group: Any
     size: int
     rank: int
     device: torch.device
-    staged: bool = False
 
     @property
     def shape(self) -> dict:
@@ -69,29 +69,24 @@ class Mesh:
         """Rank 0, which alone writes files."""
         return self.rank == 0
 
-    def _run(self, collective, t: torch.Tensor) -> torch.Tensor:
-        if not self.staged:
-            collective(t)
-            return t
-        host = t.cpu()
-        collective(host)
-        return t.copy_(host)
-
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Σ over the ranks of ``t``, into a new tensor (identical bits on
         every rank)."""
-        return self._run(lambda a: dist.all_reduce(a, group=self.group), t.clone())
+        t = t.clone()
+        dist.all_reduce(t, group=self.group)
+        return t
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` set in place to rank ``src``'s value."""
-        return self._run(lambda a: dist.broadcast(a, src, group=self.group), t)
+        dist.broadcast(t, src, group=self.group)
+        return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` concatenated along axis 0 in rank order."""
-        src = t.contiguous() if not self.staged else t.detach().cpu().contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts).to(t.device)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts)
 
     def barrier(self) -> None:
         """Wait, on the host, until every rank arrives (after rank 0's
@@ -127,9 +122,8 @@ def data_parallel_mesh(device: torch.device | str = "cuda", group=None) -> Mesh:
         torch.cuda.set_device(device)
     if not dist.is_initialized():
         return Mesh(group=None, size=1, rank=0, device=device)
-    staged = dist.get_backend(group) == "gloo" and device.type == "cuda"
     return Mesh(group=group, size=dist.get_world_size(group), rank=dist.get_rank(group),
-                device=device, staged=staged)
+                device=device)
 
 
 def mesh_batch_size(batch_size: int, mesh: Optional[Mesh]) -> int:
@@ -204,26 +198,10 @@ def fetch(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
     return mesh.all_gather(t) if spans(mesh) else t
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Σ over the ranks, differentiable: the cotangent of every rank's
-    input is the Σ of the output's cotangents, as
-    ``torch.distributed.nn.functional.all_reduce``, through the mesh's
-    collectives (so staged where the mesh stages)."""
-
-    @staticmethod
-    def forward(ctx, mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-        ctx.mesh = mesh
-        return mesh.all_reduce(t)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        return None, ctx.mesh.all_reduce(g.contiguous())
-
-
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Σ of ``t`` over the ranks; autograd carries the sum back to every
-    rank's ``t``."""
-    return _AllReduceSum.apply(mesh, t)
+    """Σ of ``t`` over the ranks, differentiable: autograd carries the Σ of
+    the output's cotangents back to every rank's ``t``."""
+    return dist_nn.all_reduce(t, group=dist.group.WORLD if mesh.group is None else mesh.group)
 
 
 def reduce_gradients(params, mesh: Optional[Mesh]) -> None:

@@ -200,13 +200,13 @@ def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     spawned = []
     monkeypatch.setattr(tdistributed, "spawn_per_device",
-                        lambda module, argv, n, **kw: spawned.append((module, argv, n)) or 0)
+                        lambda command, n, **kw: spawned.append((command, n)) or 0)
     model = (["--data-parallel"] if flag.startswith("--artifact")
              else ["--config", "c.yml", "--checkpoint", "c.pt"])
     argv = [flag, *model, "--input", str(tmp_path), "--output", str(tmp_path)]
     if flag == "--data-parallel":
         assert tinfer.main(argv) == 0
-        assert spawned == [("im2im_uq_tpu_torch.scripts.infer", argv, 2)]
+        assert spawned == [(["-m", "im2im_uq_tpu_torch.scripts.infer", *argv], 2)]
         return
     with pytest.raises(SystemExit, match="not yet ported"):
         tinfer.main(argv)

@@ -87,9 +87,9 @@ def runs(tmp_path_factory):
         mp.setenv("PYTHONPATH", REPO)
         log = root / "ranks.log"
         with open(log, "w") as fh:
-            rc = tdist.spawn_per_device("im2im_uq_tpu_torch.scripts.router",
-                                        ["--config", two_path, "--device", "cpu"], 2,
-                                        timeout=120, stdout=fh)
+            rc = tdist.spawn_per_device(
+                ["-m", "im2im_uq_tpu_torch.scripts.router", "--config", two_path, "--device", "cpu"],
+                2, timeout=120, stdout=fh)
     return {"one": one, "two": two, "rc": rc, "log": log.read_text()}
 
 

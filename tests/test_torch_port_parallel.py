@@ -388,10 +388,10 @@ def test_a_non_mesh_raises_type_error(bad):
 
 def test_spawn_per_device_kills_the_ranks_on_a_timeout_and_passes_failures_on():
     # a rank that sleeps past the limit: every rank is killed, exit 124
-    assert tdist.spawn_per_device("timeit", ["-n", "1", "import time; time.sleep(60)"], 2,
+    assert tdist.spawn_per_device(["-m", "timeit", "-n", "1", "import time; time.sleep(60)"], 2,
                                   timeout=3) == 124
     # a rank that fails (bad arguments): its exit code
-    assert tdist.spawn_per_device("im2im_uq_tpu_torch.scripts.router", ["--bogus"], 2,
+    assert tdist.spawn_per_device(["-m", "im2im_uq_tpu_torch.scripts.router", "--bogus"], 2,
                                   timeout=60) == 2
 
 
@@ -402,3 +402,21 @@ def test_init_distributed_is_a_no_op_for_one_process(monkeypatch):
     assert tdist.process_shard_info() == (0, 1) and tdist.global_mesh() is None
     assert not tdist.launched()
     assert tdist.join_or_spawn("im2im_uq_tpu_torch.scripts.router", [], "cpu") == (None, None)
+
+
+def test_an_indexed_cuda_device_runs_in_this_process(monkeypatch):
+    """Over four visible GPUs, plain ``cuda`` spreads over all of them and
+    ``cuda:N`` stays on one, in this process (as ``chip_smoke.py``'s
+    single-process phases pass it): no worker is started."""
+    import chip_smoke
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(tdist, "spawn_per_device",
+                        lambda *a, **kw: pytest.fail("a worker was started"))
+    assert tdist.visible_devices("cuda") == 4
+    assert tdist.visible_devices(chip_smoke.DEVICE) == 1
+    assert tdist.visible_devices(torch.device("cuda", 3)) == 1
+    assert tdist.visible_devices("cpu") == 1
+    assert tdist.join_or_spawn("im2im_uq_tpu_torch.scripts.router", [],
+                               chip_smoke.DEVICE) == (None, None)
