@@ -2694,13 +2694,17 @@ def _within(got: dict, want: dict, rtol: float, atol: float) -> bool:
 
 def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> dict:
     """One SGD step of ``weights`` under ``cfg`` over ``mesh``, counted and
-    then timed; on rank 0 against the one-process step on its card."""
-    def one_step(m):
+    then timed; on rank 0 against the one-process step on its card, and
+    that step timed on the whole batch and on rank 0's shard alone (the DP
+    step less the shard's step is what the collectives and the waits on
+    the other rank cost)."""
+    def one_step(m, shard=False):
         st = add_uncertainty(build_trunk(cfg), cfg, device=mesh.device)
         st.model.load_state_dict(weights)
         opt = torch.optim.SGD(st.model.parameters(), lr=DP_LR)
         step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt, m)
-        tensors = train.put_batch(*mesh_lib.put_batch(m, *batch), mesh.device)
+        rows = mesh_lib.put_batch(mesh if shard else m, *batch)
+        tensors = train.put_batch(*rows, mesh.device)
         loss = float(step(*tensors))
         torch.cuda.synchronize()
         out = (loss, {n: p.grad.detach().clone() for n, p in st.model.named_parameters()},
@@ -2733,6 +2737,8 @@ def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> d
     if mesh.is_main:
         (ref_loss, ref_grads, ref_params, ref_stats), step, tensors = one_step(None)
         res["step_ms_one_process"] = time_step(step, tensors, None)
+        _, step, tensors = one_step(None, shard=True)
+        res["step_ms_shard_one_process"] = time_step(step, tensors, None)
         del step, tensors
         grad_err = _rel_errors({k: v.double().cpu() for k, v in grads.items()},
                                {k: v.double().cpu() for k, v in ref_grads.items()})
