@@ -150,17 +150,20 @@ Phases, one JSON line each on stdout:
               1e-7, the JAX artifact test's bars), and the default
               config's (K1f) within phase 7's rtol 1e-4 / atol 1e-5; the
               same export and serving once in bf16.
-23. dp        data parallelism over 2 ranks of one process group (the port's
-              ``parallel/``): one process per GPU with two or more GPUs
-              (NCCL), else both ranks on the one card over gloo (its own
-              CUDA collectives), a rehearsal that gives no scaling number.
-              The main path's model at 320x320, a global batch of 32 (16 a
-              rank): one SGD step under ``xla`` f32,
+23. dp        the multi-GPU API over the ranks of one process group (the
+              port's ``parallel/``): one rank per visible GPU over NCCL
+              with two or more GPUs, else two ranks on the one card over
+              gloo (its own CUDA collectives), a rehearsal that gives no
+              scaling number.
+              The main path's model at 320x320, a global batch of 32: one
+              SGD step under ``xla`` f32,
               ``pallas_fused`` f32 and ``pallas_fused`` bf16 against the
               one-process step on rank 0's card (dp_train: loss, gradients,
               parameters and running statistics, the f32 ones within the
               CPU test's bars; each rank's K1f, K1b, K7 and K3-K6
-              launches; ms per DP step); calibration of the phase-5
+              launches; the median and min-max spread of DP_TIMED_STEPS
+              DP steps, each timed, beside the one-process step on the
+              whole batch and on rank 0's shard); calibration of the phase-5
               weights under ``pallas_fused`` on the 128 images sharded
               (dp_calibrate: the calibrated table and the whole table over
               the mesh within DP_TABLE_ATOL of one process's, λ̂ equal,
@@ -169,14 +172,34 @@ Phases, one JSON line each on stdout:
               calibration's launches and compute_risks_device's, each
               counted alone); ``infer.main --data-parallel`` on the 64
               serve images (dp_serve: the intervals against one process).
-              ``python3 chip_smoke.py --dp-worker DIR`` is a rank.
+              Then the multi-GPU API beyond it: the serving artifact
+              exported with ``--n-devices`` equal to the ranks and served
+              by ``infer.main --artifact`` over them (dp_artifact: against
+              the one-process artifact, bits and gap; no port kernel);
+              ``infer.main --spatial`` on two 648x640 tiles under ``xla``
+              and ``pallas_fused`` in f32 and bf16 and under
+              ``resize_backend: pallas`` (spatial: the gap to the
+              one-process intervals, within dp_serve's 1e-4 in f32, and in
+              bf16 no farther from the one-process f32 intervals than 1.5
+              times the one-process bf16 ones; each rank's launches equal to
+              the one-process run's but for K1f, which runs only under
+              ``resize_backend: pallas``, over the gathered height); and
+              ``training/multiseed.py`` with two seeds a rank, one Adam
+              step of batch 32 under ``pallas_fused`` f32 (multiseed: each
+              replica against the one-process step of its seed on the same
+              card, launches equal to those steps'). Each line gives the
+              gap to one process, whether the bits match, and each rank's
+              launches. ``python3 chip_smoke.py --dp-worker DIR`` is a rank;
+              ``python3 chip_smoke.py --dp-only`` runs env, build and this
+              phase alone.
 
 The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
 under the fused config, each head's, WNet's and the softmax router's, the
 bf16 paths, the remat steps, the calibrate CLI and the serving paths of
 the deploy phase, and in each rank the dp phase's steps, calibration,
-``compute_risks_device`` and serving) and read just after it; the ``kernels`` line
+``compute_risks_device``, serving, the artifact, each spatial case and the
+multi-seed step) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -194,6 +217,7 @@ import datetime
 import gc
 import io
 import json
+import math
 import os
 import pickle
 import re
@@ -234,10 +258,11 @@ from im2im_uq_tpu_torch.ops import (
 )
 from im2im_uq_tpu_torch.parallel import distributed
 from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+from im2im_uq_tpu_torch.parallel import spatial
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
 from im2im_uq_tpu_torch.scripts import calibrate as calibrate_script
 from im2im_uq_tpu_torch.scripts import export_serving
-from im2im_uq_tpu_torch.training import train
+from im2im_uq_tpu_torch.training import multiseed, train
 from im2im_uq_tpu_torch.training.checkpoint import (
     calibrated_checkpoint_path,
     checkpoint_path,
@@ -2645,12 +2670,29 @@ def phase_deploy(config: dict, calib, serve) -> dict:
     return launches
 
 
-# the dp phase: two ranks, their train step cases (config overrides), SGD's
-# rate (tests/test_parallel.py's), the timed DP steps after the compared one
-DP_RANKS = 2
+# the dp phase: its train step cases (config overrides), SGD's rate
+# (tests/test_parallel.py's), the DP steps timed one by one after the
+# compared one (their median and spread are printed)
 DP_CASES = {"xla": {}, "pallas_fused": {"conv_backend": "pallas_fused"},
             "pallas_fused_bf16": {"conv_backend": "pallas_fused", "compute_dtype": "bfloat16"}}
-DP_LR, DP_TIMED_STEPS = 1e-2, 3
+DP_LR, DP_TIMED_STEPS = 1e-2, 10
+# the height-sharded serving of the dp phase: tiles of 648x640 (648 rows are
+# no multiple of 16: the last rank takes 8 more, and Up pads), λ, its cases
+# (config overrides), the bar on f32 (dp_serve's) and the bf16 rule: no
+# farther from the one-process f32 intervals than SPATIAL_BF16_FACTOR times
+# the one-process bf16 intervals are
+SPATIAL_TILES, SPATIAL_H, SPATIAL_W, SPATIAL_LAM = 2, 648, 640, 1.5
+SPATIAL_CASES = {
+    "xla": {"conv_backend": "xla"},
+    "xla_bf16": {"conv_backend": "xla", "compute_dtype": "bfloat16"},
+    "pallas_fused": {"conv_backend": "pallas_fused"},
+    "pallas_fused_bf16": {"conv_backend": "pallas_fused", "compute_dtype": "bfloat16"},
+    "pallas_fused_resize_pallas": {"conv_backend": "pallas_fused", "resize_backend": "pallas"},
+}
+SPATIAL_ATOL, SPATIAL_BF16_FACTOR = 1e-4, 1.5
+# the multi-seed path: seeds a rank, Adam's rate, its config overrides
+MULTISEED_PER_RANK, MULTISEED_LR = 2, 1e-3
+MULTISEED_CASE = {"conv_backend": "pallas_fused"}
 # the CPU tests' bars on the parameters after one SGD step and the running
 # statistics (tests/test_torch_port_parallel.py), required of the f32 cases
 DP_CPU_RTOL, DP_CPU_ATOL = 1e-4, 2e-6
@@ -2712,19 +2754,19 @@ def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> d
                {n: b.detach().clone() for n, b in st.model.named_buffers() if "running" in n})
         return out, step, tensors
 
-    def time_step(step, tensors, m):
+    def time_steps(step, tensors, m) -> list:
+        """ms of each of DP_TIMED_STEPS steps (CUDA events between them)."""
         if m is not None:
             m.barrier()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(DP_TIMED_STEPS):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(DP_TIMED_STEPS + 1)]
+        events[0].record()
+        for ev in events[1:]:
             step(*tensors)
-        t1.record()
+            ev.record()
         if m is not None:
             m.barrier()
-        t1.synchronize()
-        return t0.elapsed_time(t1) / DP_TIMED_STEPS
+        events[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
     reset_counts()
     (loss, grads, params, stats), step, tensors = one_step(mesh)
@@ -2732,13 +2774,13 @@ def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> d
     bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool(g.any())]
     if bad:
         raise AssertionError(f"dp_train {name}: gradients not finite or zero: {bad}")
-    res = {"loss": loss, "launches": counts, "step_ms": time_step(step, tensors, mesh)}
+    res = {"loss": loss, "launches": counts, "steps_ms": time_steps(step, tensors, mesh)}
     del step, tensors
     if mesh.is_main:
         (ref_loss, ref_grads, ref_params, ref_stats), step, tensors = one_step(None)
-        res["step_ms_one_process"] = time_step(step, tensors, None)
+        res["steps_ms_one_process"] = time_steps(step, tensors, None)
         _, step, tensors = one_step(None, shard=True)
-        res["step_ms_shard_one_process"] = time_step(step, tensors, None)
+        res["steps_ms_shard_one_process"] = time_steps(step, tensors, None)
         del step, tensors
         grad_err = _rel_errors({k: v.double().cpu() for k, v in grads.items()},
                                {k: v.double().cpu() for k, v in ref_grads.items()})
@@ -2758,10 +2800,12 @@ def _dp_train_case(name: str, cfg: dict, weights: dict, batch: tuple, mesh) -> d
 
 def dp_worker(tmp: Path) -> int:
     """One rank of the dp phase (``--dp-worker DIR``): the train steps,
-    calibration and serving over the mesh, results to DIR/dp_rank{r}.json."""
+    calibration, serving, the data-parallel artifact, height-sharded
+    serving and the multi-seed step over the mesh, results to
+    DIR/dp_rank{r}.json."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
+    backend = "nccl" if torch.cuda.device_count() >= int(os.environ["WORLD_SIZE"]) else "gloo"
     distributed.init_distributed(device="cuda", backend=backend,
                                  timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
     mesh = mesh_lib.data_parallel_mesh("cuda")
@@ -2849,6 +2893,12 @@ def dp_worker(tmp: Path) -> int:
         res["bit_identical"] = all(np.array_equal(served[k], want[k]) for k in want)
         res["lam"] = float(served["lam"])
     out["serve"] = res
+    out["artifact"] = _dp_artifact(tmp, mesh)
+    out["spatial"] = _dp_spatial(tmp, mesh)
+    out["multiseed"] = _dp_multiseed(config, batch, mesh)
+    count(out["multiseed"]["launches"])
+    for res in out["spatial"].values():
+        count(res["launches"])
     out["launches"] = launches
     with open(tmp / f"dp_rank{mesh.rank}.json", "w") as fh:
         json.dump(out, fh)
@@ -2857,46 +2907,296 @@ def dp_worker(tmp: Path) -> int:
     return 0
 
 
+def dp_ranks() -> int:
+    """The dp phase's ranks: one a visible card, or two on one card."""
+    return max(torch.cuda.device_count(), 2)
+
+
+def _dp_artifact(tmp: Path, mesh) -> dict:
+    """``infer.main --artifact`` of the data-parallel artifact over the
+    ranks, counted; on rank 0 against the intervals of the one-process
+    artifact on the same card, at the global batch and at the per-rank
+    batch. cuDNN picks its conv algorithms by the batch, so only the
+    latter runs the same algorithms as each rank."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = infer.main(["--artifact", str(tmp / "art_dp.pt2"), "--input", str(tmp / "serve.npy"),
+                     "--output", str(tmp / "served_art"), "--device", mesh.device.type])
+    torch.cuda.synchronize()
+    res = {"rc": rc, "launches": read_counts(), "seconds": time.perf_counter() - t0}
+    mesh.barrier()  # rank 0's intervals are written
+    if mesh.is_main:
+        with np.load(tmp / "served_art" / "serve_intervals.npz") as z:
+            served = {k: z[k] for k in z.files}
+        for tag in ("one", "one_rank"):
+            one = export_serving.load_serving_artifact(str(tmp / f"art_{tag}.pt2"), mesh.device)
+            want = infer.predict_intervals(one, np.load(tmp / "serve.npy"), one.batch_size)
+            res[tag] = {"batch_size": one.batch_size, "max_abs_diff": _max_abs(served, want),
+                        "bit_identical": all(np.array_equal(served[k], want[k]) for k in want)}
+        res.update(lam=float(served["lam"]), shape=list(served["lower"].shape))
+    return res
+
+
+def _spatial_state(tmp: Path, name: str, device, f32: bool = False) -> UQState:
+    cfg = dict(infer.DEFAULTS, **CONFIG, **SPATIAL_CASES[name])
+    if f32:
+        cfg.pop("compute_dtype", None)
+    return infer.load_uq_state_for_inference(cfg, str(tmp / "serve_ckpt.pt"), device)
+
+
+def _dp_spatial(tmp: Path, mesh) -> dict:
+    """``infer.main --spatial`` on the tiles under each SPATIAL_CASES
+    config over the ranks, each counted; on rank 0 the one-process
+    intervals of the same config (and in f32) on the same card, and the
+    launches of that one-process run, which each rank's must equal but for
+    K1f (each rank runs every layer once; the upsample takes K1f only under
+    ``resize_backend: pallas``, over the gathered height)."""
+    tiles = np.load(tmp / "tiles.npy")
+    out = {}
+    for name in SPATIAL_CASES:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = infer.main(["--config", str(tmp / f"spatial_{name}.yml"), "--checkpoint",
+                         str(tmp / "serve_ckpt.pt"), "--input", str(tmp / "tiles.npy"),
+                         "--output", str(tmp / f"spatial_{name}"), "--spatial", "--device",
+                         mesh.device.type])
+        torch.cuda.synchronize()
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_counts()}
+    mesh.barrier()  # rank 0's intervals are written
+    if not mesh.is_main:
+        return out
+    for name, extra in SPATIAL_CASES.items():
+        with np.load(tmp / f"spatial_{name}" / "tiles_intervals.npz") as z:
+            got = {k: z[k] for k in z.files}
+        reset_counts()
+        want = infer.predict_intervals(_spatial_state(tmp, name, mesh.device), tiles, 1,
+                                       lam=SPATIAL_LAM)
+        torch.cuda.synchronize()
+        expected = read_counts()
+        if extra.get("resize_backend") != "pallas":
+            expected["upsample2x"] = 0
+        res = out[name]
+        res.update(expected_launches=expected, max_abs_diff=_max_abs(got, want),
+                   bit_identical=all(np.array_equal(got[k], want[k]) for k in want),
+                   shape=list(got["lower"].shape), lam=float(got["lam"]),
+                   finite=all(bool(np.isfinite(got[k]).all()) for k in want))
+        if "bf16" in name:
+            f32 = infer.predict_intervals(_spatial_state(tmp, name, mesh.device, f32=True),
+                                          tiles, 1, lam=SPATIAL_LAM)
+            res.update(max_abs_diff_vs_f32=_max_abs(got, f32),
+                       one_process_bf16_vs_f32=_max_abs(want, f32))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_multiseed(config: dict, batch: tuple, mesh) -> dict:
+    """MULTISEED_PER_RANK seeds a rank through ``training/multiseed.py``
+    (Adam, ``pallas_fused`` f32, one step on the phase's batch, which every
+    replica sees whole), counted; then each local seed's one-process plain
+    step on this card from the same seed, counted: the expected launches,
+    and the reference. cuDNN deterministic on both."""
+    cfg = dict(config, **MULTISEED_CASE)
+    st = UQState(model=None, params=cfg)
+    opt = lambda p: torch.optim.Adam(p, lr=MULTISEED_LR)  # noqa: E731
+    seeds = list(range(MULTISEED_PER_RANK * mesh.size))
+    states = multiseed.shard_multiseed_state(
+        multiseed.init_multiseed_states(st, seeds, opt, torch.zeros(1, device=mesh.device)), mesh)
+    step = multiseed.make_multiseed_train_step(st, opt, mesh)
+    tensors = train.put_batch(*batch, mesh.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        _, losses = step(states, *tensors)
+    torch.cuda.synchronize()
+    res = {"seeds": list(states.local_seeds), "losses": losses.tolist(), "launches": read_counts(),
+           "seconds": time.perf_counter() - t0}
+    reset_counts()
+    ref_losses, gaps, same = [], [], True
+    for s, model in zip(states.local_seeds, states.models):
+        ref = add_uncertainty(build_trunk(cfg), cfg, generator=torch.Generator().manual_seed(s),
+                              device=mesh.device)
+        ref_opt = torch.optim.Adam(ref.model.parameters(), lr=MULTISEED_LR)
+        ref_step = train.make_train_step(ref.model, head_loss_pe_fn(cfg["uncertainty_type"]),
+                                         cfg, ref_opt)
+        with deterministic_cudnn():
+            ref_losses.append(float(ref_step(*tensors)))
+        got, want = model.state_dict(), ref.model.state_dict()
+        gaps.append(max(float((got[k].double() - want[k].double()).abs().max()) for k in want))
+        same &= all(torch.equal(got[k], want[k]) for k in want)
+    torch.cuda.synchronize()
+    res.update(expected_launches=read_counts(), losses_one_process=ref_losses,
+               max_abs_param_diff=max(gaps),
+               bit_identical=bool(same and res["losses"] == ref_losses))
+    return res
+
+
 def _table_diff(a: np.ndarray, b: np.ndarray) -> float:
     """max |a − b|, or inf where the tables' shapes differ."""
     return float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
 
 
-def _spawn_dp_ranks(tmp: Path) -> list[dict]:
+def _spawn_dp_ranks(tmp: Path, ranks: int) -> list[dict]:
     """The dp phase's ranks, this script with ``--dp-worker``, started by
     the port's ``spawn_per_device``; each rank's log goes to
     tmp/rank{r}.log. Every rank is killed if one fails or the phase
     outlasts DP_TIMEOUT_S."""
-    logs = [open(tmp / f"rank{r}.log", "w") for r in range(DP_RANKS)]
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(ranks)]
     try:
         rc = distributed.spawn_per_device(
-            [str(Path(__file__).resolve()), "--dp-worker", str(tmp)], DP_RANKS,
+            [str(Path(__file__).resolve()), "--dp-worker", str(tmp)], ranks,
             timeout=DP_TIMEOUT_S, stdout=logs)
     finally:
         for fh in logs:
             fh.close()
     if rc != 0:
         tails = "\n".join(f"--- rank {r}:\n" + (tmp / f"rank{r}.log").read_text()[-3000:]
-                          for r in range(DP_RANKS))
+                          for r in range(ranks))
         raise AssertionError(f"the dp ranks exited {rc}:\n{tails}")
     results = []
-    for r in range(DP_RANKS):
+    for r in range(ranks):
         with open(tmp / f"dp_rank{r}.json") as fh:
             results.append(json.load(fh))
     return results
 
 
+def _dp_inputs(tmp: Path, cfg: dict, weights: dict, n: int) -> dict:
+    """What the ranks read beyond the weights and data: the phase's weights
+    as a calibrated checkpoint (λ̂ = SPATIAL_LAM), the configs of the
+    spatial cases, the tiles, and the serving artifact of ``cfg`` traced on
+    the card (``export_serving.main``) for ``n`` devices, and for one at
+    the global batch and at the per-rank batch → the exports' lines."""
+    state = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    state.model.load_state_dict(weights)
+    ckpt = save_calibrated_checkpoint(state.replace(lhat=SPATIAL_LAM), cfg, str(tmp / "ckpt_s"))
+    os.replace(ckpt, tmp / "serve_ckpt.pt")
+    del state
+    for name, extra in SPATIAL_CASES.items():
+        with open(tmp / f"spatial_{name}.yml", "w") as fh:
+            yaml.safe_dump(dict(CONFIG, **extra), fh)
+    tiles = np.random.RandomState(9).rand(SPATIAL_TILES, SPATIAL_H, SPATIAL_W, 1)
+    np.save(tmp / "tiles.npy", tiles.astype(np.float32))
+    exports = {}
+    b = cfg["batch_size"]
+    for tag, devices, batch in (("dp", n, b), ("one", 1, b), ("one_rank", 1, b // n)):
+        t0 = time.perf_counter()
+        rc, meta = _last_json(export_serving.main, [
+            "--config", _write_config(str(tmp), "export", cfg), "--checkpoint",
+            str(tmp / "serve_ckpt.pt"), "--output", str(tmp / f"art_{tag}.pt2"),
+            "--batch-size", str(batch), "--height", str(IMAGE), "--width", str(IMAGE),
+            "--n-devices", str(devices), "--device", DEVICE])
+        if rc != 0 or meta["n_devices"] != devices:
+            raise AssertionError(f"export_serving.main --n-devices {devices}: rc {rc}, {meta}")
+        exports[tag] = {"seconds": time.perf_counter() - t0, "artifact_mb": meta["artifact_mb"],
+                        "n_devices": devices, "batch_size": meta["batch_size"]}
+    return exports
+
+
+def _nonzero(counts: dict) -> dict:
+    """The kernels a count saw launched, for the lines."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _spread(ms: list) -> dict:
+    return {"median": float(np.median(ms)), "min": min(ms), "max": max(ms), "steps": len(ms)}
+
+
+def _check_dp_artifact(ranks: list, exports: dict, smi: str) -> None:
+    art = [r["artifact"] for r in ranks]
+    emit("dp_artifact", ranks=len(ranks), exports=exports, images=SERVE_N,
+         rc=[a["rc"] for a in art], vs_one_process=art[0]["one"],
+         vs_one_process_rank_batch=art[0]["one_rank"], lam=art[0]["lam"], shape=art[0]["shape"],
+         seconds=[a["seconds"] for a in art],
+         launches_per_rank=[_nonzero(a["launches"]) for a in art], card=smi)
+    if any(a["rc"] != 0 for a in art) or art[0]["lam"] != SPATIAL_LAM:
+        raise AssertionError(f"dp_artifact: infer.main failed or served another λ: {art}")
+    if art[0]["shape"] != [SERVE_N, IMAGE, IMAGE, 1] or art[0]["one"]["max_abs_diff"] > 1e-4:
+        raise AssertionError(f"dp_artifact: the intervals are {art[0]['one']['max_abs_diff']} "
+                             "from the one-process artifact's")
+    if not art[0]["one_rank"]["bit_identical"]:
+        raise AssertionError("dp_artifact: the intervals differ from the one-process artifact's "
+                             "at the per-rank batch")
+    launched = {k: v for a in art for k, v in a["launches"].items() if v}
+    if launched:
+        raise AssertionError(f"dp_artifact: the portable program launched port kernels: {launched}")
+
+
+def _check_spatial(ranks: list, smi: str) -> dict:
+    """The spatial lines and checks → the launches of every rank."""
+    sums = collections.Counter()
+    for name, extra in SPATIAL_CASES.items():
+        per_rank = [r["spatial"][name] for r in ranks]
+        res = per_rank[0]
+        emit("spatial", case=name, ranks=len(ranks), tiles=SPATIAL_TILES,
+             image=[SPATIAL_H, SPATIAL_W], rows_per_rank=[list(s) for s in
+                                                          spatial.row_spans(SPATIAL_H, len(ranks))],
+             card=smi, **{k: v for k, v in res.items()
+                          if k not in ("launches", "rc", "seconds", "expected_launches")},
+             rc=[p["rc"] for p in per_rank], seconds_per_rank=[p["seconds"] for p in per_rank],
+             expected_launches=_nonzero(res["expected_launches"]),
+             launches_per_rank=[_nonzero(p["launches"]) for p in per_rank])
+        if any(p["rc"] != 0 for p in per_rank) or not res["finite"] or res["lam"] != SPATIAL_LAM:
+            raise AssertionError(f"spatial {name}: infer.main failed or served bad intervals")
+        if res["shape"] != [SPATIAL_TILES, SPATIAL_H, SPATIAL_W, 1]:
+            raise AssertionError(f"spatial {name}: intervals of shape {res['shape']}")
+        if "bf16" in name:
+            if res["max_abs_diff_vs_f32"] > SPATIAL_BF16_FACTOR * res["one_process_bf16_vs_f32"]:
+                raise AssertionError(f"spatial {name}: {res['max_abs_diff_vs_f32']} from the f32 "
+                                     "intervals, past the bf16 rule")
+        elif res["max_abs_diff"] > SPATIAL_ATOL:
+            raise AssertionError(f"spatial {name}: {res['max_abs_diff']} from one process")
+        kernels = [k for k, v in res["expected_launches"].items() if v]
+        if extra["conv_backend"] != "xla" and not kernels:
+            raise AssertionError(f"spatial {name}: the one-process run launched no kernel")
+        for r, p in enumerate(per_rank):
+            if p["launches"] != res["expected_launches"]:
+                raise AssertionError(f"spatial {name} rank {r}: launches {p['launches']}, "
+                                     f"expected {res['expected_launches']}")
+            sums.update(p["launches"])
+    return dict(sums)
+
+
+def _check_multiseed(ranks: list, smi: str) -> None:
+    ms = [r["multiseed"] for r in ranks]
+    seeds = [s for m in ms for s in m["seeds"]]
+    emit("multiseed", ranks=len(ranks), seeds_per_rank=MULTISEED_PER_RANK, lr=MULTISEED_LR,
+         global_batch=CONFIG["batch_size"], image=IMAGE, **MULTISEED_CASE, card=smi,
+         seeds=seeds, losses=[m["losses"] for m in ms],
+         losses_one_process=[m["losses_one_process"] for m in ms],
+         max_abs_param_diff=[m["max_abs_param_diff"] for m in ms],
+         bit_identical=[m["bit_identical"] for m in ms], seconds=[m["seconds"] for m in ms],
+         launches_per_rank=[_nonzero(m["launches"]) for m in ms],
+         expected_launches_per_rank=[_nonzero(m["expected_launches"]) for m in ms])
+    if seeds != list(range(MULTISEED_PER_RANK * len(ranks))):
+        raise AssertionError(f"multiseed: the ranks hold seeds {seeds}")
+    losses = [x for m in ms for x in m["losses"]]
+    if len(set(losses)) != len(losses) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"multiseed: the seeds' losses are not distinct and finite: {losses}")
+    for r, m in enumerate(ms):
+        # Adam moves a parameter by about lr a step, so a gradient element
+        # that rounds to the other sign moves it 2·lr away
+        if (max(abs(a - b) / abs(b) for a, b in zip(m["losses"], m["losses_one_process"])) > 1e-6
+                or m["max_abs_param_diff"] > 2 * MULTISEED_LR):
+            raise AssertionError(f"multiseed rank {r}: off the one-process steps: {m}")
+        if m["launches"] != m["expected_launches"]:
+            raise AssertionError(f"multiseed rank {r}: launches {m['launches']}, expected "
+                                 f"{m['expected_launches']}")
+        require_launches(f"multiseed rank {r}", m["launches"],
+                         ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
+                         + DP_FUSED_KERNELS["pallas_fused"])
+
+
 def phase_dp(config: dict, calib, serve, smi: str) -> dict:
     """Phase 23: the dp phase's ranks (module docstring), their lines and
-    checks → the launches of both ranks' DP paths."""
+    checks → the launches of every rank's paths."""
     cfg = dict(config)
+    n = dp_ranks()
     st = add_uncertainty(build_trunk(cfg), cfg,
                          generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
     weights = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
     del st
     x, y, mask = path_batch(cfg)
-    gc.collect()
-    torch.cuda.empty_cache()  # the ranks share the card
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         torch.save(weights, tmp / "weights.pt")
@@ -2904,17 +3204,24 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
                  calib_x=np.stack([calib[i][0] for i in range(len(calib))]),
                  calib_y=np.stack([calib[i][1] for i in range(len(calib))]))
         np.save(tmp / "serve.npy", np.stack([serve[i][0] for i in range(len(serve))]))
+        exports = _dp_inputs(tmp, cfg, weights, n)
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks share the card
         t0 = time.perf_counter()
-        ranks = _spawn_dp_ranks(tmp)
+        ranks = _spawn_dp_ranks(tmp, n)
         wall = time.perf_counter() - t0
     r0 = ranks[0]
     for name, res in r0["train"].items():
         per_rank = [r["train"][name]["launches"] for r in ranks]
-        emit("dp_train", case=name, ranks=DP_RANKS, backend=r0["backend"],
+        timed = {k: _spread(res[k]) for k in ("steps_ms", "steps_ms_one_process",
+                                              "steps_ms_shard_one_process")}
+        emit("dp_train", case=name, ranks=n, backend=r0["backend"],
              devices=[r["device"] for r in ranks], global_batch=cfg["batch_size"], image=IMAGE,
              lr=DP_LR, cpu_bars={"rtol": DP_CPU_RTOL, "atol": DP_CPU_ATOL},
-             card=smi, **{k: v for k, v in res.items() if k != "launches"},
-             step_ms_per_rank=[r["train"][name]["step_ms"] for r in ranks],
+             card=smi, **{k: v for k, v in res.items() if k != "launches" and k not in timed},
+             step_ms=timed["steps_ms"], step_ms_one_process=timed["steps_ms_one_process"],
+             step_ms_shard_one_process=timed["steps_ms_shard_one_process"],
+             step_ms_per_rank=[_spread(r["train"][name]["steps_ms"]) for r in ranks],
              launches_per_rank=per_rank)
         if {r["train"][name]["loss"] for r in ranks} != {res["loss"]}:
             raise AssertionError(f"dp_train {name}: the ranks' losses differ")
@@ -2934,7 +3241,7 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
             raise AssertionError(f"dp_train {name}: the parameters or running statistics are "
                                  f"outside the CPU test's bars: {res}")
     cal = [r["calibrate"] for r in ranks]
-    emit("dp_calibrate", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(calib),
+    emit("dp_calibrate", ranks=n, conv_backend="pallas_fused", images=len(calib),
          num_lambdas=cfg["num_lambdas"], lhat=[c["lhat"] for c in cal],
          lhat_one_process=cal[0]["lhat_one_process"],
          table_atol=DP_TABLE_ATOL, table_max_abs_diff=cal[0]["table_max_abs_diff"],
@@ -2958,7 +3265,7 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
             require_launches(f"dp_calibrate rank {r} {what}", c[what],
                              ["loss_table", "upsample2x", "conv3x3", "conv3x3_bn_act"])
     srv = [r["serve"] for r in ranks]
-    emit("dp_serve", ranks=DP_RANKS, conv_backend="pallas_fused", images=len(serve),
+    emit("dp_serve", ranks=n, conv_backend="pallas_fused", images=len(serve),
          rc=[s["rc"] for s in srv], max_abs_diff=srv[0]["max_abs_diff"],
          bit_identical=srv[0]["bit_identical"], lam=srv[0]["lam"],
          imgs_per_sec=srv[0]["summary"]["imgs_per_sec"], seconds=srv[0]["summary"]["seconds"],
@@ -2971,7 +3278,10 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
     for r, s in enumerate(srv):
         require_launches(f"dp_serve rank {r}", s["launches"],
                          ["upsample2x", "conv3x3", "conv3x3_bn_act"])
-    emit("dp", ranks=DP_RANKS, backend=r0["backend"], seconds=wall, card=smi,
+    _check_dp_artifact(ranks, exports, smi)
+    _check_spatial(ranks, smi)
+    _check_multiseed(ranks, smi)
+    emit("dp", ranks=n, backend=r0["backend"], seconds=wall, card=smi,
          cards="one, shared by the ranks" if r0["device"] == ranks[1]["device"] else "one a rank")
     return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
 
@@ -3051,7 +3361,8 @@ def main() -> int:
     remat_counts = phase_remat(config)
     # 22. deploy: the calibrate CLI, the serving artifact, serving from it
     deploy_counts = phase_deploy(config, calib, serve)
-    # 23. dp: training, calibration and serving over two ranks
+    # 23. dp: training, calibration, serving, the data-parallel artifact,
+    # height-sharded serving and multi-seed training over the ranks
     dp_counts = phase_dp(config, calib, serve, smi)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
@@ -3095,7 +3406,25 @@ def main() -> int:
     return 0
 
 
+def dp_only() -> int:
+    """``--dp-only``: env, build and the dp phase alone (on four cards, the
+    multi-GPU paths over NCCL without the single-process phases); no
+    result line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    smi = phase_env()
+    phase_build()
+    counts = phase_dp(dict(infer.DEFAULTS, **CONFIG), synthetic(CALIB_N, IMAGE, seed=0),
+                      synthetic(SERVE_N, IMAGE, seed=1), smi)
+    emit("dp_only", seconds=time.perf_counter() - t0, launches=_nonzero(counts))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         raise SystemExit(dp_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--dp-only"]:
+        raise SystemExit(dp_only())
     raise SystemExit(main())

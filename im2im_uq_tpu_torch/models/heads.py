@@ -23,6 +23,7 @@ from torch import nn
 
 from im2im_uq_tpu_torch.models.unet import compute_cast
 from im2im_uq_tpu_torch.ops import losses as L
+from im2im_uq_tpu_torch.parallel import spatial
 
 __all__ = [
     "HEAD_BUILDERS",
@@ -50,10 +51,12 @@ def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
 
 def _fused_conv3x3(x: torch.Tensor, convs, dtype: torch.dtype) -> torch.Tensor:
     """The sibling convs as one conv in ``dtype``: their outputs
-    concatenated along the channels, in the order given."""
+    concatenated along the channels, in the order given. A height-sharded
+    forward runs it on the rank's rows plus halo rows
+    (``parallel/spatial.halo_conv``)."""
     weight = compute_cast(torch.cat([c.weight for c in convs], dim=0), dtype)
     bias = compute_cast(torch.cat([c.bias for c in convs], dim=0), dtype)
-    return F.conv2d(compute_cast(x, dtype), weight, bias, padding=1)
+    return spatial.halo_conv(lambda t: F.conv2d(compute_cast(t, dtype), weight, bias, padding=1), x)
 
 
 def _components(y: torch.Tensor, k: int) -> torch.Tensor:

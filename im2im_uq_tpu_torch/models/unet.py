@@ -64,6 +64,13 @@ the global unbiased variance. ``batch_norm`` takes Σx, then Σ(x − mean)²;
 fold. A checkpointed region's recompute issues the same collectives again
 inside the backward.
 
+Under ``parallel/spatial.height_sharded`` (an eval forward with each image's
+rows split over the ranks) every 3×3 conv runs on its slab plus the
+neighbours' halo rows (``spatial.halo_conv``; under ``pallas_fused`` the
+exchange is of K4's input, before its prologue), and ``Up`` and ``UpNoSkip``
+take their resize's taps in global coordinates (``spatial.HeightSharding``);
+the pool and BatchNorm exchange nothing.
+
 An ``Up`` hands its conv the pair (skip, upsampled) and the conv0 of
 ``pallas`` and ``pallas_fused`` runs as two K3 calls over the two halves of
 the kernel, so the concatenation is never built (``unet.py:615-629,
@@ -88,6 +95,7 @@ from torch.utils.checkpoint import checkpoint
 from im2im_uq_tpu_torch.ops.conv import conv3x3, conv3x3_bn_act
 from im2im_uq_tpu_torch.ops.pool import MaxPool2x2
 from im2im_uq_tpu_torch.ops.resize import resize_bilinear_align_corners, upsample2x_align_corners
+from im2im_uq_tpu_torch.parallel import spatial
 from im2im_uq_tpu_torch.parallel.mesh import all_reduce_sum, spans
 
 __all__ = [
@@ -308,6 +316,9 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
+        if self.training and spatial.active() is not None:
+            raise ValueError("a height-sharded forward runs in eval mode only: train-mode "
+                             "BatchNorm would normalise over this rank's rows")
         if self.conv_backend == "pallas_fused":
             if self.remat == "conv":
                 # no conv output of the fused block survives (module docstring)
@@ -319,13 +330,16 @@ class DoubleConv(nn.Module):
         else:
             if isinstance(x, tuple):
                 x = torch.cat(x, dim=1)
-            y0 = F.conv2d(compute_cast(x, self.dtype), *self._params(self.double_conv[0]),
-                          padding=1)
+            w, b = self._params(self.double_conv[0])
+            y0 = spatial.halo_conv(
+                lambda t: F.conv2d(compute_cast(t, self.dtype), w, b, padding=1), x)
         return self._rest(y0)
 
     def _conv1(self, y: torch.Tensor) -> torch.Tensor:
         w, b = self._params(self.double_conv[3])
-        return conv3x3(y, w, b) if self.conv_backend == "pallas" else F.conv2d(y, w, b, padding=1)
+        if self.conv_backend == "pallas":
+            return spatial.halo_conv(lambda t: conv3x3(t, w, b), y)
+        return spatial.halo_conv(lambda t: F.conv2d(t, w, b, padding=1), y)
 
     def _rest(self, y0: torch.Tensor) -> torch.Tensor:
         """bn0 → ReLU → conv1 → bn1 → ReLU of ``xla`` and ``pallas`` on conv0's
@@ -357,11 +371,12 @@ class DoubleConv(nn.Module):
         kernel, the bias in the first."""
         weight, bias = self._params(self.double_conv[0])
         if not isinstance(x, tuple):
-            return conv3x3(compute_cast(x, self.dtype), weight, bias)
-        a, b = x
-        ca = a.shape[1]
-        return (conv3x3(compute_cast(a, self.dtype), weight[:, :ca], bias)
-                + conv3x3(compute_cast(b, self.dtype), weight[:, ca:]))
+            return spatial.halo_conv(
+                lambda t: conv3x3(compute_cast(t, self.dtype), weight, bias), x)
+        ca = x[0].shape[1]
+        return spatial.halo_conv(
+            lambda a, b: (conv3x3(compute_cast(a, self.dtype), weight[:, :ca], bias)
+                          + conv3x3(compute_cast(b, self.dtype), weight[:, ca:])), *x)
 
     def _fused(self, x: Union[torch.Tensor, Pair]) -> torch.Tensor:
         conv0, bn0, _, conv1, bn1, _ = self.double_conv
@@ -375,14 +390,18 @@ class DoubleConv(nn.Module):
                 y0f = y0.to(torch.promote_types(y0.dtype, torch.float32))
                 s0, q0 = y0f.sum((0, 2, 3)), (y0f * y0f).sum((0, 2, 3))
         else:
-            y0, st0 = conv3x3_bn_act(compute_cast(x, self.dtype), *self._params(conv0), None, None,
-                                     prologue=False, stats=train)
+            w0, b0 = self._params(conv0)
+            y0, st0 = spatial.halo_conv(
+                lambda t: conv3x3_bn_act(compute_cast(t, self.dtype), w0, b0, None, None,
+                                         prologue=False, stats=train), x)
             if train:
                 s0, q0 = st0[:, 0].sum(0), st0[:, 1].sum(0)
         n = y0.shape[0] * y0.shape[2] * y0.shape[3]
         scale0, shift0 = fold_batchnorm(bn0, s0, q0, n, train)
-        y1, st1 = conv3x3_bn_act(y0, *self._params(conv1), scale0, shift0,
-                                 prologue=True, stats=train)
+        # K4's input, before its prologue, is what a height-sharded run exchanges
+        w1, b1 = self._params(conv1)
+        y1, st1 = spatial.halo_conv(
+            lambda t: conv3x3_bn_act(t, w1, b1, scale0, shift0, prologue=True, stats=train), y0)
         s1, q1 = (st1[:, 0].sum(0), st1[:, 1].sum(0)) if train else (None, None)
         scale1, shift1 = fold_batchnorm(bn1, s1, q1, n, train)
         # the affine in f32 (a bf16 y1 promotes), rounded to y1's dtype
@@ -421,7 +440,11 @@ class Up(nn.Module):
                                conv_backend=conv_backend, dtype=dtype, remat=remat)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = upsample2x_align_corners(x1, self.resize_backend)
+        sharded = spatial.active()
+        if sharded is None:
+            x1 = upsample2x_align_corners(x1, self.resize_backend)
+        else:  # this rank's rows, the height's centre pad included
+            x1 = sharded.upsample2x(x1, x2, self.resize_backend)
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
         if dh or dw:
@@ -446,6 +469,9 @@ class UpNoSkip(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
         s = self.scale_factor
+        sharded = spatial.active()
+        if sharded is not None:
+            return self.conv(sharded.resize(x, s))
         return self.conv(resize_bilinear_align_corners(x, (h * s, w * s)))
 
 

@@ -9,6 +9,11 @@ plain versions on a CPU tensor) where the TPU kernel takes the shape
 and otherwise :func:`upsample2x_xla`, the JAX package's XLA form in
 PyTorch ops with autograd's backward. :func:`resize_bilinear_align_corners`
 is the general resize of the JAX package, always in that form.
+
+A height-sharded forward (``parallel/spatial.py``) computes a rank's rows of
+a resize from a window of the input's rows, with the taps in global
+coordinates (:func:`axis_taps`, :func:`resize_rows`): the same lerps, on the
+same values, as the one-device form.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ import torch
 
 from im2im_uq_tpu_torch.ops.upsample import (
     pallas_upsample_eligible,
+    phase_weights,
     upsample2x,
     upsample2x_axis_plain,
 )
 
-__all__ = ["resize_bilinear_align_corners", "upsample2x_align_corners", "upsample2x_xla"]
+__all__ = [
+    "axis_taps", "resize_bilinear_align_corners", "resize_rows", "upsample2x_align_corners",
+    "upsample2x_xla",
+]
 
 
 @functools.lru_cache(maxsize=128)
@@ -38,6 +47,39 @@ def _tap_tables(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray, np
     i1 = np.minimum(i0 + 1, in_size - 1)
     frac = (pos - i0).astype(np.float32)
     return i0, i1, frac
+
+
+def axis_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The global taps (i0, i1, frac) of an axis's align-corners resize as
+    the one-device form takes them: output u = x[i0] + (x[i1] − x[i0])·frac.
+    An exact 2x is ``upsample2x_axis_plain``'s phase lerps (output 2m from
+    x[m − 1] to x[m] by fe[m], output 2m + 1 from x[m] to x[m + 1] by
+    fo[m], clamped at the edges), any other size :func:`_tap_tables`."""
+    if out_size != 2 * in_size:
+        return _tap_tables(in_size, out_size)
+    m = np.arange(in_size)
+    fe, fo = phase_weights(in_size)
+    i0 = np.stack([np.maximum(m - 1, 0), m], 1).reshape(-1)
+    i1 = np.stack([m, np.minimum(m + 1, in_size - 1)], 1).reshape(-1)
+    return i0, i1, np.stack([fe, fo], 1).reshape(-1)
+
+
+def resize_rows(x: torch.Tensor, offset: int, in_size: int, out_size: int, start: int,
+                stop: int) -> torch.Tensor:
+    """Output rows [start, stop) of the align-corners resize of the height
+    from ``in_size`` to ``out_size`` rows, taken from ``x``, the window of
+    the input's global rows [offset, offset + x.shape[2]); the width is
+    left as it is. Each row is the one-device form's lerp of the same two
+    input rows (:func:`axis_taps`), so the rows are its rows bit for bit."""
+    i0, i1, frac = (a[start:stop] for a in axis_taps(in_size, out_size))
+    i0, i1 = i0 - offset, i1 - offset
+    if stop > start and (i0.min() < 0 or i1.max() >= x.shape[2]):
+        raise ValueError(f"rows [{offset}, {offset + x.shape[2]}) of {in_size} do not hold the "
+                         f"taps of output rows [{start}, {stop})")
+    lo = x.index_select(2, torch.from_numpy(i0).to(x.device))
+    hi = x.index_select(2, torch.from_numpy(i1).to(x.device))
+    f = torch.from_numpy(frac).to(x.device, x.dtype).reshape(1, 1, -1, 1)
+    return lo + (hi - lo) * f
 
 
 def _resize_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:

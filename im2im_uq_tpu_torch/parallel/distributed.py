@@ -140,20 +140,20 @@ def visible_devices(device: torch.device | str) -> int:
     return 1
 
 
-def join_or_spawn(module: str, argv: Optional[list[str]],
-                  device: torch.device | str) -> tuple[Optional[int], Optional[Mesh]]:
+def join_or_spawn(module: str, argv: Optional[list[str]], device: torch.device | str,
+                  nprocs: Optional[int] = None) -> tuple[Optional[int], Optional[Mesh]]:
     """How an entry point runs over every visible GPU, as the JAX entry
     points run over every visible device:
 
     - under a launcher: join the group → (None, the mesh over the ranks);
     - else with more than one visible GPU: run ``module`` with ``argv``
-      (default ``sys.argv[1:]``) in one worker per GPU → (their exit code,
-      None);
+      (default ``sys.argv[1:]``) in one worker per GPU, or in ``nprocs``
+      workers where given → (their exit code, None);
     - else → (None, None): one device, today's path."""
     if launched():
         init_distributed(device=device)
         return None, data_parallel_mesh(device)
-    n = visible_devices(device)
+    n = visible_devices(device) if nprocs is None else nprocs
     if n > 1:
         argv = sys.argv[1:] if argv is None else list(argv)
         return spawn_per_device(["-m", module, *argv], n), None

@@ -16,7 +16,10 @@ becomes the ranks of a process group, one GPU each (:class:`Mesh`):
 What GSPMD inserts in a JAX mesh program the port issues by hand: the
 BatchNorm statistics over the global batch (``models/unet.py``), the
 gradients summed and the loss normalised by the global mask count
-(``training/train.py``), the calibration sums (``calibration/rcps.py``).
+(``training/train.py``), the calibration sums (``calibration/rcps.py``), and
+for a height-sharded forward the boundary rows that each 3×3 conv and
+upsample reads from its neighbours (:func:`exchange_rows`,
+``parallel/spatial.py``).
 
 A one-rank mesh, or none, is the one-device path exactly. Every backend
 takes the collectives on the tensors' own device: NCCL on CUDA, gloo on
@@ -39,9 +42,9 @@ import torch.distributed.nn.functional as dist_nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 __all__ = [
-    "DATA_AXIS", "Mesh", "all_reduce_sum", "check_mesh", "data_parallel_mesh", "fetch",
-    "mesh_batch_size", "pad_to_multiple", "put_batch", "reduce_gradients", "replicate_tree",
-    "shard_batch", "spans",
+    "DATA_AXIS", "Mesh", "all_reduce_sum", "check_mesh", "data_parallel_mesh", "exchange_rows",
+    "fetch", "mesh_batch_size", "pad_to_multiple", "put_batch", "reduce_gradients",
+    "replicate_tree", "shard_batch", "spans",
 ]
 
 _ROUNDING_WARNED: set = set()
@@ -202,6 +205,36 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Σ of ``t`` over the ranks, differentiable: autograd carries the Σ of
     the output's cotangents back to every rank's ``t``."""
     return dist_nn.all_reduce(t, group=dist.group.WORLD if mesh.group is None else mesh.group)
+
+
+def exchange_rows(mesh: Mesh, tensors, above: Optional[int], below: Optional[int]) -> list:
+    """The halo rows of NCHW slabs split by height over the ranks: for each
+    tensor, the pair (the last row of rank ``above``'s slab, the first row of rank
+    ``below``'s), None where there is no such rank. This rank sends its
+    first row to ``above`` and its last row to ``below``; every pair of
+    neighbours posts the same sends and receives, tensor by tensor, in one
+    batch of point-to-point operations (no order can deadlock). gloo's
+    send and receive take host memory only, so under gloo a CUDA tensor's
+    rows are staged through the host."""
+    stage = any(t.is_cuda for t in tensors) and dist.get_backend(mesh.group) == "gloo"
+    ops, recvs = [], []
+    for t in tensors:
+        pair = []
+        for peer, row in ((above, t[:, :, :1]), (below, t[:, :, -1:])):
+            if peer is None:
+                pair.append(None)
+                continue
+            send = row.contiguous().cpu() if stage else row.contiguous()
+            recv = torch.empty_like(send)
+            ops += [dist.P2POp(dist.isend, send, peer, mesh.group),
+                    dist.P2POp(dist.irecv, recv, peer, mesh.group)]
+            pair.append(recv)
+        recvs.append(pair)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [tuple(None if r is None else r.to(t.device) for r in pair)
+            for t, pair in zip(tensors, recvs)]
 
 
 def reduce_gradients(params, mesh: Optional[Mesh]) -> None:

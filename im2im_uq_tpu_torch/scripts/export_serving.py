@@ -24,6 +24,18 @@ the port's ``UQState.nested_sets`` convention, so
 ``scripts.infer.predict_intervals`` drives an artifact unchanged. It runs
 under the process's TF32 flags, as the live model does.
 
+A data-parallel artifact (``--n-devices N``, N > 1) serves the global batch
+``batch_size`` over N ranks, one GPU each, as the JAX artifact shards its
+batch axis over an N-device mesh: each rank runs its contiguous slice of
+``batch_size // N`` images (``parallel/mesh.put_batch``) and the sets come
+back gathered in rank order (``mesh.fetch``). ``torch.export`` fixes the
+batch size a program takes, so the program is traced at the per-rank
+batch, ``batch_size // N``, which must be whole; ``meta.json`` keeps JAX's
+meaning of ``batch_size``, the global batch, beside ``n_devices``. The
+artifact can be exported on any host. It loads inside a process group of
+at least N ranks and binds to ranks 0 .. N − 1; on fewer it raises, and it
+never serves as one process.
+
 Usage:
     python -m im2im_uq_tpu_torch.scripts.export_serving \\
         --config experiments/synthetic_test/config.yml \\
@@ -35,7 +47,7 @@ Serve it with the infer CLI (no config or checkpoint needed):
     python -m im2im_uq_tpu_torch.scripts.infer --artifact model.uq.pt2 \\
         --input inputs.npy --output out/ [--device cuda]
 
-A data-parallel artifact (``--n-devices`` > 1) is not yet ported.
+which starts the N ranks of a data-parallel artifact itself, one per GPU.
 """
 
 from __future__ import annotations
@@ -44,17 +56,21 @@ import argparse
 import dataclasses
 import json
 import os
+import zipfile
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from im2im_uq_tpu_torch.models.assembly import UQState, add_uncertainty, build_trunk
+from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 
 __all__ = [
     "ARTIFACT_VERSION",
     "PLATFORMS",
     "ServingArtifact",
+    "artifact_meta",
     "export_serving_artifact",
     "load_serving_artifact",
     "main",
@@ -104,7 +120,8 @@ def export_serving_artifact(
 ) -> dict:
     """Trace ``state``'s calibrated nested-sets program on its device and
     write it to ``path``, stored on the CPU; returns the metadata written
-    beside it."""
+    beside it. With ``n_devices`` > 1 the program is the data-parallel
+    one of the module docstring, traced at ``batch_size // n_devices``."""
     from torch.export.passes import move_to_device_pass
 
     if lam is None:
@@ -116,10 +133,8 @@ def export_serving_artifact(
     lam = float(lam)
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-    if n_devices > 1:
-        raise NotImplementedError(
-            "a data-parallel artifact (n_devices > 1) is not yet ported to im2im_uq_tpu_torch"
-        )
+    if batch_size % n_devices:
+        raise ValueError(f"batch_size {batch_size} must divide by n_devices {n_devices}")
     unknown = [p for p in platforms if p not in PLATFORMS]
     if unknown or not platforms:
         raise ValueError(f"platforms must be among {list(PLATFORMS)}, got {list(platforms)}")
@@ -128,7 +143,7 @@ def export_serving_artifact(
 
     portable = portable_state(state)
     program = _NestedSets(portable, lam).eval()
-    x = torch.zeros((batch_size, channels, height, width), dtype=torch.float32,
+    x = torch.zeros((batch_size // n_devices, channels, height, width), dtype=torch.float32,
                     device=portable.device)
     with torch.no_grad():
         exported = torch.export.export(program, (x,))
@@ -162,11 +177,16 @@ class ServingArtifact:
     """A loaded serving artifact with the part of the ``UQState`` surface
     that serving uses (``nested_sets``, ``lhat``, ``device``), so that
     ``infer.predict_intervals`` drives it unchanged. λ̂ is baked into the
-    program: ``nested_sets(x, lam=...)`` with another λ is an error."""
+    program: ``nested_sets(x, lam=...)`` with another λ is an error.
+
+    A data-parallel artifact holds the mesh of its ranks; ``idle`` marks a
+    rank past them in a larger group, which serves nothing."""
 
     meta: dict
     device: torch.device
     _call: Callable
+    mesh: Optional[mesh_lib.Mesh] = None
+    idle: bool = False
 
     @property
     def lhat(self) -> float:
@@ -183,7 +203,9 @@ class ServingArtifact:
     def nested_sets(self, x, lam=None, mesh=None):
         """(lower, pred, upper) of an NCHW batch of the artifact's shape.
         ``mesh`` is there for ``UQState``'s signature: an artifact's
-        sharding is fixed at export."""
+        sharding is fixed at export. A data-parallel artifact takes the
+        global batch on every one of its ranks, runs this rank's slice and
+        returns the global sets on each."""
         if mesh is not None:
             raise ValueError(
                 "serving artifacts bake their sharding at export time — "
@@ -195,19 +217,64 @@ class ServingArtifact:
                 f"λ={lam} requested but λ̂={self.lhat} is baked into the "
                 "artifact — re-export to change it"
             )
+        if self.idle:
+            raise ValueError(f"this rank is not one of the artifact's {self.meta['n_devices']} "
+                             "ranks")
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            return self._call(x)
+            if self.mesh is None:
+                return self._call(x)
+            sets = self._call(mesh_lib.shard_batch(self.mesh, x))
+            return tuple(mesh_lib.fetch(self.mesh, t) for t in sets)
+
+
+def artifact_meta(path: str) -> dict:
+    """An artifact's metadata, read from its archive (``torch.export.save``
+    keeps extra files under ``<archive>/extra/``) without loading the
+    program."""
+    with zipfile.ZipFile(os.path.expanduser(path)) as z:
+        name = next((n for n in z.namelist() if n.endswith(f"/extra/{_META}")), None)
+        if name is None:
+            raise ValueError(f"{path} is no serving artifact: it holds no {_META}")
+        return json.loads(z.read(name))
+
+
+def fewer_devices_error(n_devices: int, have: int) -> ValueError:
+    """JAX's refusal of a data-parallel artifact on a host with fewer
+    devices (here: ranks, one per GPU) than it was exported for."""
+    return ValueError(
+        f"artifact is data-parallel over {n_devices} devices but this host runs {have} — "
+        f"re-export with --n-devices {have} or serve on a {n_devices}-device host"
+    )
+
+
+def _artifact_mesh(n: int, device: torch.device) -> tuple[Optional[mesh_lib.Mesh], bool]:
+    """(the mesh of ranks 0 .. n − 1 of this process group, whether this
+    rank is past them); raises where the group has fewer than n ranks."""
+    if not dist.is_initialized():
+        raise ValueError(
+            f"artifact is data-parallel over {n} devices: load it in each of {n} ranks of a "
+            "process group, one per GPU (`infer --artifact` starts them), or re-export with "
+            "--n-devices 1"
+        )
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world < n:
+        raise fewer_devices_error(n, world)
+    group = None if world == n else dist.new_group(list(range(n)))
+    if rank >= n:
+        return None, True
+    return mesh_lib.Mesh(group=group, size=n, rank=rank, device=device), False
 
 
 def load_serving_artifact(path: str, device: torch.device | str = "cuda") -> ServingArtifact:
     """Load an artifact written by :func:`export_serving_artifact` onto
-    ``device``. Needs only torch: no model code, checkpoint or config."""
+    ``device``. Needs only torch: no model code, checkpoint or config. A
+    data-parallel artifact over N devices is loaded by every rank of a
+    process group of at least N (each passing its own GPU) and binds to
+    ranks 0 .. N − 1 (module docstring)."""
     from torch.export.passes import move_to_device_pass
 
-    extra = {_META: ""}
-    exported = torch.export.load(os.path.expanduser(path), extra_files=extra)
-    meta = json.loads(extra[_META])
+    meta = artifact_meta(path)
     if meta.get("artifact_version") != ARTIFACT_VERSION:
         raise ValueError(
             f"artifact version {meta.get('artifact_version')} != "
@@ -219,8 +286,12 @@ def load_serving_artifact(path: str, device: torch.device | str = "cuda") -> Ser
             f"artifact was exported for platforms {meta['platforms']} but this "
             f"host runs {device.type!r} — re-export with --platforms {device.type}"
         )
+    mesh, idle = None, False
+    if int(meta.get("n_devices", 1)) > 1:
+        mesh, idle = _artifact_mesh(int(meta["n_devices"]), device)
+    exported = torch.export.load(os.path.expanduser(path))
     module = move_to_device_pass(exported, device).module()
-    return ServingArtifact(meta=meta, device=device, _call=module)
+    return ServingArtifact(meta=meta, device=device, _call=module, mesh=mesh, idle=idle)
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -245,7 +316,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     ap.add_argument(
         "--n-devices", type=int, default=1,
-        help="export the program data-parallel over this many devices (not yet ported)",
+        help="export the program data-parallel over this many devices, one rank each "
+        "(the artifact can be built on any host)",
     )
     ap.add_argument("--grid-index", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device to load and trace on")

@@ -29,8 +29,16 @@ itself, under one (``python -m torch.distributed.run --nproc_per_node N -m
 im2im_uq_tpu_torch.scripts.infer --data-parallel ...``) each process joins
 the group. Each rank runs its slice of every batch (the batch size rounded
 up to a multiple of the ranks), every rank gathers the intervals, and rank
-0 writes the files. ``--spatial`` over more than one device is not yet
-ported, nor is a data-parallel artifact.
+0 writes the files. ``--spatial`` runs over the same ranks, but splits each
+image's rows over them instead of the batch (``parallel/spatial.py``;
+images one at a time, :func:`predict_intervals_spatial`), for tiles too
+large for one GPU.
+
+A data-parallel artifact (``export_serving --n-devices N``) needs no flag:
+the CLI starts its N ranks itself, one per GPU (or joins them under a
+launcher), each runs its slice of every batch, and rank 0 writes. On fewer
+than N GPUs it is refused. ``--data-parallel`` and ``--spatial`` do not
+apply to an artifact, whose sharding is fixed at export.
 """
 
 from __future__ import annotations
@@ -55,11 +63,16 @@ from im2im_uq_tpu_torch.models.assembly import (
 )
 from im2im_uq_tpu_torch.parallel import distributed
 from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+from im2im_uq_tpu_torch.scripts.export_serving import (
+    artifact_meta,
+    fewer_devices_error,
+    load_serving_artifact,
+)
 from im2im_uq_tpu_torch.training.checkpoint import load_calibrated_checkpoint
 from im2im_uq_tpu_torch.utils.config import DEFAULTS, load_config
 
 __all__ = [
-    "load_uq_state_for_inference", "main", "predict_intervals",
+    "load_uq_state_for_inference", "main", "predict_intervals", "predict_intervals_spatial",
 ]
 
 
@@ -136,6 +149,30 @@ def predict_intervals(
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
 
 
+def predict_intervals_spatial(
+    state: UQState,
+    inputs: np.ndarray,
+    mesh: Optional[mesh_lib.Mesh],
+    lam: Optional[float] = None,
+) -> dict[str, np.ndarray]:
+    """Calibrated nested sets with each image's height split over the
+    ranks of ``mesh`` (``parallel/spatial.spatial_nested_sets``): the
+    giant-tile serving path. Images run one at a time (the batch has
+    nothing to split when one tile fills the mesh); every rank calls it and
+    gets the whole result, {"lower", "prediction", "upper"}, each (N, H, W,
+    C) float32."""
+    from im2im_uq_tpu_torch.parallel.spatial import spatial_nested_sets
+
+    fn = spatial_nested_sets(state, mesh, lam=lam)
+    outs: dict[str, list[np.ndarray]] = {"lower": [], "prediction": [], "upper": []}
+    for i in range(inputs.shape[0]):
+        sets = fn(nchw_from_nhwc(inputs[i:i + 1], state.device))
+        for key, t in zip(outs, sets):
+            outs[key].append(t.permute(0, 2, 3, 1).cpu().numpy())
+    empty = np.zeros(inputs.shape, np.float32)
+    return {k: np.concatenate(v, axis=0) if v else empty.copy() for k, v in outs.items()}
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", help="experiment config YAML")
@@ -166,7 +203,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     ap.add_argument(
         "--spatial", action="store_true",
-        help="shard each image's height over the devices (not yet ported); "
+        help="shard each image's height over all visible GPUs, one process each "
+        "(giant tiles that exceed one GPU's memory; images run one at a time); "
         "single-device runs are unaffected",
     )
     args = ap.parse_args(argv)
@@ -179,20 +217,23 @@ def main(argv: Optional[list[str]] = None) -> int:
     # flags change nothing where one device of --device's type is visible
     devices = (int(os.environ["WORLD_SIZE"]) if distributed.launched()
                else distributed.visible_devices(args.device))
+    sharded = (args.data_parallel or args.spatial) and devices > 1
+    if sharded and args.artifact:
+        raise SystemExit(
+            "--data-parallel/--spatial only apply to --config/--checkpoint "
+            "serving: an artifact's sharding is baked in at export time. "
+            "For a data-parallel artifact, re-export with "
+            "`export_serving --n-devices N` (it auto-shards at load); "
+            "otherwise serve per-device processes."
+        )
+    # a data-parallel artifact runs over its own ranks, one a GPU
+    n_art = int(artifact_meta(args.artifact).get("n_devices", 1)) if args.artifact else 1
+    if n_art > 1 and not distributed.launched() and devices < n_art:
+        raise SystemExit(str(fewer_devices_error(n_art, devices)))
     mesh = None
-    if (args.data_parallel or args.spatial) and devices > 1:
-        if args.artifact:
-            raise SystemExit(
-                "--data-parallel/--spatial only apply to --config/--checkpoint "
-                "serving: an artifact's sharding is baked in at export time, and a "
-                "data-parallel artifact (export_serving --n-devices) is not yet "
-                "ported to im2im_uq_tpu_torch; serve per-device processes."
-            )
-        if args.spatial:
-            raise SystemExit("--spatial over more than one device is not yet ported "
-                             "to im2im_uq_tpu_torch")
+    if sharded or n_art > 1:
         rc, mesh = distributed.join_or_spawn("im2im_uq_tpu_torch.scripts.infer", argv,
-                                             args.device)
+                                             args.device, n_art if n_art > 1 else None)
         if rc is not None:
             return rc  # the workers, one per GPU, served and wrote
         args.device = str(mesh.device)
@@ -200,9 +241,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         raise SystemExit("launched as one of several ranks: pass --data-parallel")
 
     if args.artifact:
-        from im2im_uq_tpu_torch.scripts.export_serving import load_serving_artifact
-
         state = load_serving_artifact(args.artifact, torch.device(args.device))
+        if state.idle:
+            return 0  # a rank past the artifact's in a larger group
         if args.lam is not None and abs(args.lam - state.lhat) > 1e-9:
             raise SystemExit(
                 f"--lam {args.lam} conflicts with the artifact's baked "
@@ -238,7 +279,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     total, t0 = 0, time.perf_counter()
     for name, arr in _iter_input_arrays(args.input):
-        result = predict_intervals(state, arr, args.batch_size, lam=lam, mesh=mesh)
+        if args.spatial and mesh is not None:
+            result = predict_intervals_spatial(state, arr, mesh, lam=lam)
+        else:
+            # an artifact shards its batch itself
+            result = predict_intervals(state, arr, args.batch_size, lam=lam,
+                                       mesh=None if args.artifact else mesh)
         out = out_dir / f"{name}_intervals.npz"
         if writes:
             np.savez(out, lam=np.float64(lam), **result)

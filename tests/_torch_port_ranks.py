@@ -5,7 +5,9 @@ group on a free localhost port, each running one of the ``WORKERS`` below on
 its shard and saving what it computed under the test's directory; it waits
 at most ``timeout`` seconds and kills every child on a timeout or a failure,
 so that a collective that never completes fails the test instead of hanging
-it. The workers import only the port, as its entry points would.
+it (:func:`start_ranks` and :func:`wait_ranks` let the test process work
+while they run). The workers import only the port, as its entry points
+would.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -193,20 +196,153 @@ def worker_all(mesh, tmp: Path) -> dict:
     }
 
 
-WORKERS = {"all": worker_all}
+# --------------------------------------------------- the multi-GPU API left
+
+# the height-sharded cases: (image height, width, config overrides); the
+# inputs carry the case's name
+SPATIAL_CASES = {
+    **{f"{h}x{w}_{b}": (h, w, {"conv_backend": b})
+       for h, w in ((80, 48), (40, 32)) for b in ("xla", "pallas", "pallas_fused")},
+    "80x48_pallas_fused_resize_pallas": (80, 48, {"conv_backend": "pallas_fused",
+                                                  "resize_backend": "pallas"}),
+    "40x32_wnet": (40, 32, {"model": "WNet"}),
+    # rank 1's share is 8 rows: empty at the deepest level
+    "24x16_xla": (24, 16, {"conv_backend": "xla"}),
+}
+SPATIAL_LAM = 1.25
+SEEDS = (0, 1, 2, 3)
+MULTISEED_LR = 1e-3
 
 
-def run_ranks(worker: str, tmp: Path, n: int = 2, timeout: float = 120.0) -> list[dict]:
-    """``WORKERS[worker]`` in ``n`` ranks of one gloo group → each rank's
-    results, in rank order."""
+def spatial_state(name: str, weights: dict, device="cpu"):
+    """The case's model with its weights (UNet or WNet) and λ̂ unset."""
+    from im2im_uq_tpu_torch.models import assembly as tasm
+
+    cfg = dict(UNET, **SPATIAL_CASES[name][2])
+    st = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device=device)
+    st.model.load_state_dict(weights[cfg.get("model", "UNet")])
+    return st
+
+
+def upnoskip_sharded(mesh, x: torch.Tensor) -> np.ndarray:
+    """``UpNoSkip`` by 3 (torch's init from seed 5) on the rows of NCHW
+    ``x`` split over ``mesh``, gathered; its whole-height output without a
+    mesh of several ranks."""
+    from im2im_uq_tpu_torch.models.unet import UpNoSkip
+    from im2im_uq_tpu_torch.parallel import spatial
+
+    torch.manual_seed(5)
+    block = UpNoSkip(16, 8, scale_factor=3).eval()
+    with torch.no_grad(), spatial.height_sharded(mesh, *x.shape[2:]) as sh:
+        out = block(x) if sh is None else sh.gather(block(sh.take(x)), 2)
+    return out.numpy()
+
+
+def multiseed_run(cfg: dict, batches: list, mesh, weights: Optional[list] = None) -> dict:
+    """init_multiseed_states of SEEDS (their weights replaced by
+    ``weights[s]`` where given), sharded over ``mesh``, then one multi-seed
+    Adam step per batch → this rank's seeds, the losses of each step, a
+    sample of each local replica's state dict, and the collectives issued
+    during the steps."""
+    import torch.distributed as dist
+
+    from im2im_uq_tpu_torch.models import assembly as tasm
+    from im2im_uq_tpu_torch.training import multiseed
+    from im2im_uq_tpu_torch.training import train as ttrain
+
+    st = tasm.UQState(model=None, params=cfg)
+    opt = lambda p: torch.optim.Adam(p, lr=MULTISEED_LR)  # noqa: E731
+    states = multiseed.init_multiseed_states(st, SEEDS, opt, torch.zeros((1, 1, 16, 16)))
+    if weights is not None:
+        for m, w in zip(states.models, weights):
+            m.load_state_dict(w)
+    states = multiseed.shard_multiseed_state(states, mesh)
+    step = multiseed.make_multiseed_train_step(st, opt, mesh)
+    calls = []
+    names = ("all_reduce", "broadcast", "all_gather", "batch_isend_irecv", "send", "recv")
+    saved = {n: getattr(dist, n) for n in names}
+    for n in names:
+        setattr(dist, n, lambda *a, _n=n, **k: calls.append(_n) or saved[_n](*a, **k))
+    try:
+        losses = [step(states, *ttrain.put_batch(*b, torch.device("cpu")))[1].tolist()
+                  for b in batches]
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    return {"seeds": states.local_seeds, "losses": losses, "collectives": calls,
+            "states": [sample(m.state_dict()) for m in states.models], "handle": states}
+
+
+def worker_multigpu(mesh, tmp: Path) -> dict:
+    """The artifact, height-sharded and multi-seed calls over ``mesh``; over
+    a mesh of one rank (the worker ``multigpu_one``, which serves the
+    one-process artifact) the same calls are the one-process path, the
+    reference, computed under the ranks' thread settings (the CPU convs'
+    algorithm, and so their bits, follows the threads a process starts
+    with)."""
+    from im2im_uq_tpu_torch.models import assembly as tasm
+    from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+    from im2im_uq_tpu_torch.parallel import spatial
+    from im2im_uq_tpu_torch.scripts import export_serving as texport
+    from im2im_uq_tpu_torch.scripts import infer as tinfer
+    from im2im_uq_tpu_torch.training import multiseed
+
+    inp = torch.load(tmp / "inputs.pt", weights_only=False)
+    multi = mesh_lib.spans(mesh)
+    tag = "" if multi else "_one"
+    art_path = str(tmp / ("art2.pt2" if multi else "art1.pt2"))
+    art = texport.load_serving_artifact(art_path, "cpu")
+    out = {"artifact": {
+        "served": tinfer.predict_intervals(art, inp["serve"], art.batch_size),
+        "ranks": (art.mesh.size, art.mesh.rank) if multi else (1, 0),
+        "cli_rc": tinfer.main(["--artifact", art_path, "--input", str(tmp / "serve.npy"),
+                               "--output", str(tmp / f"served{tag}"), "--device", "cpu"]),
+    }}
+    out["spatial"] = {}
+    for name in SPATIAL_CASES:
+        st = spatial_state(name, inp["weights"])
+        x = torch.from_numpy(inp["spatial_x"][name])
+        out["spatial"][name] = [t.numpy() for t in
+                                spatial.spatial_nested_sets(st, mesh, lam=SPATIAL_LAM)(x)]
+    out["upnoskip"] = upnoskip_sharded(mesh, torch.from_numpy(inp["upnoskip_x"]))
+    cfg = dict(UNET, lr=MULTISEED_LR)
+    run = multiseed_run(cfg, inp["batches"], mesh)
+    states = run.pop("handle")
+    template = tasm.UQState(model=None, params=cfg)
+    x = torch.from_numpy(inp["serve"][:1].transpose(0, 3, 1, 2).copy())
+    run["replicas"] = [sample(multiseed.replica_state(template, states, s).model.state_dict())
+                       for s in range(len(SEEDS))]
+    run["replica3_sets"] = [t.numpy() for t in
+                            multiseed.replica_state(template, states, 3).nested_sets(x, lam=1.0)]
+    out["multiseed"] = run
+    if multi:
+        jax_run = multiseed_run(cfg, inp["batches"], mesh, inp["jax_seed_weights"])
+        jax_run.pop("handle")
+        out["multiseed_jax_init"] = jax_run
+        mesh.barrier()
+    return out
+
+
+WORKERS = {"all": worker_all, "multigpu": worker_multigpu, "multigpu_one": worker_multigpu}
+
+
+def start_ranks(worker: str, tmp: Path, n: int = 2) -> list:
+    """``WORKERS[worker]`` started in ``n`` ranks of one gloo group; wait
+    for them with :func:`wait_ranks`."""
     from im2im_uq_tpu_torch.parallel.distributed import free_port
 
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                WORLD_SIZE=str(n), PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, __file__, worker, str(tmp)],
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
+    return [subprocess.Popen([sys.executable, __file__, worker, str(tmp)],
+                             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+
+
+def wait_ranks(procs: list, worker: str, tmp: Path, timeout: float = 120.0) -> list[dict]:
+    """The ranks of :func:`start_ranks` waited for at most ``timeout``
+    seconds (all killed on a timeout) → each rank's results, in rank
+    order."""
     outs = []
     deadline = time.monotonic() + timeout
     try:
@@ -219,7 +355,14 @@ def run_ranks(worker: str, tmp: Path, n: int = 2, timeout: float = 120.0) -> lis
                 p.communicate()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
-    return [torch.load(tmp / f"{worker}_rank{r}.pt", weights_only=False) for r in range(n)]
+    return [torch.load(tmp / f"{worker}_rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def run_ranks(worker: str, tmp: Path, n: int = 2, timeout: float = 120.0) -> list[dict]:
+    """``WORKERS[worker]`` in ``n`` ranks of one gloo group → each rank's
+    results, in rank order."""
+    return wait_ranks(start_ranks(worker, tmp, n), worker, tmp, timeout)
 
 
 if __name__ == "__main__":

@@ -192,11 +192,12 @@ def test_infer_main_writes_the_jax_outputs(pair, tmp_path):
 @pytest.mark.parametrize("flag", ["--artifact=x", "--data-parallel", "--spatial"])
 def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
     """Over more than one CUDA device (one visible device leaves the flags
-    without effect: ``test_torch_port_serving_export.py``) ``--spatial`` is
-    not yet ported, nor is serving an artifact data-parallel (its sharding
-    is fixed at export, and the data-parallel artifact is not yet ported);
-    ``--data-parallel`` is: it starts one rank per GPU running the same
-    command (``test_torch_port_parallel.py`` runs the ranks)."""
+    without effect: ``test_torch_port_serving_export.py``) ``--artifact``
+    with ``--data-parallel`` is refused with the JAX CLI's message (an
+    artifact's sharding is fixed at export: ``export_serving --n-devices``);
+    ``--data-parallel`` and ``--spatial`` start one rank per GPU running the
+    same command (``test_torch_port_parallel.py`` and
+    ``test_torch_port_multigpu.py`` run the ranks)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     spawned = []
     monkeypatch.setattr(tdistributed, "spawn_per_device",
@@ -204,10 +205,10 @@ def test_infer_main_rejects_unported_modes(flag, tmp_path, monkeypatch):
     model = (["--data-parallel"] if flag.startswith("--artifact")
              else ["--config", "c.yml", "--checkpoint", "c.pt"])
     argv = [flag, *model, "--input", str(tmp_path), "--output", str(tmp_path)]
-    if flag == "--data-parallel":
+    if flag != "--artifact=x":
         assert tinfer.main(argv) == 0
         assert spawned == [(["-m", "im2im_uq_tpu_torch.scripts.infer", *argv], 2)]
         return
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="re-export with `export_serving --n-devices N`"):
         tinfer.main(argv)
     assert spawned == []

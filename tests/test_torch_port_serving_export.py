@@ -12,8 +12,10 @@ against the JAX package.
   ``torch_version`` for ``jax_version``.
 - The artifact serves through ``predict_intervals`` with a ragged tail; a
   baked λ refuses another λ and a mesh; export refuses a model without λ̂
-  and a data-parallel artifact (not yet ported); the platform guard
-  refuses an artifact exported for ``cuda`` alone on the CPU.
+  and a data-parallel artifact whose batch does not divide over its
+  devices (the data-parallel artifact itself: ``test_torch_port_multigpu.py``);
+  the platform guard refuses an artifact exported for ``cuda`` alone on the
+  CPU.
 - ``export_serving.main`` then ``infer.main --artifact`` write the JAX
   CLI's file names and summary keys, and the intervals of
   ``infer.main --config --checkpoint`` on the portable config bit for bit;
@@ -189,8 +191,8 @@ def test_export_refusals(port_env, tmp_path):
     kw = dict(batch_size=4, height=32, width=32)
     with pytest.raises(ValueError, match="λ̂"):
         texport.export_serving_artifact(state.replace(lhat=None), str(tmp_path / "a"), **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        texport.export_serving_artifact(state, str(tmp_path / "b"), n_devices=2, **kw)
+    with pytest.raises(ValueError, match="must divide by n_devices 3"):
+        texport.export_serving_artifact(state, str(tmp_path / "b"), n_devices=3, **kw)
     with pytest.raises(ValueError, match="n_devices"):
         texport.export_serving_artifact(state, str(tmp_path / "c"), n_devices=0, **kw)
     with pytest.raises(ValueError, match="platforms"):
