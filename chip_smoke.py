@@ -2920,11 +2920,15 @@ def _dp_artifact(tmp: Path, mesh) -> dict:
     one-process artifact at the global batch. cuDNN picks a conv's
     algorithm in each process, by the batch and by the memory free for its
     workspace (which ranks sharing a card take from each other), so only
-    the first comparison runs the same algorithms on both sides."""
+    the first comparison runs the same algorithms on both sides; and only
+    its deterministic algorithms give the same bits twice, so the path
+    runs under ``deterministic_cudnn``."""
     reset_counts()
     t0 = time.perf_counter()
-    rc = infer.main(["--artifact", str(tmp / "art_dp.pt2"), "--input", str(tmp / "serve.npy"),
-                     "--output", str(tmp / "served_art"), "--device", mesh.device.type])
+    with deterministic_cudnn():
+        rc = infer.main(["--artifact", str(tmp / "art_dp.pt2"), "--input",
+                         str(tmp / "serve.npy"), "--output", str(tmp / "served_art"),
+                         "--device", mesh.device.type])
     torch.cuda.synchronize()
     res = {"rc": rc, "launches": read_counts(), "seconds": time.perf_counter() - t0}
     mesh.barrier()  # rank 0's intervals are written
@@ -2934,13 +2938,15 @@ def _dp_artifact(tmp: Path, mesh) -> dict:
     one = export_serving.load_serving_artifact(str(tmp / "art_one_rank.pt2"), mesh.device)
     k = one.batch_size  # this rank's share of each global batch of k · ranks images
     rows = np.arange(len(images)).reshape(-1, mesh.size, k)[:, mesh.rank].reshape(-1)
-    want = infer.predict_intervals(one, images[rows], k)
+    with deterministic_cudnn():
+        want = infer.predict_intervals(one, images[rows], k)
     res["own_rows"] = {"batch_size": k, "max_abs_diff": _max_abs(
         {n: served[n][rows] for n in want}, want), "bit_identical": all(
         np.array_equal(served[n][rows], want[n]) for n in want)}
     if mesh.is_main:
         one = export_serving.load_serving_artifact(str(tmp / "art_one.pt2"), mesh.device)
-        want = infer.predict_intervals(one, images, one.batch_size)
+        with deterministic_cudnn():
+            want = infer.predict_intervals(one, images, one.batch_size)
         res["one"] = {"batch_size": one.batch_size, "max_abs_diff": _max_abs(served, want),
                       "bit_identical": all(np.array_equal(served[n], want[n]) for n in want)}
         res.update(lam=float(served["lam"]), shape=list(served["lower"].shape))
