@@ -2912,6 +2912,14 @@ def dp_ranks() -> int:
     return max(torch.cuda.device_count(), 2)
 
 
+def _release(mesh) -> None:
+    """Every rank's cached device memory given back before the next path
+    starts on any rank (the ranks may share a card)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+
 def _dp_artifact(tmp: Path, mesh) -> dict:
     """``infer.main --artifact`` of the data-parallel artifact over the
     ranks, counted. Then each rank holds the rows it served to the
@@ -2922,7 +2930,11 @@ def _dp_artifact(tmp: Path, mesh) -> dict:
     workspace (which ranks sharing a card take from each other), so only
     the first comparison runs the same algorithms on both sides; and only
     its deterministic algorithms give the same bits twice, so the path
-    runs under ``deterministic_cudnn``."""
+    runs under ``deterministic_cudnn``, and from a released cache on every
+    rank (a conv whose best algorithm finds no room for its workspace takes
+    another)."""
+    _release(mesh)
+    res = {"free_gib": torch.cuda.mem_get_info(mesh.device)[0] / 2**30}
     reset_counts()
     t0 = time.perf_counter()
     with deterministic_cudnn():
@@ -2930,7 +2942,7 @@ def _dp_artifact(tmp: Path, mesh) -> dict:
                          str(tmp / "serve.npy"), "--output", str(tmp / "served_art"),
                          "--device", mesh.device.type])
     torch.cuda.synchronize()
-    res = {"rc": rc, "launches": read_counts(), "seconds": time.perf_counter() - t0}
+    res.update(rc=rc, launches=read_counts(), seconds=time.perf_counter() - t0)
     mesh.barrier()  # rank 0's intervals are written
     with np.load(tmp / "served_art" / "serve_intervals.npz") as z:
         served = {k: z[k] for k in z.files}
@@ -2967,6 +2979,7 @@ def _dp_spatial(tmp: Path, mesh) -> dict:
     launches of that one-process run, which each rank's must equal but for
     K1f (each rank runs every layer once; the upsample takes K1f only under
     ``resize_backend: pallas``, over the gathered height)."""
+    _release(mesh)
     tiles = np.load(tmp / "tiles.npy")
     out = {}
     for name in SPATIAL_CASES:
@@ -3013,6 +3026,7 @@ def _dp_multiseed(config: dict, batch: tuple, mesh) -> dict:
     replica sees whole), counted; then each local seed's one-process plain
     step on this card from the same seed, counted: the expected launches,
     and the reference. cuDNN deterministic on both."""
+    _release(mesh)
     cfg = dict(config, **MULTISEED_CASE)
     st = UQState(model=None, params=cfg)
     opt = lambda p: torch.optim.Adam(p, lr=MULTISEED_LR)  # noqa: E731
@@ -3122,7 +3136,8 @@ def _check_dp_artifact(ranks: list, exports: dict, smi: str) -> None:
     art = [r["artifact"] for r in ranks]
     emit("dp_artifact", ranks=len(ranks), exports=exports, images=SERVE_N,
          rc=[a["rc"] for a in art], vs_one_process=art[0]["one"],
-         own_rows_vs_one_process_rank_batch=[a["own_rows"] for a in art], lam=art[0]["lam"],
+         own_rows_vs_one_process_rank_batch=[a["own_rows"] for a in art],
+         free_gib_per_rank=[a["free_gib"] for a in art], lam=art[0]["lam"],
          shape=art[0]["shape"],
          seconds=[a["seconds"] for a in art],
          launches_per_rank=[_nonzero(a["launches"]) for a in art], card=smi)
