@@ -150,7 +150,30 @@ Phases, one JSON line each on stdout:
               1e-7, the JAX artifact test's bars), and the default
               config's (K1f) within phase 7's rtol 1e-4 / atol 1e-5; the
               same export and serving once in bf16.
-23. dp        the multi-GPU API over the ranks of one process group (the
+23. data_device the on-device input transforms at full width. fastMRI
+              singlecoil knee: 160 slices made from a seed on the host (k-space
+              640x368, the router's default mask, equispaced, center fraction
+              0.08, 4x; targets 320x320), normalised as the dataset does; the
+              raw items' shape (32, 640, 368, 2); ``zero_filled_recon`` on
+              the card against the host ``UnetDataTransform`` and the dataset's
+              closure against the image items (rtol 2e-4, atol 1e-5); step 1
+              with the hook against the image-mode step on the host's
+              inputs (RAW_LOSS_RTOL); 5 train steps with the hook under the
+              default config and under ``pallas_fused`` beside 5 in image
+              mode (K1f, K1b, K7, and K3-K6 under ``pallas_fused``); image-mode
+              calibration on 128 slices (K2); then, where h5py is installed,
+              the router with ``on_device_transform: true`` on two synthetic
+              HDF5 volumes at that geometry, else ``train_net`` with the hook
+              on the slices in memory, the hook's inputs recorded. TEMCA at
+              ``side_length`` 320, ``downsampling_factor`` 4, batch 16: uint8
+              patches from the seed, the raw feed (one uint8 patch an item),
+              ``device_preprocess_pair`` on the card bit for bit the host's
+              pair, step 1 bit for bit the image-mode step's, 5 steps with the
+              hook beside 5 in image mode. Each line gives the transform's ms
+              a batch (CUDA events after warm-up), the bytes a batch moves
+              host to device raw and in image mode, the median step ms in
+              each mode and the launches.
+24. dp        the multi-GPU API over the ranks of one process group (the
               port's ``parallel/``): one rank per visible GPU over NCCL
               with two or more GPUs, else two ranks on the one card over
               gloo (its own CUDA collectives), a rehearsal that gives no
@@ -197,7 +220,8 @@ The kernel launch counters are set to 0 just before each path that a user
 runs (the probe CLIs, calibrate + serve, train, router, each of them
 under the fused config, each head's, WNet's and the softmax router's, the
 bf16 paths, the remat steps, the calibrate CLI and the serving paths of
-the deploy phase, and in each rank the dp phase's steps, calibration,
+the deploy phase, the data_device phase's raw train steps, calibration and
+train_net or router, and in each rank the dp phase's steps, calibration,
 ``compute_risks_device``, serving, the artifact, each spatial case and the
 multi-seed step) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
@@ -239,6 +263,17 @@ from im2im_uq_tpu_torch.calibration.rcps import (
     compute_risks_device,
     lambda_grid,
 )
+from im2im_uq_tpu_torch.data.core import Subset
+from im2im_uq_tpu_torch.data.fastmri import FastMRIDataset
+from im2im_uq_tpu_torch.data.normalize import normalize_dataset
+from im2im_uq_tpu_torch.data.subsample import create_mask_for_mask_type
+from im2im_uq_tpu_torch.data.temca import TEMCADataset
+from im2im_uq_tpu_torch.data.transforms import (
+    UnetDataTransform,
+    apply_mask,
+    fft2c_np,
+    to_real_pair,
+)
 from im2im_uq_tpu_torch.models.assembly import (
     UQState,
     add_uncertainty,
@@ -256,6 +291,7 @@ from im2im_uq_tpu_torch.ops import (
     resize,
     upsample,
 )
+from im2im_uq_tpu_torch.ops.mri_pipeline import zero_filled_recon
 from im2im_uq_tpu_torch.parallel import distributed
 from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 from im2im_uq_tpu_torch.parallel import spatial
@@ -2670,6 +2706,390 @@ def phase_deploy(config: dict, calib, serve) -> dict:
     return launches
 
 
+# the data_device phase: fastMRI singlecoil knee slices at full width
+# (k-space 640x368, the reconstruction 320x320) under the router's default
+# mask, then TEMCA at experiments/temca_test's patch side and downsampling
+KSPACE_SHAPE, RECON = (640, 368), (320, 320)
+MRI_MASK = {"type": "equispaced", "center_fraction": [0.08], "acceleration": [4]}
+TEMCA_SIDE, TEMCA_DOWN, TEMCA_BATCH = 320, 4, 16
+DATA_SEED = 17
+# the card's reconstruction against the host transform (numpy's FFT): the
+# JAX package's bar (tests/test_mri_pipeline.py)
+RECON_RTOL, RECON_ATOL = 2e-4, 1e-5
+# step 1's loss on the card's reconstruction against the image-mode step on
+# the host's, relative (deterministic cuDNN on both): the inputs differ by
+# the two FFTs' rounding alone
+RAW_LOSS_RTOL = 1e-4
+# the fastMRI router's volumes: slices each
+ROUTER_VOLUMES, ROUTER_SLICES = 2, 24
+
+
+class KspaceSlices:
+    """fastMRI slices held in memory: each slice's masked k-space and its
+    target, served as ``FastMRIDataset`` serves them, in image mode (the
+    host ``UnetDataTransform``, then the dataset's normalisation) or, with
+    ``return_kspace``, raw; the normalisation and ``device_preprocess`` are
+    ``FastMRIDataset``'s own. The phase's stand-in for HDF5 volumes."""
+
+    device_preprocess = FastMRIDataset.device_preprocess
+    _apply_norm = FastMRIDataset._apply_norm
+
+    def __init__(self, kspace: np.ndarray, targets: np.ndarray):
+        self.kspace, self.targets = kspace, targets
+        self.transform = UnetDataTransform("singlecoil")  # the mask is applied
+        self.normalize_input, self.normalize_output = "standard", "min-max"
+        self.norm_params = None
+        self.return_kspace = False
+
+    def __len__(self) -> int:
+        return len(self.kspace)
+
+    def host_image(self, i: int) -> np.ndarray:
+        """The host transform's reconstruction of slice ``i``, unnormalised."""
+        return self.transform(self.kspace[i], None, self.targets[i], {}, "slice.h5", i)[0]
+
+    def __getitem__(self, i: int):
+        target = self._apply_norm(self.targets[i], self.normalize_output, "output")
+        target = np.asarray(target, np.float32)[..., None]
+        if self.return_kspace:
+            return self.kspace[i], target
+        image = self._apply_norm(self.host_image(i), self.normalize_input, "input")
+        return np.asarray(image, np.float32)[..., None], target
+
+
+def mri_slices(n: int, seed: int) -> KspaceSlices:
+    """``n`` slices made from ``seed`` on the host: random images, their
+    centered orthonormal k-space at KSPACE_SHAPE, a fresh mask each
+    (MRI_MASK, the mask's generator seeded), the targets the images'
+    center crops' magnitudes, as ``write_synthetic_volume`` makes them."""
+    rng = np.random.RandomState(seed)
+    images = rng.randn(n, *KSPACE_SHAPE).astype(np.float32)
+    kspace = fft2c_np(to_real_pair(images.astype(np.complex64))).astype(np.float32)
+    mask_func = create_mask_for_mask_type(MRI_MASK["type"], MRI_MASK["center_fraction"],
+                                          MRI_MASK["acceleration"])
+    mask_func.rng.seed(seed)
+    masked = np.stack([apply_mask(k, mask_func)[0] for k in kspace]).astype(np.float32)
+    h0, w0 = [(a - b) // 2 for a, b in zip(KSPACE_SHAPE, RECON)]
+    targets = np.abs(images[:, h0:h0 + RECON[0], w0:w0 + RECON[1]])
+    return KspaceSlices(masked, targets)
+
+
+def _stack(ds, idx) -> tuple:
+    """The items ``idx`` of ``ds`` as one batch, every example real."""
+    items = [ds[i] for i in idx]
+    return (np.stack([x for x, _ in items]), np.stack([y for _, y in items]),
+            np.ones((len(items),), np.float32))
+
+
+def _nbytes(batch: tuple) -> int:
+    return sum(a.nbytes for a in batch)
+
+
+def _steps(phase: str, init: dict, cfg: dict, batch: tuple, kernels: list,
+           **hooks) -> tuple[dict, list, list]:
+    """PATH_STEPS steps of ``make_train_step`` from ``init`` on ``batch``
+    (raw with a hook), counted and timed (CUDA events, steps 2 on) →
+    (launches, losses, step ms)."""
+    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    st.model.load_state_dict(init)
+    opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt,
+                                 **hooks)
+    tensors = train.put_batch(*batch, torch.device(DEVICE),
+                              raw_input=hooks.get("preprocess") is not None)
+    reset_counts()
+    losses = [float(step(*tensors))]
+    check_first_gradients(phase, st.model)
+    more, step_ms = timed_steps(step, tensors, PATH_STEPS - 1)
+    counts = read_counts()
+    losses += more
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: train losses not finite: {losses}")
+    require_launches(phase, counts, kernels)
+    require_k1_per_step(phase, counts, PATH_STEPS)
+    return counts, losses, step_ms
+
+
+def _first_loss(init: dict, cfg: dict, batch: tuple, **hooks) -> float:
+    """Step 1's loss from ``init`` on ``batch``, under deterministic cuDNN."""
+    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    st.model.load_state_dict(init)
+    opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt,
+                                 **hooks)
+    with deterministic_cudnn():
+        return float(step(*train.put_batch(*batch, torch.device(DEVICE),
+                                           raw_input=hooks.get("preprocess") is not None)))
+
+
+def _recording(hook, seen: list):
+    """``hook``, recording the shape and dtype of what it is given."""
+    def recorded(*xs):
+        seen.append([[list(x.shape), str(x.dtype)] for x in xs])
+        return hook(*xs)
+    return recorded
+
+
+def _mri_router(config: dict, tmp: str, smi: str) -> dict:
+    """The router with ``on_device_transform: true`` on ROUTER_VOLUMES
+    synthetic HDF5 volumes at full geometry (``write_synthetic_volume``)
+    → launches. Training must reach the hook with raw k-space."""
+    from im2im_uq_tpu_torch.data.fastmri import write_synthetic_volume
+
+    data = os.path.join(tmp, "volumes")
+    os.makedirs(data)
+    for i in range(ROUTER_VOLUMES):
+        write_synthetic_volume(os.path.join(data, f"vol{i}.h5"), num_slices=ROUTER_SLICES,
+                               enc_shape=KSPACE_SHAPE, recon_shape=RECON, seed=DATA_SEED + i)
+    with open(ROUTER_CONFIG.parent.parent / "fastmri_test" / "config.yml") as fh:
+        sweep = yaml.safe_load(fh)
+    for key, value in dict(uncertainty_type="quantiles", lr=config["lr"], epochs=1,
+                           batch_size=config["batch_size"], load_from_checkpoint=False,
+                           on_device_transform=True, validate_every=1,
+                           num_validation_images=2, mask_info=MRI_MASK,
+                           output_dir=os.path.join(tmp, "out"),
+                           checkpoint_dir=os.path.join(tmp, "ckpt")).items():
+        sweep["parameters"][key] = {"value": value}
+    cfg_path = _write_config(tmp, "fastmri", sweep)
+    (cfg,) = router.load_config(cfg_path)
+    seen: list = []
+    train_net = router.train_net
+
+    def spy(*args, preprocess=None, **kw):
+        return train_net(*args, preprocess=_recording(preprocess, seen), **kw)
+
+    router.train_net = spy
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = router.main(["--config", cfg_path, "--data-path", data, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        router.train_net = train_net
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"router.main returned {rc}")
+    with open(router.results_filename(cfg), "rb") as fh:
+        results = pickle.load(fh)
+    if sorted(results) != RESULT_KEYS or results["lhat"] not in lambda_grid(cfg):
+        raise AssertionError(f"data_device_router: bad results {sorted(results)}")
+    if not seen or any(b[0][0][1:] != [*KSPACE_SHAPE, 2] for b in seen):
+        raise AssertionError(f"data_device_router: the hook saw {seen}, not raw k-space")
+    require_launches("data_device_router", counts, DEFAULT_PATH_KERNELS)
+    emit("data_device_router", h5py=True, volumes=ROUTER_VOLUMES, slices=ROUTER_SLICES,
+         hook_inputs=seen, seconds=wall, lhat=float(results["lhat"]),
+         risk=float(results["risk"]), card=smi, launches=_nonzero(counts))
+    return counts
+
+
+def _mri_train_net(config: dict, ds: KspaceSlices, smi: str) -> dict:
+    """Without h5py: ``train_net`` with the hook on the in-memory slices,
+    raw (its first 32 to train, the next 32 to validate) → launches."""
+    cfg = dict(config, epochs=1)
+    bs = cfg["batch_size"]
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(7), device=DEVICE)
+    seen: list = []
+    log = RecordLog()
+    ds.return_kspace = True
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.train_net(st, Subset(ds, range(bs)), Subset(ds, range(bs, 2 * bs)), None, epochs=1,
+                    batch_size=bs, lr=cfg["lr"], validate_every=1, config=cfg, logger=log,
+                    preprocess=_recording(ds.device_preprocess(RECON), seen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds.return_kspace = False
+    counts = read_counts()
+    epoch = {k: v for r in log.records for k, v in r.items()}
+    if not np.isfinite([epoch["train_loss"], epoch["val_loss"]]).all():
+        raise AssertionError(f"data_device_train_net: losses not finite: {epoch}")
+    if not seen or any(b[0][0] != [bs, *KSPACE_SHAPE, 2] for b in seen):
+        raise AssertionError(f"data_device_train_net: the hook saw {seen}, not raw k-space")
+    require_launches("data_device_train_net", counts,
+                     ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"])
+    emit("data_device_train_net", h5py=False, note="h5py is not installed: no HDF5 volumes, "
+         "so train_net with the hook on in-memory slices in place of the router",
+         hook_inputs=seen, seconds=wall, train_loss=epoch["train_loss"],
+         val_loss=epoch["val_loss"], card=smi, launches=_nonzero(counts))
+    return counts
+
+
+def _has(module: str) -> bool:
+    try:
+        __import__(module)
+    except ImportError:
+        return False
+    return True
+
+
+def _data_device_mri(config: dict, smi: str) -> dict:
+    """The fastMRI half of phase 23 → launches."""
+    bs = config["batch_size"]
+    t0 = time.perf_counter()
+    ds = normalize_dataset(mri_slices(bs + CALIB_N, DATA_SEED))
+    data_s = time.perf_counter() - t0
+    train_idx = range(bs)
+    ds.return_kspace = True
+    raw = _stack(ds, train_idx)
+    ds.return_kspace = False
+    image = _stack(ds, train_idx)
+    if raw[0].shape != (bs, *KSPACE_SHAPE, 2) or raw[0].dtype != np.float32:
+        raise AssertionError(f"raw items {raw[0].shape} {raw[0].dtype}, not (B, 640, 368, 2)")
+
+    # the card's reconstruction against the host transform, then the
+    # closure (reconstruction and normalisation) against the image items
+    k = torch.from_numpy(raw[0]).to(DEVICE)
+    recon = zero_filled_recon(k, None, RECON).cpu().numpy()[:, 0]
+    host = np.stack([ds.host_image(i) for i in train_idx])
+    recon_err = float(np.abs(recon - host).max())
+    pre = ds.device_preprocess(RECON)
+    x = pre(k)
+    closure_err = float(np.abs(x.cpu().numpy() - image[0].transpose(0, 3, 1, 2)).max())
+    for got, want in ((recon, host), (x.cpu().numpy(), image[0].transpose(0, 3, 1, 2))):
+        if not np.allclose(got, want, rtol=RECON_RTOL, atol=RECON_ATOL):
+            raise AssertionError(f"data_device_fastmri: the card's reconstruction is off the "
+                                 f"host's: {recon_err}, {closure_err}")
+    pre_ms = time_ms(lambda: pre(k), 20)
+    del k, x
+
+    cfg = dict(config)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+    init = {n: v.detach().clone() for n, v in st.model.state_dict().items()}
+    del st
+    loss_raw = _first_loss(init, cfg, raw, preprocess=pre)
+    loss_image = _first_loss(init, cfg, image)
+    loss_err = abs(loss_raw - loss_image) / abs(loss_image)
+    path = ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
+    counts, losses, raw_ms = _steps("data_device_fastmri", init, cfg, raw, path, preprocess=pre)
+    _, _, image_ms = _steps("data_device_fastmri image mode", init, cfg, image, path)
+    emit("data_device_fastmri", kspace=list(KSPACE_SHAPE), recon=list(RECON), batch=bs,
+         mask=MRI_MASK, raw_item_shape=list(raw[0].shape), raw_item_dtype=str(raw[0].dtype),
+         data_seconds=data_s, recon_max_abs_err=recon_err, closure_max_abs_err=closure_err,
+         recon_rtol=RECON_RTOL, recon_atol=RECON_ATOL, preprocess_ms=pre_ms,
+         h2d_bytes_raw=_nbytes(raw), h2d_bytes_image=_nbytes(image),
+         median_step_ms_raw=float(np.median(raw_ms)),
+         median_step_ms_image=float(np.median(image_ms)), step_ms_raw=raw_ms,
+         step_ms_image=image_ms, step1_loss_raw=loss_raw, step1_loss_image=loss_image,
+         step1_loss_rel_err=loss_err, step1_loss_rtol=RAW_LOSS_RTOL, step_losses=losses,
+         card=smi, launches=_nonzero(counts))
+    if loss_err > RAW_LOSS_RTOL:
+        raise AssertionError(f"data_device_fastmri: step 1's loss is {loss_err} off the "
+                             "image-mode step's")
+    launches = dict(counts)
+
+    fused = dict(cfg, conv_backend="pallas_fused")
+    counts, losses, fused_ms = _steps("data_device_fastmri_fused", init, fused, raw,
+                                      path + CONV_KERNELS, preprocess=pre)
+    emit("data_device_fastmri_fused", conv_backend="pallas_fused", batch=bs,
+         median_step_ms_raw=float(np.median(fused_ms)), step_ms_raw=fused_ms,
+         step_losses=losses, card=smi, launches=_nonzero(counts))
+    for name in KERNELS:
+        launches[name] += counts[name]
+
+    # calibration in image mode on CALIB_N slices
+    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
+    st.model.load_state_dict(init)
+    calib = Subset(ds, range(bs, bs + CALIB_N))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, table = calibrate_model(st, calib, cfg)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    counts = read_counts()
+    if table.shape != (CALIB_N, cfg["num_lambdas"]) or not np.isfinite(table).all():
+        raise AssertionError(f"data_device_calibrate: bad table {table.shape}")
+    require_launches("data_device_calibrate", counts, ["loss_table", "upsample2x"])
+    emit("data_device_calibrate", images=CALIB_N, image_mode=True, lhat=st.lhat,
+         seconds=calib_s, card=smi, launches=_nonzero(counts))
+    for name in KERNELS:
+        launches[name] += counts[name]
+    del st
+
+    if _has("h5py"):
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = _mri_router(cfg, tmp, smi)
+    else:
+        counts = _mri_train_net(cfg, ds, smi)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    return launches
+
+
+def _data_device_temca(config: dict, smi: str) -> dict:
+    """The TEMCA half of phase 23 → launches."""
+    rng = np.random.RandomState(DATA_SEED)
+    patches = rng.randint(0, 256, (TEMCA_BATCH, TEMCA_SIDE, TEMCA_SIDE), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        # no tiles: the patch buffer is filled here
+        ds = TEMCADataset(tmp + "/", patch_size=(TEMCA_SIDE, TEMCA_SIDE),
+                          downsampling=(TEMCA_DOWN, TEMCA_DOWN), buffer_size=1, normalize="01")
+    items = {}
+    for raw in (False, True):
+        ds.reset()
+        ds.patch_buffer = list(patches)
+        ds.return_raw = raw
+        items[raw] = list(ds)
+    if len(items[True]) != TEMCA_BATCH or any(x is not y or x.dtype != np.uint8
+                                              for x, y in items[True]):
+        raise AssertionError("data_device_temca: the raw feed is not one uint8 patch an item")
+    mask = np.ones((TEMCA_BATCH,), np.float32)
+    raw = (np.stack([x for x, _ in items[True]]), np.stack([y for _, y in items[True]]), mask)
+    image = (np.stack([x for x, _ in items[False]]), np.stack([y for _, y in items[False]]), mask)
+    pair = ds.device_preprocess_pair()
+    xr, yr, _ = train.put_batch(*raw, torch.device(DEVICE))
+    low, gt = pair(xr, yr)
+    same = (torch.equal(low.cpu(), nchw_from_nhwc(image[0], "cpu"))
+            and torch.equal(gt.cpu(), nchw_from_nhwc(image[1], "cpu")))
+    pair_ms = time_ms(lambda: pair(xr, yr), 20)
+    del xr, yr, low, gt
+
+    cfg = dict(config, batch_size=TEMCA_BATCH)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(6), device=DEVICE)
+    init = {n: v.detach().clone() for n, v in st.model.state_dict().items()}
+    del st
+    loss_raw = _first_loss(init, cfg, raw, preprocess_pair=pair)
+    loss_image = _first_loss(init, cfg, image)
+    path = ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
+    counts, losses, raw_ms = _steps("data_device_temca", init, cfg, raw, path,
+                                    preprocess_pair=pair)
+    _, _, image_ms = _steps("data_device_temca image mode", init, cfg, image, path)
+    emit("data_device_temca", side_length=TEMCA_SIDE, downsampling_factor=TEMCA_DOWN,
+         batch=TEMCA_BATCH, raw_item_shape=list(raw[0].shape[1:]),
+         raw_item_dtype=str(raw[0].dtype), pair_bit_identical=same, preprocess_ms=pair_ms,
+         h2d_bytes_raw=_nbytes(raw), h2d_bytes_image=_nbytes(image),
+         median_step_ms_raw=float(np.median(raw_ms)),
+         median_step_ms_image=float(np.median(image_ms)), step_ms_raw=raw_ms,
+         step_ms_image=image_ms, step1_loss_raw=loss_raw, step1_loss_image=loss_image,
+         step_losses=losses, card=smi, launches=_nonzero(counts))
+    if not same:
+        raise AssertionError("data_device_temca: the card's pair is not the host's bit for bit")
+    if loss_raw != loss_image:
+        raise AssertionError(f"data_device_temca: step 1's loss {loss_raw} on the raw feed is "
+                             f"not the image-mode step's {loss_image}")
+    return counts
+
+
+def phase_data_device(config: dict, smi: str) -> dict:
+    """Phase 23: the on-device input transforms (module docstring) →
+    launches."""
+    t0 = time.perf_counter()
+    launches = _data_device_mri(config, smi)
+    counts = _data_device_temca(config, smi)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    emit("data_device", seconds=time.perf_counter() - t0, h5py=_has("h5py"),
+         imageio=_has("imageio"), card=smi, launches=_nonzero(launches))
+    return launches
+
+
 # the dp phase: its train step cases (config overrides), SGD's rate
 # (tests/test_parallel.py's), the DP steps timed one by one after the
 # compared one (their median and spread are printed)
@@ -3221,7 +3641,7 @@ def _check_multiseed(ranks: list, smi: str) -> None:
 
 
 def phase_dp(config: dict, calib, serve, smi: str) -> dict:
-    """Phase 23: the dp phase's ranks (module docstring), their lines and
+    """Phase 24: the dp phase's ranks (module docstring), their lines and
     checks → the launches of every rank's paths."""
     cfg = dict(config)
     n = dp_ranks()
@@ -3394,13 +3814,16 @@ def main() -> int:
     remat_counts = phase_remat(config)
     # 22. deploy: the calibrate CLI, the serving artifact, serving from it
     deploy_counts = phase_deploy(config, calib, serve)
-    # 23. dp: training, calibration, serving, the data-parallel artifact,
+    # 23. data_device: fastMRI k-space and TEMCA uint8 patches made into the
+    # model's inputs inside the train step
+    data_device_counts = phase_data_device(config, smi)
+    # 24. dp: training, calibration, serving, the data-parallel artifact,
     # height-sharded serving and multi-seed training over the ranks
     dp_counts = phase_dp(config, calib, serve, smi)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
                    bf16_counts, bf16_model_counts, router_bf16_counts, router_bf16_fused_counts,
-                   remat_counts, deploy_counts, dp_counts):
+                   remat_counts, deploy_counts, data_device_counts, dp_counts):
         for name, n in counts.items():
             launches[name] += n
 

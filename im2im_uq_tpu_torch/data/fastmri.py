@@ -22,9 +22,11 @@ Preserved reference quirks:
 - volume order and the example list are shuffled with the *global* python
   RNG (FastMRIDataset.py:70,82), which fix_randomness seeds.
 
-The port's copy of ``im2im_uq_tpu/data/fastmri.py`` without
-``FastMRIDataset.device_preprocess``, a JAX closure (the port imports
-nothing of the JAX package).
+The port's copy of ``im2im_uq_tpu/data/fastmri.py`` (the port imports
+nothing of the JAX package). ``FastMRIDataset.device_preprocess`` is the
+torch closure of the on-device transform: with ``return_kspace`` on, the
+loader ships masked k-space and the train step reconstructs the input on
+the model's device (``ops/mri_pipeline.py``).
 
 For hermetic tests/benchmarks, ``write_synthetic_volume`` emits HDF5 files
 in the exact fastMRI schema (kspace, reconstruction_esc, ismrmrd_header).
@@ -180,11 +182,13 @@ class FastMRIDataset:
         )
 
     def _kspace_item(self, kspace, mask, target, fname: str):
-        """Raw-kspace mode: returns (masked k-space real-pair (H, W, 2),
-        normalized target); the mask is applied on the host. Mask seeding
-        mirrors UnetDataTransform (fresh mask per access under the default
-        use_seed=False). The JAX package's on-device transform that consumes
-        this (``device_preprocess``) is not ported."""
+        """Raw-kspace mode for the on-device pipeline (ops/mri_pipeline.py):
+        returns (masked k-space real-pair (H, W, 2), normalized target) —
+        masking stays on the host (tiny, and preserves the mask-RNG
+        semantics); IFFT/crop/magnitude/input-normalization run on the
+        device via ``device_preprocess``. Mask seeding mirrors
+        UnetDataTransform (fresh mask per access under the default
+        use_seed=False)."""
         from im2im_uq_tpu_torch.data.transforms import apply_mask, center_crop
 
         pair = to_real_pair(np.asarray(kspace))
@@ -198,6 +202,31 @@ class FastMRIDataset:
             np.asarray(pair, np.float32),
             np.asarray(target, np.float32)[..., None],
         )
+
+    def device_preprocess(self, crop: tuple[int, int]):
+        """Torch closure reproducing the image-domain input path on the
+        k-space batch's device: zero-filled recon (the mask was applied on
+        the host) + the dataset's input normalization, (B, H, W, 2) →
+        (B, 1, *crop). Pass as ``preprocess`` to make_train_step /
+        make_eval_loss_step / train_net; requires ``norm_params`` (run
+        normalize_dataset in image mode first, then flip ``return_kspace``
+        on)."""
+        from im2im_uq_tpu_torch.ops.mri_pipeline import zero_filled_recon
+
+        which, p = self.normalize_input, self.norm_params
+
+        def preprocess(kspace_pair):
+            img = zero_filled_recon(kspace_pair, None, crop)
+            if p is None:
+                return img
+            if which == "standard":
+                return (img - p["input_mean"]) / p["input_std"]
+            if which == "min-max":
+                # reference quirk: divides by max, not (max − min)
+                return (img - p["input_min"]) / p["input_max"]
+            return img
+
+        return preprocess
 
 
 _HEADER_TEMPLATE = """<?xml version="1.0" encoding="UTF-8"?>

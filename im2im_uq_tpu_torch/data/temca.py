@@ -14,9 +14,10 @@ exposed here as ``split_by_paths``.
 Emits NHWC (H, W, 1) float32 pairs (the reference yields (1, H, W) CHW).
 
 The port's copy of ``im2im_uq_tpu/data/temca.py``: the numpy path only,
-which gives the same pairs as the JAX package's optional C++ patch ops,
-and without ``device_preprocess_pair`` (a JAX closure) and the raw-uint8
-feed that serves it. The port imports nothing of the JAX package.
+which gives the same pairs as the JAX package's optional C++ patch ops.
+The raw-uint8 feed (``return_raw``) and ``device_preprocess_pair``, its
+torch closure, move the pair's making into the train step on the model's
+device. The port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ class TEMCADataset:
         self.patch_buffer: list[np.ndarray] = []
         self.norm_params: dict = {}
         self.cache_path = None
+        self.return_raw = False  # see device_preprocess_pair
 
         self.img_paths = sorted(glob(path + "**/*.png", recursive=True))
         random.shuffle(self.img_paths)
@@ -116,6 +118,14 @@ class TEMCADataset:
                 self._fill_buffer()
             if self.patch_buffer:
                 patch = self.patch_buffer.pop()
+                if self.return_raw:
+                    # raw-uint8 feed for the on-device transform
+                    # (device_preprocess_pair): the patch bytes ship once as
+                    # input AND target, 2 bytes a pixel instead of two
+                    # float32 images' 8
+                    raw = patch[..., None]
+                    yield raw, raw
+                    continue
                 gt = patch.astype(np.float32)
                 if self.normalize == "01":
                     gt = gt / 255.0
@@ -145,3 +155,44 @@ class TEMCADataset:
             out.append(part)
             ofs += ln
         return tuple(out)
+
+    def device_preprocess_pair(self):
+        """Torch closure reproducing the patch → pair transform on the
+        batch's device.
+
+        With ``return_raw`` on, the loader ships each uint8 patch once and
+        this closure, passed as ``preprocess_pair`` to make_train_step /
+        make_eval_loss_step / train_net, takes the NCHW uint8 batches
+        (B, 1, ph, pw) to (low-res input, normalized target) in float32:
+        the normalization, then the strided downsample and the nearest
+        upsample composed into one row and one column gather
+        (low[i, j] = gt[d0·⌊i·h_low/ph⌋, d1·⌊j·w_low/pw⌋]). The pair is the
+        host path's bit for bit: the indices are exact, and the division by
+        255 divides by a tensor (PyTorch's CUDA division by a Python number
+        multiplies by its reciprocal instead).
+        """
+        import torch
+
+        ph, pw = self.output_size
+        d0, d1 = self.downsampling
+        h_low = len(range(0, ph, d0))
+        w_low = len(range(0, pw, d1))
+        rows = torch.from_numpy((np.arange(ph) * h_low // ph) * d0)
+        cols = torch.from_numpy((np.arange(pw) * w_low // pw) * d1)
+        normalize = self.normalize
+        on_device: dict = {}  # the indices and the divisor, once per device
+
+        def preprocess_pair(x_raw, y_raw):
+            if y_raw.device not in on_device:
+                on_device[y_raw.device] = (rows.to(y_raw.device), cols.to(y_raw.device),
+                                           torch.full((), 255.0, device=y_raw.device))
+            r, c, d = on_device[y_raw.device]
+            gt = y_raw.to(torch.float32)
+            if normalize == "01":
+                gt = gt / d
+            elif normalize == "-11":
+                gt = 2.0 * (gt / d - 0.5)
+            low = gt.index_select(2, r).index_select(3, c)
+            return low, gt
+
+        return preprocess_pair

@@ -29,11 +29,14 @@ mesh; every rank computes the same results and rank 0 alone writes the
 checkpoints, the pickles and the logs. With one GPU the path is the
 one-device one.
 
-Not ported: ``on_device_transform`` for the datasets whose JAX classes
-act on it (FastMRI and TEMCA, which move their preprocessing onto the
-device; refused before any data is read); every other dataset ignores the
-flag, as the JAX router does. Nor the wandb-agent mode without
-``--config``.
+``on_device_transform: true`` trains FastMRI on raw masked k-space and
+TEMCA on raw uint8 patches, with the physics or the pair made inside the
+train and validation steps on the device (``device_preprocess`` /
+``device_preprocess_pair``, as the ``preprocess`` / ``preprocess_pair``
+hooks of ``train_net``); the validation panels, the loss tables,
+calibration and the metrics run in image mode, as in the JAX router. Every
+other dataset ignores the flag, as there. Not ported: the wandb-agent mode
+without ``--config``.
 """
 
 from __future__ import annotations
@@ -165,10 +168,31 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-# the datasets whose JAX classes carry ``device_preprocess`` (FastMRI) or
-# ``device_preprocess_pair`` (TEMCA), the only ones ``on_device_transform``
-# changes in the JAX router
-ON_DEVICE_TRANSFORM_DATASETS = ("fastmri", "temca")
+class _RawMode:
+    """``on_device_transform``: the hook that the dataset's class carries
+    (FastMRI: ``device_preprocess`` over ``return_kspace``; TEMCA:
+    ``device_preprocess_pair`` over ``return_raw`` on its train and val
+    copies, which ``split_by_paths`` deep-copies) and the switch between the
+    raw items that training reads and the image items of everything else.
+    Other datasets get neither hook and never switch."""
+
+    def __init__(self, config: dict, dataset, train_ds, val_ds, crop: tuple[int, int]):
+        self.preprocess = self.preprocess_pair = None
+        self.targets: list = []
+        self.attr = None
+        if not config.get("on_device_transform"):
+            return
+        if hasattr(dataset, "device_preprocess"):
+            self.preprocess = dataset.device_preprocess(crop)
+            self.attr, self.targets = "return_kspace", [dataset]  # the splits delegate to it
+        elif hasattr(dataset, "device_preprocess_pair"):
+            self.preprocess_pair = dataset.device_preprocess_pair()
+            self.attr = "return_raw"
+            self.targets = [d for d in (train_ds, val_ds) if hasattr(d, "return_raw")]
+
+    def set(self, raw: bool) -> None:
+        for d in self.targets:
+            setattr(d, self.attr, raw)
 
 
 def run_experiment(config: dict, device: torch.device | str = "cuda",
@@ -179,9 +203,6 @@ def run_experiment(config: dict, device: torch.device | str = "cuda",
     Over ``mesh`` (by default the mesh of every rank when this process is
     one of a group, as the JAX router defaults to every device) the grid
     point runs data-parallel on ``mesh.device``; rank 0 writes."""
-    if config.get("on_device_transform") and config["dataset"] in ON_DEVICE_TRANSFORM_DATASETS:
-        raise NotImplementedError(
-            f"on_device_transform for dataset {config['dataset']!r} is not yet ported")
     mesh_lib.check_mesh(mesh)
     if mesh is None and distributed.process_shard_info()[1] > 1:
         mesh = mesh_lib.data_parallel_mesh(device)
@@ -206,11 +227,18 @@ def run_experiment(config: dict, device: torch.device | str = "cuda",
     logger = MetricsLogger(config.get("output_dir") if writes else None, config=config)
     dataset = build_dataset(config)
     train_ds, calib_ds, val_ds, _ = split_dataset(dataset, config, np.random.RandomState(seed))
+    # the first training item in image mode, drawn as the JAX router draws
+    # its example input (the same random numbers: a fresh FastMRI mask, a
+    # TEMCA buffer fill); its target's size is the k-space crop
+    _, y0 = train_ds[0] if hasattr(train_ds, "__getitem__") else next(iter(train_ds))
     state = add_uncertainty(build_trunk(config), config, generator=generator, device=device)
+    raw = _RawMode(config, dataset, train_ds, val_ds, np.asarray(y0).shape[:2])
+    raw.set(True)
 
     def validation_hook(current_state, epoch, global_step):
         # per-validation image panels; a failure here must not end training
         try:
+            raw.set(False)  # the panels show image-domain inputs
             panels = get_images(
                 current_state, val_ds, list(range(config["num_validation_images"])), config
             )["panels"]
@@ -218,6 +246,8 @@ def run_experiment(config: dict, device: torch.device | str = "cuda",
                 logger.log_images(tag, imgs, step=epoch)
         except Exception as e:
             print(f"Failed logging images. ({e})")
+        finally:
+            raw.set(True)
 
     try:
         state = train_net(
@@ -235,12 +265,15 @@ def run_experiment(config: dict, device: torch.device | str = "cuda",
             config=config,
             logger=logger,
             validation_hook=validation_hook,
+            preprocess=raw.preprocess,
+            preprocess_pair=raw.preprocess_pair,
         )
     except PreemptionInterrupt as e:
         # graceful_shutdown saved a resumable checkpoint; exit with the
         # conventional SIGTERM status so schedulers see a clean preemption
         print(e)
         raise SystemExit(143)
+    raw.set(False)  # calibration, evaluation and artifacts read image items
     print("Done training!")
 
     print("Get the validation loss table.")

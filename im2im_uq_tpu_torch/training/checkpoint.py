@@ -14,12 +14,25 @@ Counterpart of ``im2im_uq_tpu/training/checkpoint.py``:
 Every file is written to a temporary name and renamed into place, so a
 reader never sees half a checkpoint. Over a data-parallel mesh rank 0
 alone writes (``train_net``, the router and the calibrate CLI call these
-functions there only, then wait at a barrier), and every rank loads. The JAX package's orbax and msgpack
-backends and its mid-epoch checkpoints are not ported.
+functions there only, then wait at a barrier), and every rank loads.
+
+``checkpoint_backend`` picks the JAX package's file format: "flax"
+(msgpack, its default) or "orbax" (a directory); the JAX package writes
+msgpack for any other value too. The port writes the same ``.pt`` file for
+every value, so it reads the key nowhere. ``save_checkpoint(...,
+async_save=True)`` (``async_checkpoint: true`` in ``train_net``, for any
+backend; the JAX package overlaps only its orbax saves) copies the
+checkpoint to host memory at once and writes it with ``torch.save`` on one
+background thread, so the write overlaps the next epoch;
+:func:`wait_for_async_saves` waits for the writes and raises the first
+that failed. The resume scan and every read wait first, and ``train_net``
+waits before it returns. The JAX package's mid-epoch checkpoints are not
+ported.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import math
 import os
 from typing import Optional
@@ -37,6 +50,7 @@ __all__ = [
     "restore_checkpoint",
     "save_calibrated_checkpoint",
     "save_checkpoint",
+    "wait_for_async_saves",
 ]
 
 
@@ -68,11 +82,48 @@ def _cpu_state_dict(model: UQModel) -> dict:
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
+def _host_copy(tree):
+    """``tree`` with every tensor copied to host memory, also those already
+    there: training goes on updating the originals in place."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
 def _write(payload: dict, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+class _BackgroundWriter:
+    """One thread that writes checkpoints in the order they were saved."""
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(1, "checkpoint-writer")
+        self._pending: list[concurrent.futures.Future] = []
+
+    def submit(self, payload: dict, path: str) -> None:
+        self._pending.append(self._pool.submit(_write, payload, path))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for future in pending:
+            future.result()  # a failed write raises here
+
+
+_WRITER = _BackgroundWriter()
+
+
+def wait_for_async_saves() -> None:
+    """Block until every background save has been written; raise the
+    first that failed."""
+    _WRITER.wait()
 
 
 def save_checkpoint(
@@ -81,17 +132,23 @@ def save_checkpoint(
     optimizer: torch.optim.Optimizer,
     lhat: Optional[float],
     epoch: int,
+    async_save: bool = False,
 ) -> None:
-    """Write a training checkpoint: weights, optimizer state, λ̂ and epoch."""
-    _write(
-        {
-            "state_dict": _cpu_state_dict(uq_model),
-            "optimizer": optimizer.state_dict(),
-            "lhat": math.nan if lhat is None else float(lhat),
-            "epoch": int(epoch),
-        },
-        path,
-    )
+    """Write a training checkpoint: weights, optimizer state, λ̂ and epoch.
+
+    ``async_save``: copy them to host memory now and write the file on the
+    background thread (call :func:`wait_for_async_saves` before relying on
+    it; the readers here do)."""
+    payload = {
+        "state_dict": _cpu_state_dict(uq_model),
+        "optimizer": optimizer.state_dict(),
+        "lhat": math.nan if lhat is None else float(lhat),
+        "epoch": int(epoch),
+    }
+    if async_save:
+        _WRITER.submit(_host_copy(payload), path)
+    else:
+        _write(payload, path)
 
 
 def restore_checkpoint(
@@ -99,6 +156,7 @@ def restore_checkpoint(
 ) -> tuple[Optional[float], int]:
     """Load a training checkpoint into ``uq_model`` (strict) and
     ``optimizer`` in place → (λ̂ or None, epoch)."""
+    wait_for_async_saves()
     payload = torch.load(path, map_location="cpu", weights_only=True)
     uq_model.load_state_dict(payload["state_dict"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
@@ -112,6 +170,7 @@ def find_resume_checkpoint(
     """(path, starting_epoch): the final-epoch checkpoint first, else the
     newest earlier one scanning down from ``epochs − 1``, else (None, 0) —
     the probe order of ``im2im_uq_tpu/training/checkpoint.py:277-298``."""
+    wait_for_async_saves()  # a pending save's file is not there yet
     final = checkpoint_path(checkpoint_dir, epochs, config)
     if os.path.exists(final):
         return final, epochs
@@ -138,6 +197,7 @@ def save_calibrated_checkpoint(uq_state: UQState, config: dict, checkpoint_dir: 
 
 def load_calibrated_checkpoint(path: str, uq_model: UQModel) -> tuple[Optional[float], int]:
     """Load the weights into ``uq_model`` (strict) → (λ̂ or None, epoch)."""
+    wait_for_async_saves()
     payload = torch.load(path, map_location="cpu", weights_only=True)
     uq_model.load_state_dict(payload["state_dict"], strict=True)
     lhat = float(payload["lhat"])

@@ -34,12 +34,30 @@ Rank 0 alone writes checkpoints and the logger's records, with a barrier
 after each epoch's writes; every rank loads a checkpoint to resume, and a
 stop signal on any rank stops every rank at the end of the epoch.
 
+The on-device input transforms: ``preprocess`` (x → x) or
+``preprocess_pair`` ((x, y) → (x, y)) run inside the train and eval steps,
+on the model's device, before the forward; the loader then ships raw items
+(FastMRI's masked k-space, ``data/fastmri.FastMRIDataset.device_preprocess``;
+TEMCA's uint8 patches, ``data/temca.TEMCADataset.device_preprocess_pair``).
+``preprocess`` gets x in the loader's layout and dtype (k-space
+(B, H, W, 2), whose last dim is the complex pair, not a channel);
+``preprocess_pair`` gets x and y NCHW in their own dtype (uint8 goes to the
+card as uint8). A raw batch on another device than the model's raises; it
+is never transformed on the host. Over a mesh each rank transforms its own
+slice of the raw batch.
+
+``loader_procs: N`` fetches the training items in N worker processes
+(``data/core.ProcessPoolFetcher``, one pool for the whole run) and gives the
+threaded loader's batches. ``async_checkpoint: true`` writes each epoch's
+checkpoint on a background thread from a CPU copy taken at save time
+(``training/checkpoint.py``); ``train_net`` waits for it before it
+returns.
+
 Unlike the JAX engine, which returns new arrays, training updates the
 caller's model in place: the returned ``UQState`` holds the same module.
-Not ported, and refused when asked for: ``preprocess`` /
-``preprocess_pair`` (on-device input transforms), ``input_pipeline: grain``
-(and its mid-epoch checkpoints), ``loader_procs``,
-``precompile_calibration`` and ``make_train_multistep``.
+Not ported, and refused when asked for: ``input_pipeline: grain`` (and its
+mid-epoch checkpoints), ``precompile_calibration`` and
+``make_train_multistep``.
 """
 
 from __future__ import annotations
@@ -51,7 +69,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from im2im_uq_tpu_torch.data.core import iterate_batches
+from im2im_uq_tpu_torch.data.core import ProcessPoolFetcher, iterate_batches
 from im2im_uq_tpu_torch.models.assembly import UQModel, UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
 from im2im_uq_tpu_torch.models.unet import global_batch
@@ -100,10 +118,38 @@ def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
 
 
-def put_batch(x: np.ndarray, y: np.ndarray, mask: np.ndarray, device: torch.device):
-    """NHWC numpy batch → NCHW tensors and the (B,) f32 mask on ``device``."""
-    return (nchw_from_nhwc(x, device), nchw_from_nhwc(y, device),
+def put_batch(x: np.ndarray, y: np.ndarray, mask: np.ndarray, device: torch.device,
+              raw_input: bool = False):
+    """NHWC numpy batch → NCHW tensors and the (B,) f32 mask on ``device``.
+
+    ``raw_input``: x is the raw input of a ``preprocess`` hook and goes to
+    the device as the loader made it, in its layout and dtype."""
+    x = (torch.from_numpy(np.ascontiguousarray(x)).to(device) if raw_input
+         else nchw_from_nhwc(x, device))
+    return (x, nchw_from_nhwc(y, device),
             torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
+
+
+def _input_transform(preprocess: Optional[Callable], preprocess_pair: Optional[Callable],
+                     model: UQModel) -> Callable:
+    """(x, y) → the model's (x, y): the hook, run on the model's device."""
+    if preprocess is not None and preprocess_pair is not None:
+        raise ValueError("pass preprocess OR preprocess_pair, not both")
+
+    def transform(x: torch.Tensor, y: torch.Tensor):
+        if preprocess is None and preprocess_pair is None:
+            return x, y
+        device = next(model.parameters()).device
+        if x.device != device or y.device != device:
+            raise ValueError(
+                f"the raw batch is on {x.device}, the model on {device}: the on-device "
+                "transform runs on the model's device"
+            )
+        if preprocess is not None:
+            return preprocess(x), y
+        return preprocess_pair(x, y)
+
+    return transform
 
 
 def _global_masked_mean(per_example: torch.Tensor, mask: torch.Tensor,
@@ -122,11 +168,17 @@ def make_train_step(
     hyper: dict,
     optimizer: torch.optim.Optimizer,
     mesh: Optional[Mesh] = None,
+    preprocess: Optional[Callable] = None,
+    preprocess_pair: Optional[Callable] = None,
 ):
     """Build the train step: (x, y, mask) → loss, or (loss, grad norms) when
     ``hyper["watch_gradients"]`` is set. It updates ``model`` and
     ``optimizer`` in place; the loss is a detached device scalar and the
     gradients of the step stay on the parameters' ``.grad``.
+
+    ``preprocess`` maps the raw batch input to the model input, and
+    ``preprocess_pair`` the raw (x, y) to the model's (x, y), inside the
+    step, before the forward (module docstring); pass one or neither.
 
     The step puts the model in train mode itself: ``UQState.forward`` (used
     by validation and by validation hooks) leaves it in eval mode, and a
@@ -139,8 +191,10 @@ def make_train_step(
     """
     watch = bool(hyper.get("watch_gradients"))
     multi = mesh_lib.spans(mesh)
+    transform = _input_transform(preprocess, preprocess_pair, model)
 
     def train_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+        x, y = transform(x, y)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with global_batch(mesh):
@@ -168,13 +222,17 @@ def make_train_step(
 
 
 def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict,
-                        mesh: Optional[Mesh] = None):
+                        mesh: Optional[Mesh] = None, preprocess: Optional[Callable] = None,
+                        preprocess_pair: Optional[Callable] = None):
     """Eval-mode loss: (x, y, mask) → (masked mean, number of real examples),
-    of the global batch over a ``mesh`` (this rank's slice in)."""
+    of the global batch over a ``mesh`` (this rank's slice in); the hooks as
+    :func:`make_train_step`'s."""
+    transform = _input_transform(preprocess, preprocess_pair, model)
 
     def eval_step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
         model.eval()
         with torch.inference_mode():
+            x, y = transform(x, y)
             out = model(x)
             loss, count = _global_masked_mean(loss_pe_fn(out, y, hyper), mask, mesh)
             return (mesh.all_reduce(loss) if mesh_lib.spans(mesh) else loss), count
@@ -183,12 +241,15 @@ def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict,
 
 
 def eval_net(
-    uq_state: UQState, dataset, batch_size: int, mesh: Optional[Mesh] = None, step=None
+    uq_state: UQState, dataset, batch_size: int, mesh: Optional[Mesh] = None, step=None,
+    raw_input: bool = False,
 ) -> float:
     """Mean validation loss: sum(batch mean losses) / number of examples.
 
     Pass a prebuilt ``step`` to reuse one across epochs; over a ``mesh`` it
-    must be one built for it.
+    must be one built for it. ``raw_input``: the step was built with a
+    ``preprocess`` hook, whose raw input keeps the loader's layout
+    (:func:`put_batch`).
     """
     mesh_lib.check_mesh(mesh)
     if step is None:
@@ -198,23 +259,33 @@ def eval_net(
     total, count = 0.0, 0
     batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
     for x, y, mask in iterate_batches(dataset, batch_size, shuffle=False):
-        loss, n = step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device))
+        loss, n = step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device, raw_input))
         total += float(loss)
         count += int(n)
     return total / count if count else 0.0
 
 
-def _refuse_unported(config: dict, mesh, preprocess, preprocess_pair) -> None:
+def _refuse_unported(config: dict, mesh) -> None:
     mesh_lib.check_mesh(mesh)
-    if preprocess is not None or preprocess_pair is not None:
-        raise NotImplementedError("preprocess / preprocess_pair (on-device transforms) are not yet ported")
     if config.get("input_pipeline", "threaded") != "threaded":
         raise NotImplementedError(
             f"input_pipeline {config['input_pipeline']!r} is not yet ported"
         )
-    for key in ("loader_procs", "precompile_calibration"):
-        if config.get(key):
-            raise NotImplementedError(f"{key} is not yet ported")
+    if config.get("precompile_calibration"):
+        raise NotImplementedError("precompile_calibration is not yet ported")
+
+
+def _fetcher(config: dict, train_dataset) -> Optional[ProcessPoolFetcher]:
+    """``loader_procs``: one pool of worker processes for the whole run."""
+    if not config.get("loader_procs"):
+        return None
+    if not (hasattr(train_dataset, "__len__") and hasattr(train_dataset, "__getitem__")):
+        raise ValueError(
+            "loader_procs requires a map-style dataset (__len__ + "
+            "__getitem__); iterable streams (e.g. TEMCA) fetch "
+            "sequentially on the producer thread."
+        )
+    return ProcessPoolFetcher(train_dataset, int(config["loader_procs"]))
 
 
 def _optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
@@ -247,9 +318,11 @@ def train_net(
     """Train ``uq_state.model`` in place; returns the UQState with λ̂ as
     restored (or as given). ``mesh``: None (one device) or a
     ``parallel.mesh.Mesh`` whose ranks train together (module docstring);
-    the model must already sit on this rank's device."""
+    the model must already sit on this rank's device. ``preprocess`` /
+    ``preprocess_pair``: the on-device input transform of the train and
+    validation steps (module docstring)."""
     config = dict(config or uq_state.params)
-    _refuse_unported(config, mesh, preprocess, preprocess_pair)
+    _refuse_unported(config, mesh)
     if mesh is not None and not mesh.is_main:
         logger = None  # rank 0 writes the records
     logger = logger or MetricsLogger(None)
@@ -271,8 +344,10 @@ def train_net(
     # every rank starts from rank 0's weights and statistics
     mesh_lib.replicate_tree(mesh, model)
     batch_size = mesh_lib.mesh_batch_size(batch_size, mesh)
-    train_step = make_train_step(model, loss_pe, config, optimizer, mesh)
-    eval_step = make_eval_loss_step(model, loss_pe, config, mesh)
+    hooks = {"preprocess": preprocess, "preprocess_pair": preprocess_pair}
+    train_step = make_train_step(model, loss_pe, config, optimizer, mesh, **hooks)
+    eval_step = make_eval_loss_step(model, loss_pe, config, mesh, **hooks)
+    fetcher = _fetcher(config, train_dataset)
 
     # graceful_shutdown: SIGTERM/SIGINT request a checkpoint at the end of
     # the current epoch instead of killing the run. The first signal
@@ -298,11 +373,15 @@ def train_net(
             uq_state, model, optimizer, lhat, train_dataset, val_dataset,
             starting_epoch, epochs, batch_size, seed, checkpoint_dir,
             checkpoint_every, validate_every, config, logger, validation_hook,
-            train_step, eval_step, stop_signal, mesh,
+            train_step, eval_step, stop_signal, mesh, fetcher, preprocess is not None,
         )
     finally:
         for s, old in restore_handlers:
             signal.signal(s, old)
+        if fetcher is not None:
+            fetcher.close()
+        # also on the preemption path: the last background save commits
+        ckpt.wait_for_async_saves()
     return uq_state.replace(lhat=lhat)
 
 
@@ -310,16 +389,18 @@ def _run_epochs(
     uq_state, model, optimizer, lhat, train_dataset, val_dataset,
     starting_epoch, epochs, batch_size, seed, checkpoint_dir,
     checkpoint_every, validate_every, config, logger, validation_hook,
-    train_step, eval_step, stop_signal, mesh,
+    train_step, eval_step, stop_signal, mesh, fetcher, raw_input,
 ):
     """The epoch loop of :func:`train_net`; returns λ̂."""
     device = uq_state.device
     writes = mesh is None or mesh.is_main
+    async_save = bool(config.get("async_checkpoint", False))
     global_step = _optimizer_steps(optimizer)
     for epoch in range(starting_epoch, epochs):
         batches = iterate_batches(
             train_dataset, batch_size, shuffle=True,
             rng=np.random.RandomState(seed + 1000 * epoch + 1), pad_mode="wrap",
+            fetcher=fetcher,
         )
         losses, num_examples, grad_norms = [], 0, None
         # where the epoch's wall time goes: the step call returns before the
@@ -335,7 +416,8 @@ def _run_epochs(
                 break
             x, y, mask = item
             t0 = time.perf_counter()
-            out = train_step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device))
+            out = train_step(*put_batch(*mesh_lib.put_batch(mesh, x, y, mask), device,
+                                        raw_input))
             t_dispatch += time.perf_counter() - t0
             if isinstance(out, tuple):
                 out, grad_norms = out  # the last step's norms are logged
@@ -358,7 +440,8 @@ def _run_epochs(
         t_val = 0.0
         if epoch % validate_every == 0:
             t0 = time.perf_counter()
-            val_loss = eval_net(current, val_dataset, batch_size, mesh, step=eval_step)
+            val_loss = eval_net(current, val_dataset, batch_size, mesh, step=eval_step,
+                                raw_input=raw_input)
             t_val = time.perf_counter() - t0
             logger.log({"epoch": epoch, "iter": global_step, "val_loss": val_loss})
             print(f"Val loss: {val_loss}")
@@ -368,7 +451,7 @@ def _run_epochs(
         t0 = time.perf_counter()
         if (epoch + 1) % checkpoint_every == 0 and checkpoint_dir and writes:
             path = ckpt.checkpoint_path(checkpoint_dir, epoch + 1, config)
-            ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1)
+            ckpt.save_checkpoint(path, model, optimizer, lhat, epoch + 1, async_save=async_save)
             print(f"Checkpoint {epoch + 1} saved!")
         t_ckpt = time.perf_counter() - t0
 

@@ -45,6 +45,12 @@ TRAIN_CASES = {
     "pallas_fused_f64_remat_full": ({"conv_backend": "pallas_fused", "remat": "full"},
                                     torch.float64),
 }
+# the FastMRI hook's case: an f64 step on raw masked k-space (B, 24, 20, 2),
+# reconstructed to 16x16 and normalised inside the step by the dataset's
+# device_preprocess; each rank transforms its own slice
+KSPACE_CASE = "xla_f64_kspace"
+KSPACE_CROP = (16, 16)
+KSPACE_NORM = {"input_mean": 0.1, "input_std": 0.9}
 # elements kept of each tensor where a result leaves its process
 SAMPLE = 4096
 CALIB = dict(UNET, rcps_loss="fraction_missed", alpha=0.2, delta=0.2, num_lambdas=30,
@@ -88,11 +94,23 @@ def replicas_equal(tensors: dict, mesh) -> bool:
     return not mesh.agree(not same)
 
 
-def train_step_once(weights: dict, cfg: dict, dtype: torch.dtype, batch: tuple, mesh) -> dict:
+def kspace_preprocess():
+    """The FastMRI dataset's on-device transform for KSPACE_CASE."""
+    from types import SimpleNamespace
+
+    from im2im_uq_tpu_torch.data.fastmri import FastMRIDataset
+
+    like = SimpleNamespace(normalize_input="standard", norm_params=KSPACE_NORM)
+    return FastMRIDataset.device_preprocess(like, KSPACE_CROP)
+
+
+def train_step_once(weights: dict, cfg: dict, dtype: torch.dtype, batch: tuple, mesh,
+                    preprocess=None) -> dict:
     """One SGD step of ``weights`` under ``cfg`` in ``dtype`` on this rank's
     slice of ``batch`` (all of it without a mesh) → the loss, and samples of
     the gradients and of the state dict after the step, in f64; over a mesh,
-    whether the ranks hold the same gradients and state."""
+    whether the ranks hold the same gradients and state. ``preprocess``: the
+    batch's input is raw, and the step's hook makes the model's input."""
     from im2im_uq_tpu_torch.models import assembly as tasm
     from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
     from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
@@ -103,8 +121,9 @@ def train_step_once(weights: dict, cfg: dict, dtype: torch.dtype, batch: tuple, 
     st.model.to(dtype)
     opt = torch.optim.SGD(st.model.parameters(), lr=LR)
     step = ttrain.make_train_step(st.model, head_loss_pe_fn(cfg["uncertainty_type"]), cfg, opt,
-                                  mesh)
-    tensors = ttrain.put_batch(*mesh_lib.put_batch(mesh, *batch), torch.device("cpu"))
+                                  mesh, preprocess=preprocess)
+    tensors = ttrain.put_batch(*mesh_lib.put_batch(mesh, *batch), torch.device("cpu"),
+                               raw_input=preprocess is not None)
     loss = step(*(t.to(dtype) for t in tensors))
     grads = {n: p.grad for n, p in st.model.named_parameters()}
     state = st.model.state_dict()
@@ -187,9 +206,11 @@ def train_net_results(weights: dict, tmp: Path, mesh, batch_size: int) -> dict:
 def worker_all(mesh, tmp: Path) -> dict:
     inp = torch.load(tmp / "inputs.pt", weights_only=False)
     return {
-        "train": {case: train_step_once(inp["weights"], dict(UNET, **extra), dtype,
-                                        inp["batch"], mesh)
-                  for case, (extra, dtype) in TRAIN_CASES.items()},
+        "train": {**{case: train_step_once(inp["weights"], dict(UNET, **extra), dtype,
+                                           inp["batch"], mesh)
+                     for case, (extra, dtype) in TRAIN_CASES.items()},
+                  KSPACE_CASE: train_step_once(inp["weights"], UNET, torch.float64,
+                                               inp["kspace_batch"], mesh, kspace_preprocess())},
         "calibration": calibration_results(inp["weights"], mesh),
         # batch 7 runs as 8 over two ranks
         "train_net": train_net_results(inp["weights"], tmp / "train_net", mesh, 7),

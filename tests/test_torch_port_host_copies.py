@@ -4,18 +4,24 @@ results on the same inputs, and the port leaves the CPU only when asked.
 The port imports nothing of ``im2im_uq_tpu`` (``test_torch_port_imports``);
 it keeps its own copies of the host code it shares with it: the RCPS
 bounds, the datasets and host batching, the config loader, the metrics
-logger and the JAX-to-port weight layout. Each is held here to its JAX
-original: the same items, batches, splits, bounds, configs, log lines,
-images and state dicts, bit for bit. Datasets that read files (FastMRI,
-TEMCA, CIFAR-10, BSBCM) read small ones written here.
+logger, the JAX-to-port weight layout, and the fastMRI extras (the slice
+datasets of ``data/mri_data.py``, the volume shard sampler and
+``utils/misc.py``). Each is held here to its JAX original: the same items,
+batches, splits, bounds, configs, log lines, images, shards and state
+dicts, bit for bit. Datasets that read files (FastMRI, TEMCA, CIFAR-10,
+BSBCM) read small ones written here.
 """
 
 from __future__ import annotations
 
 import inspect
 import json
+import os
+import pathlib
 import pickle
 import random
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -29,33 +35,39 @@ from im2im_uq_tpu.data import bsbcm as jbsbcm
 from im2im_uq_tpu.data import cifar10 as jcifar
 from im2im_uq_tpu.data import core as jcore
 from im2im_uq_tpu.data import fastmri as jfastmri
+from im2im_uq_tpu.data import mri_data as jmri_data
 from im2im_uq_tpu.data import normalize as jnorm
 from im2im_uq_tpu.data import subsample as jsub
 from im2im_uq_tpu.data import synthetic as jsyn
 from im2im_uq_tpu.data import temca as jtemca
 from im2im_uq_tpu.data import transforms as jtf
+from im2im_uq_tpu.data import volume_sampler as jsampler
 from im2im_uq_tpu.interop.torch_export import export_state_dict
 from im2im_uq_tpu.interop.torch_import import port_state_dict
 from im2im_uq_tpu.models import assembly as jasm
 from im2im_uq_tpu.parallel import mesh as jmesh
 from im2im_uq_tpu.utils import config as jconfig
 from im2im_uq_tpu.utils import logging as jlog
+from im2im_uq_tpu.utils import misc as jmisc
 
 from im2im_uq_tpu_torch.calibration import bounds as tbounds
 from im2im_uq_tpu_torch.data import bsbcm as tbsbcm
 from im2im_uq_tpu_torch.data import cifar10 as tcifar
 from im2im_uq_tpu_torch.data import core as tcore
 from im2im_uq_tpu_torch.data import fastmri as tfastmri
+from im2im_uq_tpu_torch.data import mri_data as tmri_data
 from im2im_uq_tpu_torch.data import normalize as tnorm
 from im2im_uq_tpu_torch.data import subsample as tsub
 from im2im_uq_tpu_torch.data import synthetic as tsyn
 from im2im_uq_tpu_torch.data import temca as ttemca
 from im2im_uq_tpu_torch.data import transforms as ttf
+from im2im_uq_tpu_torch.data import volume_sampler as tsampler
 from im2im_uq_tpu_torch.interop.from_jax import state_dict_from_jax
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.parallel import mesh as tmesh
 from im2im_uq_tpu_torch.utils import config as tconfig
 from im2im_uq_tpu_torch.utils import logging as tlog
+from im2im_uq_tpu_torch.utils import misc as tmisc
 
 REPO = Path(__file__).resolve().parent.parent
 EXPERIMENT_CONFIGS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("experiments/**/*.yml"))
@@ -251,3 +263,113 @@ def test_mesh_batch_rounding_matches():
             assert tmesh.pad_to_multiple(b, n) == jmesh.pad_to_multiple(b, n)
     assert tmesh.mesh_batch_size(78, None) == jmesh.mesh_batch_size(78, None) == 78
     assert (78, 8) in tmesh._ROUNDING_WARNED and (78, 8) in jmesh._ROUNDING_WARNED
+
+
+# ------------------------------------------------- the fastMRI extras
+
+
+@pytest.fixture()
+def volume_dir(tmp_path):
+    d = tmp_path / "vols"
+    d.mkdir()
+    for i in range(3):
+        jfastmri.write_synthetic_volume(str(d / f"vol{i}.h5"), num_slices=4, seed=i)
+    return d
+
+
+def _same_slices(got, want) -> None:
+    assert len(got) == len(want) > 0
+    for i in range(len(want)):
+        g, w = got[i], want[i]
+        for a, b in zip(g, w):
+            if isinstance(b, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b
+
+
+@pytest.mark.parametrize("kw", [{}, {"sample_rate": 0.5}, {"volume_sample_rate": 0.34},
+                                {"num_cols": (40,)}])
+def test_slice_datasets_match(volume_dir, kw):
+    out = {}
+    for mod in (tmri_data, jmri_data):
+        random.seed(18)
+        out[mod] = mod.SliceDataset(volume_dir, challenge="singlecoil", **kw)
+    assert [e[:2] for e in out[tmri_data].examples] == [e[:2] for e in out[jmri_data].examples]
+    _same_slices(out[tmri_data], out[jmri_data])
+    with pytest.raises(ValueError):
+        tmri_data.SliceDataset(volume_dir, challenge="bogus")
+
+
+def test_slice_dataset_cache_and_combined_datasets_match(volume_dir, tmp_path):
+    transform = ttf.UnetDataTransform("singlecoil")
+    combined = {}
+    for mod, name in ((tmri_data, "port"), (jmri_data, "jax")):
+        cache = tmp_path / f"{name}.pkl"
+        mod.SliceDataset(volume_dir, challenge="singlecoil", use_dataset_cache=True,
+                         dataset_cache_file=cache)
+        with open(cache, "rb") as fh:
+            assert len(pickle.load(fh)[volume_dir]) == 12
+        combined[name] = mod.CombinedSliceDataset(
+            [volume_dir, volume_dir], ["singlecoil", "singlecoil"], [transform, None])
+    assert len(combined["port"]) == len(combined["jax"]) == 24
+    for i in (0, 11, 12, 23):
+        _same_slices([combined["port"][i]], [combined["jax"][i]])
+    with pytest.raises(IndexError):
+        combined["port"][24]
+
+
+def test_fetch_dir_matches(tmp_path):
+    for mod, name in ((tmri_data, "port"), (jmri_data, "jax")):
+        cfg = tmp_path / f"{name}.yaml"
+        with pytest.warns(UserWarning):
+            assert str(mod.fetch_dir("knee_path", cfg)) == "/path/to/knee"
+        cfg.write_text("knee_path: /data/knee\nbrain_path: /b\nlog_path: .\n")
+        assert str(mod.fetch_dir("brain_path", cfg)) == "/b"
+    assert (tmp_path / "port.yaml").read_text() == (tmp_path / "jax.yaml").read_text()
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_volume_shard_samplers_match(shards):
+    names = ["a.h5"] * 4 + ["b.h5"] * 2 + ["c.h5"] * 5 + ["d.h5"] * 1 + ["e.h5"] * 3
+    for k in range(shards):
+        for shuffle in (False, True):
+            t = tsampler.VolumeShardSampler(names, shards, k, shuffle=shuffle, seed=5)
+            j = jsampler.VolumeShardSampler(names, shards, k, shuffle=shuffle, seed=5)
+            for epoch in (0, 1):
+                t.set_epoch(epoch)
+                j.set_epoch(epoch)
+                assert t.indices() == j.indices() and list(t) == list(j) and len(t) == len(j)
+    with pytest.raises(ValueError, match="out of range"):
+        tsampler.VolumeShardSampler(names, shards, shards)
+
+
+def test_misc_matches(tmp_path, monkeypatch):
+    cfg = {"output_mean": 2.0, "output_std": 4.0, "output_min": -6.0, "output_max": 10.0,
+           "input_mean": 1.0, "input_std": 2.0, "input_min": -1.0, "input_max": 3.0}
+    x = np.array([0.0, 1.0, -2.5])
+    for out in (True, False):
+        np.testing.assert_array_equal(tmisc.standard_to_minmax(x, cfg, out),
+                                      jmisc.standard_to_minmax(x, cfg, out))
+    calls = []
+
+    @tmisc.cacheable
+    def add(a, b):
+        calls.append((a, b))
+        return a + b
+
+    monkeypatch.setattr(pathlib.Path, "absolute", lambda self: tmp_path)
+    assert add(2, 3) == add(2, 3) == 5 and calls == [(2, 3)]
+    assert (tmp_path / ".cache" / "add(2, 3).pkl").exists()
+    for mod, name in ((tmisc, "port"), (jmisc, "jax")):
+        mod.plot_loss([3.0, 2.0, 1.5], 10, str(tmp_path / name / "loss.png"))
+        assert (tmp_path / name / "loss.png").stat().st_size > 0
+
+
+def test_misc_imports_matplotlib_only_to_plot():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = ("import sys, im2im_uq_tpu_torch.utils.misc as m; "
+            "assert 'matplotlib' not in sys.modules, 'imported'; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

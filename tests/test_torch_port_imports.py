@@ -2,8 +2,8 @@
 
 The test process itself imports JAX (``tests/conftest.py``), so the check
 runs in a fresh interpreter: import every module of ``im2im_uq_tpu_torch``
-and ``chip_smoke``, then assert that none of ``jax``, ``flax`` and
-``im2im_uq_tpu`` was loaded. Statically, no ``import`` or ``from`` in the
+and ``chip_smoke``, then assert that none of ``jax``, ``flax``, ``grain``
+(whose import loads JAX) and ``im2im_uq_tpu`` was loaded. Statically, no ``import`` or ``from`` in the
 port's sources or in ``chip_smoke.py``, at any depth, names one of them: the
 port keeps its own copies of the host code it shares with the JAX package.
 """
@@ -25,7 +25,7 @@ _CHECK = """
 import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
-leaked = sorted(m for m in ("jax", "flax", "im2im_uq_tpu") if m in sys.modules)
+leaked = sorted(m for m in ("jax", "flax", "grain", "im2im_uq_tpu") if m in sys.modules)
 assert not leaked, leaked
 print("ok", len(sys.argv) - 1)
 """

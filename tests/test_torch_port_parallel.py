@@ -124,6 +124,13 @@ def _batch():
             np.array([1.0] * 7 + [0.0], np.float32))
 
 
+def _kspace_batch():
+    """``_batch``'s targets and mask beside 8 raw k-space slices (24x20),
+    the FastMRI hook's input."""
+    _, y, mask = _batch()
+    return np.random.RandomState(4).randn(8, 24, 20, 2), y, mask
+
+
 def _jax_step(model, cfg: dict, variables: dict, batch: tuple, dtype) -> dict:
     """JAX's mesh step (SGD) on a 2-device mesh → the loss, samples of the
     gradients (from the update) and of the running statistics, port keys."""
@@ -160,10 +167,14 @@ def dp(tmp_path_factory):
     variables = jax.tree_util.tree_map(np.asarray, jax.device_get(dict(jstate.variables)))
     weights = state_dict_from_jax(variables, "UNet", "quantiles")
     batch = _batch()
-    torch.save({"weights": weights, "batch": batch}, tmp / "inputs.pt")
+    torch.save({"weights": weights, "batch": batch, "kspace_batch": _kspace_batch()},
+               tmp / "inputs.pt")
     got = ranks.run_ranks("all", tmp)
     one = {case: ranks.train_step_once(weights, dict(ranks.UNET, **extra), dtype, batch, None)
            for case, (extra, dtype) in ranks.TRAIN_CASES.items() if "remat" not in case}
+    one[ranks.KSPACE_CASE] = ranks.train_step_once(weights, ranks.UNET, torch.float64,
+                                                   _kspace_batch(), None,
+                                                   ranks.kspace_preprocess())
     with jax.enable_x64(True):
         jax64 = _jax_step(jstate.model, cfg, variables, batch, jnp.float64)
     bf16 = dict(cfg, compute_dtype="bfloat16")
@@ -199,7 +210,7 @@ def _params(state: dict) -> dict:
     return {k: v for k, v in state.items() if "running" not in k and "num_batches" not in k}
 
 
-@pytest.mark.parametrize("case", list(ranks.TRAIN_CASES))
+@pytest.mark.parametrize("case", list(ranks.TRAIN_CASES) + [ranks.KSPACE_CASE])
 def test_ranks_hold_identical_replicas(dp, case):
     r0, r1 = dp["ranks"][0]["train"][case], dp["ranks"][1]["train"][case]
     assert r0["replicas_equal"] and r1["replicas_equal"]
@@ -222,6 +233,17 @@ def test_f64_step_matches_one_process_and_the_jax_mesh(dp, case):
     worst = max(errs, key=errs.get)
     assert errs[worst] <= 1e-6, (worst, errs[worst])
     for k, v in want["stats"].items():
+        assert float((got["state"][k] - v).norm() / v.norm()) <= 1e-9, k
+
+
+def test_fastmri_hook_step_matches_one_process(dp):
+    """Each rank reconstructs its own 4 raw k-space slices inside the step:
+    the 2-rank f64 step is the one-process step on all 8 (the f64 bars)."""
+    got, one = dp["ranks"][0]["train"][ranks.KSPACE_CASE], dp["one"][ranks.KSPACE_CASE]
+    assert got["loss"] == pytest.approx(one["loss"], rel=1e-12)
+    errs = _grad_errors(got["grads"], one["grads"])
+    assert len(errs) == 80 and max(errs.values()) <= 1e-9
+    for k, v in _stats(one["state"]).items():
         assert float((got["state"][k] - v).norm() / v.norm()) <= 1e-9, k
 
 

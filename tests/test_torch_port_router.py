@@ -148,17 +148,72 @@ def test_device_flag_never_falls_back_to_the_cpu(monkeypatch):
         trouter.main(["--config", "experiments/synthetic_test/config.yml", "--device", "cuda"])
 
 
+def _raw_data(tmp_path, dataset: str) -> str:
+    """Two small synthetic fastMRI volumes (k-space 48x40, recon 32x32, 8
+    slices each), or eight 64x64 TEMCA tiles of 32x32 patches."""
+    root = tmp_path / "data"
+    root.mkdir()
+    if dataset == "fastmri":
+        from im2im_uq_tpu_torch.data.fastmri import write_synthetic_volume
+
+        for i in range(2):
+            write_synthetic_volume(str(root / f"v{i}.h5"), num_slices=8, enc_shape=(48, 40),
+                                   recon_shape=(32, 32), seed=i)
+        return str(root)
+    import imageio
+
+    rng = np.random.RandomState(12)
+    for i in range(8):
+        imageio.imwrite(root / f"tile{i}.png", rng.randint(1, 255, (64, 64), dtype=np.uint8))
+    return str(root) + "/"
+
+
 @pytest.mark.parametrize("dataset", ["fastmri", "temca"])
-def test_on_device_transform_is_refused(tmp_path, dataset):
-    """FastMRI and TEMCA, whose JAX classes move their preprocessing onto
-    the device under the flag, are refused before any data is read: the
-    data path does not exist and no output directory is made."""
-    cfg = dict(CONFIG, dataset=dataset, data_path=str(tmp_path / "missing"),
-               output_dir=str(tmp_path / "out"), checkpoint_dir=str(tmp_path / "ckpt"),
-               on_device_transform=True, side_length=32, downsampling_factor=2, num_buffer=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trouter.run_experiment(cfg, "cpu")
-    assert sorted(os.listdir(tmp_path)) == []
+def test_on_device_transform_is_refused(runs, tmp_path, dataset, monkeypatch):
+    """FastMRI and TEMCA, whose classes move their preprocessing onto the
+    device under the flag, are no longer refused: the router trains on the
+    raw items (k-space (B, 48, 40, 2) in the loader's layout, or NCHW uint8
+    patches) through the dataset's hook, runs everything after training in
+    image mode, and writes the JAX router's artifact names and a results
+    pickle with the JAX router's keys and value types."""
+    cfg = dict(CONFIG, dataset=dataset, data_path=_raw_data(tmp_path, dataset),
+               on_device_transform=True, side_length=32, downsampling_factor=2, num_buffer=2,
+               mask_info={"type": "equispaced", "center_fraction": [0.08], "acceleration": [4]},
+               **_dirs(tmp_path, "port"))
+    seen = []
+    train_net = trouter.train_net
+
+    def spy(*args, preprocess=None, preprocess_pair=None, **kw):
+        assert (preprocess is None) != (preprocess_pair is None)
+        hook = preprocess or preprocess_pair
+
+        def recorded(*xs):
+            seen.append([(tuple(x.shape), x.dtype) for x in xs])
+            return hook(*xs)
+
+        key = "preprocess" if preprocess is not None else "preprocess_pair"
+        return train_net(*args, **{key: recorded}, **kw)
+
+    monkeypatch.setattr(trouter, "train_net", spy)
+    got = trouter.run_experiment(cfg, "cpu")
+    want = (4, 48, 40, 2) if dataset == "fastmri" else (4, 1, 32, 32)
+    dtype = torch.float32 if dataset == "fastmri" else torch.uint8
+    assert seen and all(s[0] == (want, dtype) for s in seen)
+    jax_names = {os.path.basename(f(dict(cfg, **_dirs(tmp_path, "jax"))))
+                 for f in (jrouter.results_filename, jrouter.loss_table_filename)}
+    assert jax_names <= set(os.listdir(cfg["output_dir"]))
+    jax_checkpoints = [jckpt.calibrated_checkpoint_path("c", cfg),
+                       jckpt.checkpoint_path("c", 1, cfg)]
+    assert sorted(os.listdir(cfg["checkpoint_dir"])) == sorted(
+        os.path.basename(p).replace(".msgpack", ".pt") for p in jax_checkpoints)
+    saved = _load(trouter.results_filename(cfg))
+    want_pickle = _load(jrouter.results_filename(runs["jax"]))
+    assert sorted(saved) == sorted(got) == sorted(want_pickle)
+    for key, w in want_pickle.items():
+        assert type(saved[key]) is type(w) or (np.isscalar(saved[key]) and np.isscalar(w)), key
+        if isinstance(w, np.ndarray):
+            assert saved[key].dtype == w.dtype, key
+    assert np.isfinite(saved["risk"]) and saved["lhat"] in trcps.lambda_grid(cfg)
 
 
 def test_on_device_transform_leaves_synthetic_unchanged(runs, tmp_path):

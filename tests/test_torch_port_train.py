@@ -481,26 +481,48 @@ def test_steps_train_batchnorm_after_a_validation_hook(tmp_path):
     assert int(bn.num_batches_tracked) == 6  # 3 epochs × 2 steps, all in train mode
 
 
+class _SmallStream:
+    """``_small_ds`` as a stream (no ``__len__``, no ``__getitem__``), as
+    TEMCA's dataset is."""
+
+    def __iter__(self):
+        ds = _small_ds()
+        return (ds[i] for i in range(len(ds)))
+
+
 @pytest.mark.parametrize(
     "kw",
     [
         {"mesh": object()},
-        {"preprocess": lambda x: x},
+        {"preprocess": abs, "preprocess_pair": abs},
         {"config": {"input_pipeline": "grain"}},
-        {"config": {"loader_procs": 2}},
+        {"config": {"loader_procs": 2}, "train": _SmallStream()},
         {"config": {"precompile_calibration": True}},
     ],
 )
 def test_unported_training_options_raise(kw):
-    """The options that are not ported raise; a mesh is ported
+    """The options that are not ported (``input_pipeline: grain``,
+    ``precompile_calibration``) raise; a mesh is ported
     (``test_torch_port_parallel.py``), and anything but a
-    ``parallel.mesh.Mesh`` or None in its place is a TypeError."""
+    ``parallel.mesh.Mesh`` or None in its place is a TypeError. The
+    on-device hooks and ``loader_procs`` are ported
+    (``test_torch_port_device_transforms.py``,
+    ``test_torch_port_data_extras.py``): what they still refuse raises the
+    JAX package's ValueError, both hooks at once, and worker processes for
+    a stream dataset."""
     kw = dict(kw)
     mesh = kw.pop("mesh", None)
-    expected = (pytest.raises(TypeError, match="Mesh") if mesh is not None
-                else pytest.raises(NotImplementedError, match="not yet ported"))
+    train = kw.pop("train", _small_ds())
+    if mesh is not None:
+        expected = pytest.raises(TypeError, match="Mesh")
+    elif "preprocess" in kw:
+        expected = pytest.raises(ValueError, match="pass preprocess OR preprocess_pair, not both")
+    elif "loader_procs" in kw["config"]:
+        expected = pytest.raises(ValueError, match="loader_procs requires a map-style dataset")
+    else:
+        expected = pytest.raises(NotImplementedError, match="not yet ported")
     with expected:
-        ttrain.train_net(_small_state(), _small_ds(), _small_ds(), mesh, epochs=1, batch_size=4,
+        ttrain.train_net(_small_state(), train, _small_ds(), mesh, epochs=1, batch_size=4,
                          lr=1e-3, config=dict(SMALL, **kw.pop("config", {})), **kw)
 
 
