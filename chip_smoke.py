@@ -2119,13 +2119,17 @@ def phase_fused(config: dict, calib, serve) -> dict:
     return launches
 
 
-def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list) -> tuple:
-    """PATH_STEPS steps of ``make_train_step`` on ``batch``, counted →
+def train_steps(phase: str, state: UQState, cfg: dict, batch, kernels: list,
+                **hooks) -> tuple:
+    """PATH_STEPS steps of ``make_train_step`` on ``batch`` (raw, with the
+    step's ``preprocess`` or ``preprocess_pair`` in ``hooks``), counted →
     (launches, losses, step ms); every loss finite and every first gradient
     finite and nonzero, ``kernels`` launched."""
     opt = torch.optim.Adam(state.model.parameters(), lr=cfg["lr"])
-    step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt)
-    tensors = train.put_batch(*batch, torch.device(DEVICE))
+    step = train.make_train_step(state.model, head_loss_pe_fn(state.uncertainty_type), cfg, opt,
+                                 **hooks)
+    tensors = train.put_batch(*batch, torch.device(DEVICE),
+                              raw_input=hooks.get("preprocess") is not None)
     reset_counts()
     losses = [float(step(*tensors))]
     check_first_gradients(phase, state.model)
@@ -2785,35 +2789,16 @@ def _nbytes(batch: tuple) -> int:
     return sum(a.nbytes for a in batch)
 
 
-def _steps(phase: str, init: dict, cfg: dict, batch: tuple, kernels: list,
-           **hooks) -> tuple[dict, list, list]:
-    """PATH_STEPS steps of ``make_train_step`` from ``init`` on ``batch``
-    (raw with a hook), counted and timed (CUDA events, steps 2 on) →
-    (launches, losses, step ms)."""
+def _from(init: dict, cfg: dict) -> UQState:
+    """A model under ``cfg`` on the card with the weights ``init``."""
     st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
     st.model.load_state_dict(init)
-    opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
-    step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt,
-                                 **hooks)
-    tensors = train.put_batch(*batch, torch.device(DEVICE),
-                              raw_input=hooks.get("preprocess") is not None)
-    reset_counts()
-    losses = [float(step(*tensors))]
-    check_first_gradients(phase, st.model)
-    more, step_ms = timed_steps(step, tensors, PATH_STEPS - 1)
-    counts = read_counts()
-    losses += more
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"{phase}: train losses not finite: {losses}")
-    require_launches(phase, counts, kernels)
-    require_k1_per_step(phase, counts, PATH_STEPS)
-    return counts, losses, step_ms
+    return st
 
 
 def _first_loss(init: dict, cfg: dict, batch: tuple, **hooks) -> float:
     """Step 1's loss from ``init`` on ``batch``, under deterministic cuDNN."""
-    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
-    st.model.load_state_dict(init)
+    st = _from(init, cfg)
     opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
     step = train.make_train_step(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt,
                                  **hooks)
@@ -2966,8 +2951,10 @@ def _data_device_mri(config: dict, smi: str) -> dict:
     loss_image = _first_loss(init, cfg, image)
     loss_err = abs(loss_raw - loss_image) / abs(loss_image)
     path = ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
-    counts, losses, raw_ms = _steps("data_device_fastmri", init, cfg, raw, path, preprocess=pre)
-    _, _, image_ms = _steps("data_device_fastmri image mode", init, cfg, image, path)
+    counts, losses, raw_ms = train_steps("data_device_fastmri", _from(init, cfg), cfg, raw, path,
+                                         preprocess=pre)
+    _, _, image_ms = train_steps("data_device_fastmri image mode", _from(init, cfg), cfg, image,
+                                 path)
     emit("data_device_fastmri", kspace=list(KSPACE_SHAPE), recon=list(RECON), batch=bs,
          mask=MRI_MASK, raw_item_shape=list(raw[0].shape), raw_item_dtype=str(raw[0].dtype),
          data_seconds=data_s, recon_max_abs_err=recon_err, closure_max_abs_err=closure_err,
@@ -2984,8 +2971,8 @@ def _data_device_mri(config: dict, smi: str) -> dict:
     launches = dict(counts)
 
     fused = dict(cfg, conv_backend="pallas_fused")
-    counts, losses, fused_ms = _steps("data_device_fastmri_fused", init, fused, raw,
-                                      path + CONV_KERNELS, preprocess=pre)
+    counts, losses, fused_ms = train_steps("data_device_fastmri_fused", _from(init, fused),
+                                           fused, raw, path + CONV_KERNELS, preprocess=pre)
     emit("data_device_fastmri_fused", conv_backend="pallas_fused", batch=bs,
          median_step_ms_raw=float(np.median(fused_ms)), step_ms_raw=fused_ms,
          step_losses=losses, card=smi, launches=_nonzero(counts))
@@ -2993,8 +2980,7 @@ def _data_device_mri(config: dict, smi: str) -> dict:
         launches[name] += counts[name]
 
     # calibration in image mode on CALIB_N slices
-    st = add_uncertainty(build_trunk(cfg), cfg, device=DEVICE)
-    st.model.load_state_dict(init)
+    st = _from(init, cfg)
     calib = Subset(ds, range(bs, bs + CALIB_N))
     reset_counts()
     torch.cuda.synchronize()
@@ -3058,9 +3044,10 @@ def _data_device_temca(config: dict, smi: str) -> dict:
     loss_raw = _first_loss(init, cfg, raw, preprocess_pair=pair)
     loss_image = _first_loss(init, cfg, image)
     path = ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"]
-    counts, losses, raw_ms = _steps("data_device_temca", init, cfg, raw, path,
-                                    preprocess_pair=pair)
-    _, _, image_ms = _steps("data_device_temca image mode", init, cfg, image, path)
+    counts, losses, raw_ms = train_steps("data_device_temca", _from(init, cfg), cfg, raw, path,
+                                         preprocess_pair=pair)
+    _, _, image_ms = train_steps("data_device_temca image mode", _from(init, cfg), cfg, image,
+                                 path)
     emit("data_device_temca", side_length=TEMCA_SIDE, downsampling_factor=TEMCA_DOWN,
          batch=TEMCA_BATCH, raw_item_shape=list(raw[0].shape[1:]),
          raw_item_dtype=str(raw[0].dtype), pair_bit_identical=same, preprocess_ms=pair_ms,

@@ -113,8 +113,9 @@ class _BackgroundWriter:
 
     def wait(self) -> None:
         pending, self._pending = self._pending, []
+        concurrent.futures.wait(pending)  # every write ends before one raises
         for future in pending:
-            future.result()  # a failed write raises here
+            future.result()
 
 
 _WRITER = _BackgroundWriter()
