@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import shutil
 import threading
 import time
 
@@ -34,6 +35,14 @@ from im2im_uq_tpu_torch.training import train as ttrain
 CFG = dict(DEFAULTS, model="UNet", uncertainty_type="quantiles", dataset="synthetic",
            batch_size=4, lr=1e-3, input_normalization="standard",
            output_normalization="min-max")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied when the test ends: one checkpoint of the
+    full-width model with Adam's state takes about 207 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _ds(n: int = 8):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 
 import flax.linen as fnn
 import jax
@@ -214,6 +215,7 @@ def test_on_device_transform_is_refused(runs, tmp_path, dataset, monkeypatch):
         if isinstance(w, np.ndarray):
             assert saved[key].dtype == w.dtype, key
     assert np.isfinite(saved["risk"]) and saved["lhat"] in trcps.lambda_grid(cfg)
+    shutil.rmtree(tmp_path)  # the full-width model's checkpoints: about 280 MB
 
 
 def test_on_device_transform_leaves_synthetic_unchanged(runs, tmp_path):
