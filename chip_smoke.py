@@ -149,7 +149,12 @@ Phases, one JSON line each on stdout:
               "xla" backends bit for bit (else within rtol 1e-6 / atol
               1e-7, the JAX artifact test's bars), and the default
               config's (K1f) within phase 7's rtol 1e-4 / atol 1e-5; the
-              same export and serving once in bf16.
+              same export and serving once in bf16. Then ``export_torch.main``
+              on the calibrated checkpoint and ``import_torch.main`` on its
+              reference-layout ``.pth`` (interop): the keys the model's and
+              ``lhat``, the imported weights and λ̂ the checkpoint's, the
+              intervals served from the imported checkpoint bit for bit
+              the default config's.
 23. data_device the on-device input transforms at full width. fastMRI
               singlecoil knee: 160 slices made from a seed on the host (k-space
               640x368, the router's default mask, equispaced, center fraction
@@ -173,7 +178,30 @@ Phases, one JSON line each on stdout:
               a batch (CUDA events after warm-up), the bytes a batch moves
               host to device raw and in image mode, the median step ms in
               each mode and the launches.
-24. dp        the multi-GPU API over the ranks of one process group (the
+24. midepoch  ``input_pipeline: grain`` at full width under ``pallas_fused``
+              f32 with deterministic cuDNN: 256 synthetic images (8 steps an
+              epoch), 2 epochs, ``checkpoint_every_steps: 3``,
+              ``graceful_shutdown``. Run A uninterrupted; run B stopped by
+              SIGTERM while step 5's batch is read (the mid-epoch file holds
+              ``{"next_index": 5}``), then resumed from it: weights,
+              BatchNorm statistics, Adam's state and both epochs' losses bit
+              for bit A's; K1f/K1b 3 a step, K5/K6 a fixed number a step;
+              one save's seconds and the file's MB.
+25. multistep ``make_train_multistep``, 10 steps captured as one CUDA graph,
+              at full width under ``pallas_fused`` f32, ``pallas_fused``
+              bf16 and ``xla`` with ``pool_backend: pallas``, deterministic
+              cuDNN: the replay's final state and last loss against 10 eager
+              steps of the same capturable step (bit for bit, else the
+              largest difference held to GRAD_RTOL), each port kernel's
+              launches in one replay (``torch.profiler``, the most over two
+              sessions, since CUPTI drops a record at times) 10 times one
+              eager step's, ms a step eager and replayed (CUDA events,
+              median and spread), the graph's peak memory, and the default
+              (not capturable) Adam's steps beside the capturable one's.
+26. resnet    ResNet18 + quantile head at 32x32, batch 32: 5 train steps
+              (every first gradient finite and nonzero; no port kernel on
+              the trunk's path), calibration on 256 images (K2).
+27. dp        the multi-GPU API over the ranks of one process group (the
               port's ``parallel/``): one rank per visible GPU over NCCL
               with two or more GPUs, else two ranks on the one card over
               gloo (its own CUDA collectives), a rehearsal that gives no
@@ -245,6 +273,7 @@ import math
 import os
 import pickle
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -265,6 +294,7 @@ from im2im_uq_tpu_torch.calibration.rcps import (
 )
 from im2im_uq_tpu_torch.data.core import Subset
 from im2im_uq_tpu_torch.data.fastmri import FastMRIDataset
+from im2im_uq_tpu_torch.data.grain_pipeline import make_grain_dataset
 from im2im_uq_tpu_torch.data.normalize import normalize_dataset
 from im2im_uq_tpu_torch.data.subsample import create_mask_for_mask_type
 from im2im_uq_tpu_torch.data.temca import TEMCADataset
@@ -297,14 +327,16 @@ from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 from im2im_uq_tpu_torch.parallel import spatial
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments, infer, router
 from im2im_uq_tpu_torch.scripts import calibrate as calibrate_script
-from im2im_uq_tpu_torch.scripts import export_serving
+from im2im_uq_tpu_torch.scripts import export_serving, export_torch, import_torch
 from im2im_uq_tpu_torch.training import multiseed, train
 from im2im_uq_tpu_torch.training.checkpoint import (
     calibrated_checkpoint_path,
     checkpoint_path,
     save_calibrated_checkpoint,
     save_checkpoint,
+    save_midepoch_checkpoint,
 )
+from im2im_uq_tpu_torch.utils import profiling
 from im2im_uq_tpu_torch.utils.timing import time_ms
 
 DECODER_SHAPES = [(32, 512, 20, 20), (32, 256, 40, 40), (32, 128, 80, 80), (32, 64, 160, 160)]
@@ -2707,6 +2739,7 @@ def phase_deploy(config: dict, calib, serve) -> dict:
             launches[name] += counts[name]
         export_and_serve(cfg, ckpt, inputs, tmp, default)
         export_and_serve(dict(cfg, compute_dtype="bfloat16"), ckpt, inputs, tmp, None)
+        interop_round_trip(cfg, ckpt, inputs, tmp, default)
     return launches
 
 
@@ -3126,6 +3159,389 @@ class _Pairs:
 
     def __getitem__(self, i: int):
         return self.xs[i], self.ys[i]
+
+
+# the midepoch phase: input_pipeline grain, 8 steps an epoch at batch 32, a
+# mid-epoch checkpoint every 3 steps, SIGTERM while step 5's batch is read
+MIDEPOCH_N, MIDEPOCH_EPOCHS, MIDEPOCH_EVERY, MIDEPOCH_STOP = 256, 2, 3, 5
+# the multistep phase: steps a graph replay runs, the configs, and the eager
+# and graph steps timed (CUDA events)
+MULTISTEP_N = 10
+# profiler sessions a count is the most of, and the small kernels that pad
+# each session's ends (chip_smoke._profiled)
+MULTISTEP_SESSIONS, PROFILE_PAD = 2, 64
+MULTISTEP_CONFIGS = [
+    ("f32_pallas_fused", {"conv_backend": "pallas_fused"}),
+    ("bf16_pallas_fused", {"conv_backend": "pallas_fused", "compute_dtype": "bfloat16"}),
+    ("f32_xla_pool_pallas", {"conv_backend": "xla", "pool_backend": "pallas"}),
+]
+MULTISTEP_PORT_BUCKETS = {
+    "f32_pallas_fused": ["K1f upsample (port)", "K1b upsample backward (port)",
+                         "K3/K4 conv3x3 (port)", "K5 wgrad3x3 (port)", "K6 dgrad3x3 (port)",
+                         "K7 max-pool backward (port)"],
+    "bf16_pallas_fused": ["K1f upsample (port)", "K1b upsample backward (port)",
+                          "K3/K4 conv3x3 (port)", "K5 wgrad3x3 (port)", "K6 dgrad3x3 (port)",
+                          "K7 max-pool backward (port)", "bf16 packing (port)"],
+    "f32_xla_pool_pallas": ["K1f upsample (port)", "K1b upsample backward (port)",
+                            "K7 max-pool backward (port)"],
+}
+# the resnet phase: ResNet18 + quantile head at 32x32, batch 32
+RESNET_IMAGE, RESNET_STEPS, RESNET_CALIB_N = 32, 5, 256
+
+
+class _SignalOnRead:
+    """A dataset that sends SIGTERM to this process when one example is read
+    (tests/test_graceful_shutdown.py's preemption)."""
+
+    def __init__(self, dataset, index: int):
+        self.dataset, self.index, self.sent = dataset, index, False
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, i: int):
+        if i == self.index and not self.sent:
+            self.sent = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        return self.dataset[i]
+
+
+def _state_and_adam(st: UQState, ckpt_dir: str, cfg: dict) -> tuple[dict, dict]:
+    """The model's state dict, and Adam's state from the run's final epoch
+    checkpoint."""
+    sd = {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()}
+    adam = torch.load(checkpoint_path(ckpt_dir, MIDEPOCH_EPOCHS, cfg), map_location="cpu",
+                      weights_only=True)["optimizer"]["state"]
+    return sd, adam
+
+
+def phase_midepoch(config: dict, smi: str) -> dict:
+    """``input_pipeline: grain`` with mid-epoch checkpoints at full width
+    (``pallas_fused`` f32, deterministic cuDNN): run A uninterrupted; run B
+    stopped by SIGTERM after step MIDEPOCH_STOP of epoch 0 and resumed from
+    its mid-epoch checkpoint; the two bit for bit in weights, BatchNorm
+    statistics, Adam's state and both epochs' losses. → launches."""
+    cfg = dict(config, conv_backend="pallas_fused", input_pipeline="grain",
+               checkpoint_every_steps=MIDEPOCH_EVERY, graceful_shutdown=True,
+               epochs=MIDEPOCH_EPOCHS)
+    bs = cfg["batch_size"]
+    steps = MIDEPOCH_EPOCHS * MIDEPOCH_N // bs
+    data = synthetic(MIDEPOCH_N, IMAGE, seed=21)
+    val = synthetic(bs, IMAGE, seed=22)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(21), device=DEVICE)
+    init = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+    # the first example of step MIDEPOCH_STOP's batch (epoch 0's seed is 1)
+    index = int(make_grain_dataset(data, bs, shuffle=True, seed=1).indices(MIDEPOCH_STOP - 1)[0])
+
+    def run(ckpt_dir: str, dataset, **kw) -> tuple[RecordLog, dict, float]:
+        st.model.load_state_dict(init)
+        log = RecordLog()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            train.train_net(st, dataset, val, None, epochs=MIDEPOCH_EPOCHS, batch_size=bs,
+                            lr=cfg["lr"], checkpoint_dir=ckpt_dir,
+                            checkpoint_every=MIDEPOCH_EPOCHS, validate_every=10, config=cfg,
+                            logger=log, **kw)
+        finally:
+            torch.cuda.synchronize()
+        return log, read_counts(), time.perf_counter() - t0
+
+    losses = lambda log: [r["train_loss"] for r in log.records if "train_loss" in r]
+    with deterministic_cudnn(), tempfile.TemporaryDirectory() as tmp:
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        log_a, counts, a_s = run(a_dir, data)
+        # K1b 3 a step; K1f 3 a step and 3 for epoch 0's validation batch
+        if (counts["upsample2x"], counts["upsample2x_bwd"]) != (K1_PER_STEP * (steps + 1),
+                                                               K1_PER_STEP * steps):
+            raise AssertionError(f"midepoch: K1f/K1b launched {counts['upsample2x']}, "
+                                 f"{counts['upsample2x_bwd']} times in {steps} steps")
+        for name in ("wgrad3x3", "dgrad3x3"):
+            if counts[name] <= 0 or counts[name] % steps:
+                raise AssertionError(f"midepoch: {name} launched {counts[name]} times in "
+                                     f"{steps} steps")
+        require_launches("midepoch", counts, ["conv3x3", "conv3x3_bn_act", "maxpool2x2_bwd"])
+        want = _state_and_adam(st, a_dir, cfg)
+        t0 = time.perf_counter()
+        try:
+            run(b_dir, _SignalOnRead(data, index))
+            raise AssertionError("midepoch: the run was not stopped by SIGTERM")
+        except train.PreemptionInterrupt as exc:
+            stop_s = time.perf_counter() - t0
+            mp = exc.checkpoint_path
+        payload = torch.load(mp, map_location="cpu", weights_only=True)
+        saved = {"epoch": payload["epoch"], "data_state": json.loads(payload["data_state"]),
+                 "progress": json.loads(payload["progress"])}
+        if saved["data_state"] != {"next_index": MIDEPOCH_STOP} or saved["epoch"] != 0:
+            raise AssertionError(f"midepoch: the stop saved {saved}")
+        file_mb = os.path.getsize(mp) / 1e6
+        del payload
+        log_b, counts_b, b_s = run(b_dir, data, load_from_checkpoint=True)
+        got = _state_and_adam(st, b_dir, cfg)
+        if os.path.exists(mp):
+            raise AssertionError("midepoch: the mid-epoch file outlived its epoch")
+        # one save alone, of run B's final model and Adam state
+        opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+        opt.load_state_dict(torch.load(checkpoint_path(b_dir, MIDEPOCH_EPOCHS, cfg),
+                                       weights_only=True)["optimizer"])
+        t0 = time.perf_counter()
+        save_midepoch_checkpoint(os.path.join(tmp, "timed.pt"), st.model, opt, None, 1,
+                                 {"next_index": 3}, saved["progress"])
+        save_s = time.perf_counter() - t0
+    differ = [k for k in want[0] if not torch.equal(want[0][k], got[0][k])]
+    differ += [f"adam.{i}.{n}" for i in want[1] for n, v in want[1][i].items()
+               if not torch.equal(v, got[1][i][n])]
+    same_losses = losses(log_a) == losses(log_b) and len(losses(log_a)) == MIDEPOCH_EPOCHS
+    emit("midepoch", images=MIDEPOCH_N, batch=bs, epochs=MIDEPOCH_EPOCHS, steps=steps,
+         checkpoint_every_steps=MIDEPOCH_EVERY, stopped_after_step=MIDEPOCH_STOP,
+         saved=saved, uninterrupted_s=a_s, stopped_s=stop_s, resumed_s=b_s,
+         save_seconds=save_s, file_mb=file_mb, losses_a=losses(log_a), losses_b=losses(log_b),
+         bit_identical=not differ and same_losses, differ=differ[:10],
+         tensors=len(want[0]) + sum(len(v) for v in want[1].values()), card=smi,
+         launches=_nonzero(counts))
+    if differ or not same_losses:
+        raise AssertionError(f"midepoch: the resumed run differs: {differ[:10]} "
+                             f"{losses(log_a)} {losses(log_b)}")
+    return {k: counts[k] + counts_b[k] for k in KERNELS}
+
+
+def _port_buckets(kernels: list) -> collections.Counter:
+    """Launches per port-kernel bucket of ``profiling.bucket``."""
+    return collections.Counter(b for b in (profiling.bucket(k[0]) for k in kernels)
+                               if b.endswith("(port)"))
+
+
+def _profiled(fn, *args, sessions: int = MULTISTEP_SESSIONS) -> tuple:
+    """``fn(*args)`` once in each of ``sessions`` ``torch.profiler`` sessions
+    → (the last result, the port's launches per bucket, the most of each
+    over the sessions, and every session's). CUPTI drops a few kernel
+    records at a session's ends (on the card: the first kernel or two of a
+    session after an earlier one, or the last step of a replay), never adds
+    one, so each session pads the call with PROFILE_PAD small kernels and a
+    synchronized pause on both sides, and the most over the sessions is
+    the count."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pad = torch.zeros(1, device=DEVICE)
+
+    def padding():
+        for _ in range(PROFILE_PAD):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    seen, out = [], None
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            padding()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            padding()
+        seen.append(_port_buckets(profiling.kernel_events(prof)))
+    most = collections.Counter({b: max(c[b] for c in seen) for c in seen for b in c})
+    return out, most, [dict(c) for c in seen]
+
+
+def _train_state(model: torch.nn.Module, opt: torch.optim.Optimizer) -> dict:
+    out = {f"model.{k}": v.detach().clone() for k, v in model.state_dict().items()}
+    for i, st in opt.state_dict()["state"].items():
+        out.update({f"adam.{i}.{n}": v.detach().clone() for n, v in st.items()})
+    return out
+
+
+def _largest_diff(a: dict, b: dict) -> tuple[float, str]:
+    worst = max(a, key=lambda k: (a[k].double() - b[k].double()).abs().max().item())
+    return (a[worst].double() - b[worst].double()).abs().max().item(), worst
+
+
+def phase_multistep(config: dict, smi: str) -> dict:
+    """``make_train_multistep`` (MULTISTEP_N steps as one CUDA graph) at full
+    width in each MULTISTEP_CONFIGS config, deterministic cuDNN: the replay's
+    final state and last loss against MULTISTEP_N eager steps of the same
+    capturable step from the same start, the launches of each port kernel
+    in one replay (``torch.profiler``, the most over MULTISTEP_SESSIONS
+    sessions: ``_profiled``) against MULTISTEP_N × one eager step's, ms a
+    step eager and replayed, the peak memory of the eager steps and of the
+    capture with its first replay; and the default (not capturable) Adam's
+    steps beside the capturable one's. → launches (the Python counters
+    count the capture)."""
+    batch = path_batch(config, seed=23)
+    launches = {k: 0 for k in KERNELS}
+    for tag, over in MULTISTEP_CONFIGS:
+        cfg = dict(config, **over)
+        st = add_uncertainty(build_trunk(cfg), cfg,
+                             generator=torch.Generator(device=DEVICE).manual_seed(23),
+                             device=DEVICE)
+        init = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        loss_fn = head_loss_pe_fn(st.uncertainty_type)
+        tensors = train.put_batch(*batch, torch.device(DEVICE))
+        with deterministic_cudnn():
+            # the graph: capture and first replay, then the replay profiled
+            # and timed
+            opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"], capturable=True)
+            multistep = train.make_train_multistep(st.model, loss_fn, cfg, opt, MULTISTEP_N)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            graph_loss = multistep(*tensors)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            counts = read_counts()
+            graph_state = _train_state(st.model, opt)
+            _, graph_counts, graph_sessions = _profiled(multistep, *tensors)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            for e in events[1:]:
+                multistep(*tensors)
+                e.record()
+            events[-1].synchronize()
+            graph_ms = [a.elapsed_time(b) / MULTISTEP_N for a, b in zip(events, events[1:])]
+            del multistep, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # MULTISTEP_N eager steps of the same capturable step from init,
+            # the first ones profiled, the rest timed
+            st.model.load_state_dict(init)
+            opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"], capturable=True)
+            step = train.make_train_step(st.model, loss_fn, cfg, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, eager_counts, eager_sessions = _profiled(step, *tensors)
+            losses, eager_ms = timed_steps(step, tensors, MULTISTEP_N - MULTISTEP_SESSIONS)
+            eager_loss = torch.tensor(losses[-1], dtype=torch.float32)
+            eager_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            eager_state = _train_state(st.model, opt)
+            same = (set(graph_state) == set(eager_state)
+                    and all(torch.equal(graph_state[k], eager_state[k]) for k in eager_state)
+                    and torch.equal(graph_loss.cpu(), eager_loss))
+            diff, worst = (0.0, "") if same else _largest_diff(graph_state, eager_state)
+
+            # the default Adam (bias correction on the host) from init
+            st.model.load_state_dict(init)
+            default_opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+            default_step = train.make_train_step(st.model, loss_fn, cfg, default_opt)
+            default_losses, default_ms = timed_steps(default_step, tensors, MULTISTEP_N)
+            default_diff = max((p.detach().double() - eager_state[f"model.{n}"].double())
+                               .abs().max().item() for n, p in st.model.named_parameters())
+            default_loss_diff = abs(default_losses[-1] - losses[-1])
+            del default_opt, default_step
+        required = MULTISTEP_PORT_BUCKETS[tag]
+        wrong = {b: (eager_counts[b], graph_counts[b]) for b in set(eager_counts) | set(graph_counts)
+                 if graph_counts[b] != MULTISTEP_N * eager_counts[b]}
+        missing = [b for b in required if eager_counts[b] <= 0]
+        eager_med, graph_med = float(np.median(eager_ms)), float(np.median(graph_ms))
+        emit("multistep", config=tag, steps=MULTISTEP_N, batch=cfg["batch_size"], image=IMAGE,
+             eager_ms=_spread(eager_ms), graph_ms=_spread(graph_ms),
+             dispatch_ms=eager_med - graph_med, default_adam_ms=_spread(default_ms),
+             capturable_minus_default_ms=eager_med - float(np.median(default_ms)),
+             capturable_vs_default_max_param_diff=default_diff,
+             capturable_vs_default_last_loss_diff=default_loss_diff,
+             bit_identical=same, max_abs_diff=diff, worst=worst,
+             last_loss=float(graph_loss), capture_s=capture_s, peak_mib=peak_mb,
+             eager_peak_mib=eager_peak_mb,
+             eager_launches=dict(eager_counts), replay_launches=dict(graph_counts),
+             eager_sessions=eager_sessions, replay_sessions=graph_sessions,
+             captured_counts=_nonzero(counts), card=smi)
+        if missing or wrong:
+            raise AssertionError(f"multistep {tag}: kernels missing {missing}, replay launches "
+                                 f"not {MULTISTEP_N}x eager: {wrong}")
+        if not same and diff > GRAD_RTOL:
+            raise AssertionError(f"multistep {tag}: the replay is {diff} from eager at {worst}")
+        for name in KERNELS:
+            launches[name] += counts[name]
+        del st, opt, step, tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resnet(config: dict, smi: str) -> dict:
+    """ResNet18 + quantile head at RESNET_IMAGE², batch 32: RESNET_STEPS
+    train steps (every first gradient finite and nonzero, no port kernel
+    but K1's and K7's absence checked), then calibration on RESNET_CALIB_N
+    images, which launches K2. → launches."""
+    cfg = dict(config, model="ResNet18")
+    bs = cfg["batch_size"]
+    ds = synthetic(bs, RESNET_IMAGE, seed=24)
+    calib = synthetic(RESNET_CALIB_N, RESNET_IMAGE, seed=25)
+    st = add_uncertainty(build_trunk(cfg), cfg,
+                         generator=torch.Generator(device=DEVICE).manual_seed(24), device=DEVICE)
+    tensors = train.put_batch(np.stack([ds[i][0] for i in range(bs)]),
+                              np.stack([ds[i][1] for i in range(bs)]),
+                              np.ones((bs,), np.float32), torch.device(DEVICE))
+    opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"])
+    step = train.make_train_step(st.model, head_loss_pe_fn("quantiles"), cfg, opt)
+    reset_counts()
+    losses = [float(step(*tensors))]
+    check_first_gradients("resnet", st.model)
+    more, step_ms = timed_steps(step, tensors, RESNET_STEPS - 1)
+    train_counts = read_counts()
+    losses += more
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"resnet: train losses not finite: {losses}")
+    on_path = _nonzero(train_counts)
+    if on_path:
+        raise AssertionError(f"resnet: the trunk launched port kernels: {on_path}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, table = calibrate_model(st, calib, cfg)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    counts = read_counts()
+    require_launches("resnet calibrate", counts, ["loss_table"])
+    if table.shape != (RESNET_CALIB_N, cfg["num_lambdas"]) or not np.isfinite(table).all():
+        raise AssertionError(f"resnet: bad calibration table {table.shape}")
+    out = st.forward(tensors[0][:2])
+    if out.shape != (2, 3, 1, RESNET_IMAGE, RESNET_IMAGE) or not torch.isfinite(out).all():
+        raise AssertionError(f"resnet: bad forward {tuple(out.shape)}")
+    emit("resnet", batch=bs, image=RESNET_IMAGE, step_losses=losses,
+         median_step_ms=float(np.median(step_ms)), calibration_images=RESNET_CALIB_N,
+         calibration_s=calib_s, lhat=st.lhat, card=smi, launches=_nonzero(counts))
+    return counts
+
+
+def interop_round_trip(cfg: dict, ckpt: str, inputs: str, tmp: str, default: dict) -> None:
+    """``scripts/export_torch.main`` on the calibrated checkpoint, then
+    ``scripts/import_torch.main`` on its output (interop): the reference
+    layout's keys are the model's and ``lhat``, the imported weights are
+    the checkpoint's bit for bit (``num_batches_tracked`` 0, as the JAX
+    export writes it), λ̂ is kept, and serving from the imported
+    calibrated checkpoint gives ``default``'s intervals bit for bit."""
+    cfg_path = _write_config(tmp, "interop", cfg)
+    pth, out_dir = os.path.join(tmp, "reference.pth"), os.path.join(tmp, "imported")
+    t0 = time.perf_counter()
+    if export_torch.main(["--checkpoint", ckpt, "--config", cfg_path, "--output", pth,
+                          "--device", DEVICE]) != 0:
+        raise AssertionError("export_torch.main failed")
+    export_s = time.perf_counter() - t0
+    if import_torch.main(["--checkpoint", pth, "--config", cfg_path, "--output-dir", out_dir,
+                          "--device", DEVICE]) != 0:
+        raise AssertionError("import_torch.main failed")
+    exported = torch.load(pth, weights_only=True)
+    original = torch.load(ckpt, weights_only=True)
+    imported = torch.load(calibrated_checkpoint_path(out_dir, cfg), weights_only=True)
+    keys_match = set(exported) == set(original["state_dict"]) | {"lhat"}
+    weights_equal = all(
+        torch.equal(imported["state_dict"][k],
+                    torch.zeros_like(v) if k.endswith("num_batches_tracked") else v)
+        for k, v in original["state_dict"].items())
+    served, _, _ = _serve_cli(
+        ["--config", cfg_path, "--checkpoint", calibrated_checkpoint_path(out_dir, cfg),
+         "--input", inputs, "--batch-size", str(cfg["batch_size"])],
+        os.path.join(tmp, "interop_serve"))
+    same = all(np.array_equal(served[k], default[k]) for k in ("lower", "prediction", "upper"))
+    emit("interop", keys=len(exported), keys_match=keys_match, weights_equal=weights_equal,
+         lhat=[original["lhat"], float(exported["lhat"]), imported["lhat"]],
+         pth_mb=os.path.getsize(pth) / 1e6, export_s=export_s, intervals_equal=same,
+         max_abs_diff=_max_abs(served, default))
+    if not (keys_match and weights_equal and same) or imported["lhat"] != original["lhat"]:
+        raise AssertionError("interop: the export/import round trip changed the model")
 
 
 def _max_rel_diff(got: dict, want: dict) -> tuple[float, str]:
@@ -3804,13 +4220,19 @@ def main() -> int:
     # 23. data_device: fastMRI k-space and TEMCA uint8 patches made into the
     # model's inputs inside the train step
     data_device_counts = phase_data_device(config, smi)
-    # 24. dp: training, calibration, serving, the data-parallel artifact,
+    # 24-26. grain with mid-epoch checkpoints, the multistep CUDA graph, and
+    # the ResNet18 trunk
+    midepoch_counts = phase_midepoch(config, smi)
+    multistep_counts = phase_multistep(config, smi)
+    resnet_counts = phase_resnet(config, smi)
+    # 27. dp: training, calibration, serving, the data-parallel artifact,
     # height-sharded serving and multi-seed training over the ranks
     dp_counts = phase_dp(config, calib, serve, smi)
     for counts in (calib_serve_counts, train_counts, router_counts, fused_counts,
                    router_fused_counts, heads_counts, wnet_counts, router_softmax_counts,
                    bf16_counts, bf16_model_counts, router_bf16_counts, router_bf16_fused_counts,
-                   remat_counts, deploy_counts, data_device_counts, dp_counts):
+                   remat_counts, deploy_counts, data_device_counts, midepoch_counts,
+                   multistep_counts, resnet_counts, dp_counts):
         for name, n in counts.items():
             launches[name] += n
 

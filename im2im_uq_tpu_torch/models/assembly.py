@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from im2im_uq_tpu_torch.models.heads import build_head, head_loss_fn
-from im2im_uq_tpu_torch.models.unet import UNet, WNet
+from im2im_uq_tpu_torch.models.resnet import ResNet18
+from im2im_uq_tpu_torch.models.unet import CONV_BACKENDS, UNet, WNet
 from im2im_uq_tpu_torch.ops import sets as set_ops
 from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
 
@@ -160,9 +161,10 @@ def resolve_dtype(params: dict, dtype: Optional[torch.dtype] = None) -> torch.dt
 
 
 def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
-    """Trunk factory for the config's ``model``, "UNet" or "WNet" (ResNet18
-    is not yet ported); its parameters are left on the meta device until
-    :func:`add_uncertainty` places and fills them.
+    """Trunk factory for the config's ``model``, "UNet", "WNet" or
+    "ResNet18" (``models/resnet.py``, which takes none of the backends
+    below, as the JAX package's); its parameters are left on the meta device
+    until :func:`add_uncertainty` places and fills them.
 
     ``conv_backend`` takes the JAX package's values, "auto" (= "xla"),
     "xla", "pallas" and "pallas_fused" (``models/unet.py`` says what each
@@ -183,23 +185,27 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
     """
     dtype = resolve_dtype(params, dtype)
     name = params.get("model", "UNet")
-    if name == "ResNet18":
-        raise NotImplementedError(f"trunk {name!r} is not yet ported")
-    if name not in ("UNet", "WNet"):
-        raise NotImplementedError(f"unknown trunk {name!r}")
     conv_backend = params.get("conv_backend", "auto")
     if conv_backend == "auto":  # as the JAX package resolves it (assembly.py:157-168)
         conv_backend = "xla"
     bn_backend = params.get("bn_backend", "auto")
     if bn_backend not in ("auto", "flax", "dot", "barrier"):
         raise ValueError(f"unknown bn_backend {bn_backend!r}")
+    if bn_backend in ("dot", "barrier") and conv_backend == "pallas_fused":
+        raise ValueError(
+            f"bn_backend={bn_backend!r} is incompatible with conv_backend="
+            "'pallas_fused' (its kernels fuse their own BN); use "
+            "conv_backend xla/pallas or bn_backend flax/auto"
+        )
+    if name == "ResNet18":  # XLA's convs and BatchNorm under every backend, as in JAX
+        if conv_backend not in CONV_BACKENDS:
+            raise ValueError(f"unknown conv_backend {conv_backend!r}")
+        with torch.device("meta"):
+            return ResNet18(n_channels_in=int(params.get("num_inputs", 1)), n_channels_out=1,
+                            dtype=dtype)
+    if name not in ("UNet", "WNet"):
+        raise NotImplementedError(f"unknown trunk {name!r}")
     if bn_backend in ("dot", "barrier"):
-        if conv_backend == "pallas_fused":
-            raise ValueError(
-                f"bn_backend={bn_backend!r} is incompatible with conv_backend="
-                "'pallas_fused' (its kernels fuse their own BN); use "
-                "conv_backend xla/pallas or bn_backend flax/auto"
-            )
         raise NotImplementedError(f"bn_backend {bn_backend!r} is not yet ported")
     rb = params.get("resize_backend", "auto")
     with torch.device("meta"):
@@ -213,15 +219,17 @@ def build_trunk(params: dict, dtype: Optional[torch.dtype] = None) -> nn.Module:
 
 def _torch_default_init(model: nn.Module, generator: torch.Generator) -> None:
     """torch's default Conv2d init, U(±1/√fan_in) for kernels and biases
-    (the JAX package's conv_kernel_init, unet.py:118-135), drawn from
-    ``generator``; BatchNorm starts at weight 1, bias 0, mean 0, var 1."""
+    (the JAX package's conv_kernel_init, unet.py:118-135; a transposed
+    conv's fan_in as the JAX package takes it, in channels × taps), drawn
+    from ``generator``; BatchNorm starts at weight 1, bias 0, mean 0, var 1."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 

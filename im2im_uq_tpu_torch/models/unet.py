@@ -1,4 +1,4 @@
-"""UNet and WNet trunks with a bilinear decoder, NCHW.
+"""UNet and WNet trunks, NCHW.
 
 Counterpart of ``im2im_uq_tpu/models/unet.py`` (``DoubleConv``, ``Down``,
 ``Up``, ``UpNoSkip``, ``UNet``, ``WNet``), and of the reference trunks it
@@ -430,18 +430,35 @@ class Down(nn.Module):
 
 class Up(nn.Module):
     """2x bilinear upsample, centre pad to the skip's size, then DoubleConv
-    over [skip, up] along the channels."""
+    over [skip, up] along the channels.
+
+    ``bilinear=False`` (the JAX ``Up``'s ConvTranspose decoder,
+    ``unet.py:717-728``): the upsample is ``up``, a 2×2 transposed conv of
+    stride 2 from ``in_channels`` to ``in_channels // 2`` channels (in
+    ``dtype``, PyTorch's own op), and the DoubleConv's middle width is its
+    output width, as the reference's ``Up``."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto"):
+                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto",
+                 bilinear: bool = True):
         super().__init__()
         self.resize_backend = resize_backend
-        self.conv = DoubleConv(in_channels, out_channels, in_channels // 2,
+        self.bilinear = bilinear
+        self.dtype = dtype
+        if not bilinear:
+            self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, kernel_size=2, stride=2)
+        self.conv = DoubleConv(in_channels, out_channels,
+                               in_channels // 2 if bilinear else out_channels,
                                conv_backend=conv_backend, dtype=dtype, remat=remat)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         sharded = spatial.active()
-        if sharded is None:
+        if not self.bilinear:
+            if sharded is not None:
+                raise ValueError("a height-sharded forward runs the bilinear decoder only")
+            x1 = F.conv_transpose2d(*(compute_cast(t, self.dtype)
+                                      for t in (x1, self.up.weight, self.up.bias)), stride=2)
+        elif sharded is None:
             x1 = upsample2x_align_corners(x1, self.resize_backend)
         else:  # this rank's rows, the height's centre pad included
             x1 = sharded.upsample2x(x1, x2, self.resize_backend)
@@ -493,11 +510,14 @@ class UNet(nn.Module):
     """4-down/4-up UNet, encoder 64/128/256/512/512, decoder 256/128/64/64,
     1×1 out-conv to ``n_channels_middle`` (32) features. Input (B, C, H, W);
     the features come out in ``dtype``. ``remat`` is one of REMAT_MODES
-    (module docstring)."""
+    (module docstring). ``bilinear=False`` is the ConvTranspose decoder
+    (:class:`Up`) with the channel factor 1: encoder 64/128/256/512/1024,
+    decoder 512/256/128/64 (``unet.py:811``)."""
 
     def __init__(self, n_channels_in: int = 1, n_channels_out: int = 1,
                  n_channels_middle: int = 32, conv_backend: str = "xla",
-                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto"):
+                 dtype: torch.dtype = torch.float32, remat=False, resize_backend: str = "auto",
+                 bilinear: bool = True):
         super().__init__()
         self.n_channels_out = n_channels_out
         self.n_channels_middle = n_channels_middle
@@ -505,16 +525,17 @@ class UNet(nn.Module):
         self.dtype = dtype
         self.remat = remat
         cb, dt, rm = conv_backend, dtype, remat
+        factor = 2 if bilinear else 1
         self.inc = DoubleConv(n_channels_in, 64, conv_backend=cb, dtype=dt, remat=rm)
         self.down1 = Down(64, 128, cb, dt, rm)
         self.down2 = Down(128, 256, cb, dt, rm)
         self.down3 = Down(256, 512, cb, dt, rm)
-        self.down4 = Down(512, 512, cb, dt, rm)
-        rb = resize_backend
-        self.up1 = Up(1024, 256, cb, dt, rm, rb)
-        self.up2 = Up(512, 128, cb, dt, rm, rb)
-        self.up3 = Up(256, 64, cb, dt, rm, rb)
-        self.up4 = Up(128, 64, cb, dt, rm, rb)
+        self.down4 = Down(512, 1024 // factor, cb, dt, rm)
+        rb, bl = resize_backend, bilinear
+        self.up1 = Up(1024, 512 // factor, cb, dt, rm, rb, bl)
+        self.up2 = Up(512, 256 // factor, cb, dt, rm, rb, bl)
+        self.up3 = Up(256, 128 // factor, cb, dt, rm, rb, bl)
+        self.up4 = Up(128, 64, cb, dt, rm, rb, bl)
         self.out = OutConv(64, n_channels_middle, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,12 @@ there; the callers pass NCHW maps.
 
 from __future__ import annotations
 
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from im2im_uq_tpu_torch.ops.constants import device_constants
 
 __all__ = [
     "absolute",
@@ -125,12 +128,22 @@ def bucketize_targets(target: torch.Tensor, num_classes: int) -> torch.Tensor:
     with the last one exactly 1. ``right=False`` is searchsorted's
     side='left'; indices ≥ S are clamped to S − 1.
     """
-    step = np.float32(1.0) / np.float32(max(num_classes - 1, 1))
-    bounds = np.arange(num_classes, dtype=np.float32) * step
-    bounds[-1:] = 1.0 if num_classes > 1 else 0.0
-    classes = torch.from_numpy(bounds).to(device=target.device, dtype=target.dtype)
+    classes = _class_bounds(num_classes, target.device, target.dtype)
     idx = torch.bucketize(target, classes, right=False)
     return torch.clamp(idx, max=num_classes - 1)
+
+
+def _class_bounds(num_classes: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`bucketize_targets`' boundaries on ``device``, kept per count
+    (``ops/constants.py``)."""
+    def build():
+        step = np.float32(1.0) / np.float32(max(num_classes - 1, 1))
+        bounds = np.arange(num_classes, dtype=np.float32) * step
+        bounds[-1:] = 1.0 if num_classes > 1 else 0.0
+        return (torch.from_numpy(bounds).to(device=device, dtype=dtype),)
+
+    return device_constants(("class_bounds", num_classes, device, dtype), (num_classes,),
+                            build)[0]
 
 
 def softmax_cross_entropy_elem(

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from im2im_uq_tpu_torch.ops.constants import device_constants
 from im2im_uq_tpu_torch.ops.upsample import (
     pallas_upsample_eligible,
     phase_weights,
@@ -85,13 +86,25 @@ def resize_rows(x: torch.Tensor, offset: int, in_size: int, out_size: int, start
 def _resize_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
     if out_size == 2 * x.shape[dim]:
         return upsample2x_axis_plain(x, dim)
-    i0, i1, frac = _tap_tables(x.shape[dim], out_size)
-    lo = x.index_select(dim, torch.from_numpy(i0).to(x.device))
-    hi = x.index_select(dim, torch.from_numpy(i1).to(x.device))
+    i0, i1, frac = _tap_tensors(x.shape[dim], out_size, x.device, x.dtype)
+    lo = x.index_select(dim, i0)
+    hi = x.index_select(dim, i1)
     shape = [1] * x.ndim
     shape[dim] = out_size
-    f = torch.from_numpy(frac).to(x.device, x.dtype).reshape(shape)
-    return lo + (hi - lo) * f
+    return lo + (hi - lo) * frac.reshape(shape)
+
+
+def _tap_tensors(in_size: int, out_size: int, device: torch.device,
+                 dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_tap_tables` on ``device``, the fractions in ``dtype``, kept per
+    size (``ops/constants.py``)."""
+    def build():
+        i0, i1, frac = _tap_tables(in_size, out_size)
+        return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+                torch.from_numpy(frac).to(device, dtype))
+
+    return device_constants(("taps", in_size, out_size, device, dtype), (in_size, out_size),
+                            build)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

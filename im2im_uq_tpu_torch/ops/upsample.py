@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from im2im_uq_tpu_torch import _build
+from im2im_uq_tpu_torch.ops.constants import device_constants
 
 __all__ = [
     "Upsample2x",
@@ -70,17 +71,24 @@ def phase_weights(n: int) -> tuple[np.ndarray, np.ndarray]:
     return f_even, f_odd
 
 
+def _device_tables(make, n: int, device: torch.device, dtype: torch.dtype) -> tuple:
+    """``make(n)``'s numpy tables as tensors of ``dtype`` on ``device`` (cast
+    from f32), kept per size (``ops/constants.py``)."""
+    return device_constants(
+        (make.__name__, n, device, dtype), (n,),
+        lambda: (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype).to(device)
+                 for a in make(n)))
+
+
 def upsample2x_axis_plain(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Exact-2x align-corners upsample along ``dim``: two shifted lerps and
     an interleave (``im2im_uq_tpu/ops/resize._upsample2x_axis``)."""
     n = x.shape[dim]
     xm1 = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
     xp1 = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
-    fe, fo = phase_weights(n)
     shape = [1] * x.ndim
     shape[dim] = n
-    fe = torch.from_numpy(fe).to(x.device, x.dtype).reshape(shape)
-    fo = torch.from_numpy(fo).to(x.device, x.dtype).reshape(shape)
+    fe, fo = (t.reshape(shape) for t in _device_tables(phase_weights, n, x.device, x.dtype))
     even = xm1 + (x - xm1) * fe
     odd = x + (xp1 - x) * fo
     out_shape = list(x.shape)
@@ -143,6 +151,10 @@ def col_transpose_matrix(w: int) -> np.ndarray:
     return mat
 
 
+def _col_matrix(w: int) -> tuple[np.ndarray]:
+    return (col_transpose_matrix(w),)
+
+
 def _bf16_weights(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
 
@@ -153,15 +165,15 @@ def _upsample2x_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     rows past the edges; then the W axis as an f32 product with the bf16
     entries of :func:`col_transpose_matrix`, rounded once."""
     h, w = x.shape[-2:]
-    fe, fo = (_bf16_weights(f).to(x.device)[:, None] for f in phase_weights(h))
+    fe, fo = (f[:, None] for f in _device_tables(phase_weights, h, x.device, torch.bfloat16))
     zero = torch.zeros_like(x.narrow(-2, 0, 1))
     xm1 = torch.cat([zero, x.narrow(-2, 0, h - 1)], -2)
     xp1 = torch.cat([x.narrow(-2, 1, h - 1), zero], -2)
     even = xm1 + (x - xm1) * fe
     odd = x + (xp1 - x) * fo
     rows = torch.stack([even, odd], -2).flatten(-3, -2)  # (…, 2H, W)
-    m = _bf16_weights(col_transpose_matrix(w)).to(x.device).float()
-    return torch.einsum("...v,jv->...j", rows.float(), m).to(torch.bfloat16)
+    (m,) = _device_tables(_col_matrix, w, x.device, torch.bfloat16)
+    return torch.einsum("...v,jv->...j", rows.float(), m.float()).to(torch.bfloat16)
 
 
 def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
@@ -200,8 +212,8 @@ def upsample2x_bwd_axis_plain(g: torch.Tensor, dim: int) -> torch.Tensor:
     odd_prev = torch.cat([odd.narrow(dim, 0, 1), odd.narrow(dim, 0, n - 1)], dim)
     shape = [1] * even.ndim
     shape[dim] = n
-    a0, a1, a2, a3 = (torch.from_numpy(a).to(g.device, g.dtype).reshape(shape)
-                      for a in transpose_weights(n))
+    a0, a1, a2, a3 = (t.reshape(shape)
+                      for t in _device_tables(transpose_weights, n, g.device, g.dtype))
     return a1 * even + a3 * even_next + a2 * odd + a0 * odd_prev
 
 

@@ -26,13 +26,21 @@ checkpoint to host memory at once and writes it with ``torch.save`` on one
 background thread, so the write overlaps the next epoch;
 :func:`wait_for_async_saves` waits for the writes and raises the first
 that failed. The resume scan and every read wait first, and ``train_net``
-waits before it returns. The JAX package's mid-epoch checkpoints are not
-ported.
+waits before it returns.
+
+The mid-epoch checkpoint ``CP_midepoch_{key}.pt`` (``input_pipeline:
+grain``) holds what a training checkpoint holds, and the input pipeline's
+``data_state`` (the iterator's ``{"next_index": k}``) and the epoch's
+``progress`` so far (``sum_loss``, ``num_examples``, ``steps``), so that a
+run resumed inside the epoch takes the batches and reports the loss the
+uninterrupted run would. It is written synchronously, atomically, by rank 0
+alone over a mesh.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import json
 import math
 import os
 from typing import Optional
@@ -47,9 +55,12 @@ __all__ = [
     "checkpoint_path",
     "find_resume_checkpoint",
     "load_calibrated_checkpoint",
+    "midepoch_checkpoint_path",
     "restore_checkpoint",
+    "restore_midepoch_checkpoint",
     "save_calibrated_checkpoint",
     "save_checkpoint",
+    "save_midepoch_checkpoint",
     "wait_for_async_saves",
 ]
 
@@ -76,6 +87,11 @@ def checkpoint_path(checkpoint_dir: str, epoch: int, config: dict) -> str:
 def calibrated_checkpoint_path(checkpoint_dir: str, config: dict) -> str:
     """Post-calibration artifact carrying λ̂: the serving entry point."""
     return os.path.join(checkpoint_dir, f"CP_calibrated_{checkpoint_key(config)}.pt")
+
+
+def midepoch_checkpoint_path(checkpoint_dir: str, config: dict) -> str:
+    """The rolling mid-epoch checkpoint of ``input_pipeline: grain``."""
+    return os.path.join(checkpoint_dir, f"CP_midepoch_{checkpoint_key(config)}.pt")
 
 
 def _cpu_state_dict(model: UQModel) -> dict:
@@ -163,6 +179,50 @@ def restore_checkpoint(
     optimizer.load_state_dict(payload["optimizer"])
     lhat = float(payload["lhat"])
     return (None if math.isnan(lhat) else lhat), int(payload["epoch"])
+
+
+def save_midepoch_checkpoint(
+    path: str,
+    uq_model: UQModel,
+    optimizer: torch.optim.Optimizer,
+    lhat: Optional[float],
+    epoch: int,
+    data_state: dict,
+    progress: dict,
+) -> None:
+    """Write a mid-epoch checkpoint: the training checkpoint's contents, the
+    iterator's JSON-able ``data_state`` and the epoch's ``progress``
+    (``sum_loss``, ``num_examples``, ``steps``)."""
+    _write(
+        {
+            "state_dict": _cpu_state_dict(uq_model),
+            "optimizer": optimizer.state_dict(),
+            "lhat": math.nan if lhat is None else float(lhat),
+            "epoch": int(epoch),
+            "data_state": json.dumps(data_state),
+            "progress": json.dumps(progress),
+        },
+        path,
+    )
+
+
+def restore_midepoch_checkpoint(
+    path: str, uq_model: UQModel, optimizer: torch.optim.Optimizer, epochs: tuple[int, int],
+) -> Optional[tuple[Optional[float], int, dict, dict]]:
+    """Load a mid-epoch checkpoint whose epoch lies in ``[epochs[0],
+    epochs[1])`` into ``uq_model`` (strict) and ``optimizer`` in place →
+    (λ̂ or None, epoch, data_state, progress); outside that range, load
+    nothing and return None."""
+    wait_for_async_saves()
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    epoch = int(payload["epoch"])
+    if not epochs[0] <= epoch < epochs[1]:
+        return None
+    uq_model.load_state_dict(payload["state_dict"], strict=True)
+    optimizer.load_state_dict(payload["optimizer"])
+    lhat = float(payload["lhat"])
+    return ((None if math.isnan(lhat) else lhat), epoch, json.loads(payload["data_state"]),
+            json.loads(payload["progress"]))
 
 
 def find_resume_checkpoint(

@@ -53,15 +53,30 @@ checkpoint on a background thread from a CPU copy taken at save time
 (``training/checkpoint.py``); ``train_net`` waits for it before it
 returns.
 
+``input_pipeline: grain`` (any other value is the threaded loader, as in
+the JAX package) takes each epoch's batches from
+``data/grain_pipeline.CheckpointableBatchIterator`` (grain's order, seed
+``seed + 1000·epoch + 1``, a map-style dataset only; ``loader_procs`` is
+ignored). With it, ``checkpoint_every_steps: N`` writes the mid-epoch
+checkpoint every N steps of an epoch, and ``graceful_shutdown`` saves the
+same file at the next step and raises :class:`PreemptionInterrupt`; a resume
+continues inside the epoch from that file when it is ahead of the newest
+epoch checkpoint, and the file is removed when its epoch completes. The
+epoch's loss is then summed one step at a time in float64, so a resumed run
+reports the uninterrupted run's ``train_loss`` bit for bit.
+
+:func:`make_train_multistep` runs N steps of the train step on one batch
+that stays on the device, in one host dispatch: a CUDA graph on the card.
+
 Unlike the JAX engine, which returns new arrays, training updates the
 caller's model in place: the returned ``UQState`` holds the same module.
-Not ported, and refused when asked for: ``input_pipeline: grain`` (and its
-mid-epoch checkpoints), ``precompile_calibration`` and
-``make_train_multistep``.
+Not ported, and refused when asked for: ``precompile_calibration``, and
+``make_train_multistep`` over a mesh of several ranks.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import time
 from typing import Callable, Optional
@@ -70,6 +85,7 @@ import numpy as np
 import torch
 
 from im2im_uq_tpu_torch.data.core import ProcessPoolFetcher, iterate_batches
+from im2im_uq_tpu_torch.data.grain_pipeline import CheckpointableBatchIterator
 from im2im_uq_tpu_torch.models.assembly import UQModel, UQState, nchw_from_nhwc
 from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
 from im2im_uq_tpu_torch.models.unet import global_batch
@@ -82,6 +98,7 @@ __all__ = [
     "PreemptionInterrupt",
     "eval_net",
     "make_eval_loss_step",
+    "make_train_multistep",
     "make_train_step",
     "put_batch",
     "train_net",
@@ -96,9 +113,10 @@ class PreemptionInterrupt(RuntimeError):
     """Raised after a graceful signal-triggered checkpoint save.
 
     ``graceful_shutdown: true`` and a ``checkpoint_dir`` turn SIGTERM/SIGINT
-    into a save at the end of the current epoch and this exception; resume
-    with ``load_from_checkpoint: true``. The saved path is carried on
-    ``.checkpoint_path``.
+    into a save and this exception: at the next step with
+    ``input_pipeline: grain`` (the mid-epoch checkpoint), at the end of the
+    current epoch otherwise; resume with ``load_from_checkpoint: true``.
+    The saved path is carried on ``.checkpoint_path``.
     """
 
     def __init__(self, checkpoint_path: str):
@@ -221,6 +239,104 @@ def make_train_step(
     return train_step
 
 
+def _state_tensors(model: UQModel, optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """Every parameter, buffer and optimizer state tensor."""
+    return [*model.parameters(), *model.buffers(),
+            *(v for st in optimizer.state.values() for v in st.values()
+              if isinstance(v, torch.Tensor))]
+
+
+def make_train_multistep(
+    model: UQModel,
+    loss_pe_fn: Callable,
+    hyper: dict,
+    optimizer: torch.optim.Optimizer,
+    num_steps: int,
+    mesh: Optional[Mesh] = None,
+    preprocess: Optional[Callable] = None,
+    preprocess_pair: Optional[Callable] = None,
+):
+    """``num_steps`` train steps on one batch that stays on the device, in one
+    host dispatch: (x, y, mask) → the last step's loss (float32). The
+    counterpart of the JAX ``make_train_multistep`` (its ``fori_loop`` over
+    ``make_train_step``'s body); each step is :func:`make_train_step`'s
+    (without ``watch_gradients``' norms, as the JAX loop drops them).
+
+    On the card, the first call captures the ``num_steps`` steps in one
+    ``torch.cuda.CUDAGraph`` over static copies of x, y and mask, then every
+    call copies its batch in and replays the graph once: one host dispatch
+    for the N steps, whose launches are N times the step's. Before the
+    capture one warm-up step runs on a side stream (it allocates the
+    optimizer's state and the libraries' workspaces); the parameters,
+    buffers and optimizer state are then put back as they were, so the
+    warm-up does not advance the model. The optimizer must be built with
+    ``capturable=True`` (Adam then keeps its step count and bias correction
+    on the device); a graph that does not capture raises. Every later call
+    needs x, y and mask of the first call's shapes and dtypes.
+
+    On the CPU: a plain loop of the same step. Over a mesh of several ranks
+    (NCCL inside a graph) it is not yet ported and raises.
+    """
+    if mesh_lib.spans(mesh):
+        raise NotImplementedError(
+            "make_train_multistep over a mesh of several ranks is not yet ported"
+        )
+    if num_steps < 1:
+        raise ValueError("num_steps must be at least 1")
+    hyper = {k: v for k, v in hyper.items() if k != "watch_gradients"}
+    step = make_train_step(model, loss_pe_fn, hyper, optimizer, None, preprocess,
+                           preprocess_pair)
+    device = next(model.parameters()).device
+
+    if device.type != "cuda":
+        def loop(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+            loss = None
+            for _ in range(num_steps):
+                loss = step(x, y, mask)
+            return loss.float()
+
+        return loop
+
+    if not all(g.get("capturable", False) for g in optimizer.param_groups):
+        raise ValueError("make_train_multistep on CUDA needs an optimizer built with "
+                         "capturable=True")
+    graph: dict = {}
+
+    def capture(x, y, mask):
+        static = [t.detach().clone() for t in (x, y, mask)]
+        saved = {id(t): t.detach().clone() for t in _state_tensors(model, optimizer)}
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step(*static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t in _state_tensors(model, optimizer):
+                if id(t) in saved:
+                    t.copy_(saved[id(t)])
+                else:
+                    t.zero_()  # state the warm-up created: a fresh Adam's
+        optimizer.zero_grad(set_to_none=True)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(num_steps):
+                loss = step(*static)
+        graph.update(graph=g, static=static, loss=loss)
+
+    def multistep(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not graph:
+            capture(x, y, mask)
+        for dst, src in zip(graph["static"], (x, y, mask)):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"the graph was captured for {tuple(dst.shape)} {dst.dtype}, "
+                                 f"not {tuple(src.shape)} {src.dtype}")
+            dst.copy_(src)
+        graph["graph"].replay()
+        return graph["loss"].float().clone()
+
+    return multistep
+
+
 def make_eval_loss_step(model: UQModel, loss_pe_fn: Callable, hyper: dict,
                         mesh: Optional[Mesh] = None, preprocess: Optional[Callable] = None,
                         preprocess_pair: Optional[Callable] = None):
@@ -267,25 +383,34 @@ def eval_net(
 
 def _refuse_unported(config: dict, mesh) -> None:
     mesh_lib.check_mesh(mesh)
-    if config.get("input_pipeline", "threaded") != "threaded":
-        raise NotImplementedError(
-            f"input_pipeline {config['input_pipeline']!r} is not yet ported"
-        )
     if config.get("precompile_calibration"):
         raise NotImplementedError("precompile_calibration is not yet ported")
 
 
+def _map_style(dataset) -> bool:
+    return hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__")
+
+
 def _fetcher(config: dict, train_dataset) -> Optional[ProcessPoolFetcher]:
-    """``loader_procs``: one pool of worker processes for the whole run."""
-    if not config.get("loader_procs"):
+    """``loader_procs``: one pool of worker processes for the whole run
+    (not under ``input_pipeline: grain``, as in the JAX package)."""
+    if not config.get("loader_procs") or config.get("input_pipeline") == "grain":
         return None
-    if not (hasattr(train_dataset, "__len__") and hasattr(train_dataset, "__getitem__")):
+    if not _map_style(train_dataset):
         raise ValueError(
             "loader_procs requires a map-style dataset (__len__ + "
             "__getitem__); iterable streams (e.g. TEMCA) fetch "
             "sequentially on the producer thread."
         )
     return ProcessPoolFetcher(train_dataset, int(config["loader_procs"]))
+
+
+def _fold_losses(carried: float, losses: list[torch.Tensor]) -> float:
+    """``carried`` plus each step's loss, one at a time in float64: the same
+    sum wherever an epoch was checkpointed and resumed."""
+    for v in (torch.stack(losses).tolist() if losses else []):
+        carried += v
+    return carried
 
 
 def _optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
@@ -323,6 +448,13 @@ def train_net(
     validation steps (module docstring)."""
     config = dict(config or uq_state.params)
     _refuse_unported(config, mesh)
+    use_grain = config.get("input_pipeline", "threaded") == "grain"
+    if use_grain and not _map_style(train_dataset):
+        raise ValueError(
+            "input_pipeline: grain requires a map-style dataset (__len__ + "
+            "__getitem__); iterable streams (e.g. TEMCA) use the default "
+            "threaded pipeline."
+        )
     if mesh is not None and not mesh.is_main:
         logger = None  # rank 0 writes the records
     logger = logger or MetricsLogger(None)
@@ -340,6 +472,19 @@ def train_net(
             print(f"Resumed from checkpoint {path} (epoch {start}).")
             if start >= epochs:
                 return uq_state.replace(lhat=lhat)
+
+    # the mid-epoch checkpoint (grain only): resume inside a preempted epoch
+    # when it is further along than the newest epoch checkpoint
+    resume = None
+    if load_from_checkpoint and checkpoint_dir and use_grain:
+        mp = ckpt.midepoch_checkpoint_path(checkpoint_dir, config)
+        if os.path.exists(mp):
+            resume = ckpt.restore_midepoch_checkpoint(mp, model, optimizer,
+                                                      (starting_epoch, epochs))
+            if resume is not None:
+                lhat, starting_epoch = resume[0], resume[1]
+                print(f"Resumed mid-epoch from {mp} "
+                      f"(epoch {starting_epoch}, step {resume[3].get('steps', '?')}).")
 
     # every rank starts from rank 0's weights and statistics
     mesh_lib.replicate_tree(mesh, model)
@@ -374,6 +519,7 @@ def train_net(
             starting_epoch, epochs, batch_size, seed, checkpoint_dir,
             checkpoint_every, validate_every, config, logger, validation_hook,
             train_step, eval_step, stop_signal, mesh, fetcher, preprocess is not None,
+            resume, bool(restore_handlers),
         )
     finally:
         for s, old in restore_handlers:
@@ -389,20 +535,35 @@ def _run_epochs(
     uq_state, model, optimizer, lhat, train_dataset, val_dataset,
     starting_epoch, epochs, batch_size, seed, checkpoint_dir,
     checkpoint_every, validate_every, config, logger, validation_hook,
-    train_step, eval_step, stop_signal, mesh, fetcher, raw_input,
+    train_step, eval_step, stop_signal, mesh, fetcher, raw_input, resume, guarded,
 ):
-    """The epoch loop of :func:`train_net`; returns λ̂."""
+    """The epoch loop of :func:`train_net`; returns λ̂. ``resume``: what
+    ``restore_midepoch_checkpoint`` gave, or None; ``guarded``: the stop
+    signal's handlers are installed."""
     device = uq_state.device
     writes = mesh is None or mesh.is_main
     async_save = bool(config.get("async_checkpoint", False))
+    use_grain = config.get("input_pipeline", "threaded") == "grain"
+    ckpt_steps = int(config.get("checkpoint_every_steps") or 0)
     global_step = _optimizer_steps(optimizer)
     for epoch in range(starting_epoch, epochs):
-        batches = iterate_batches(
-            train_dataset, batch_size, shuffle=True,
-            rng=np.random.RandomState(seed + 1000 * epoch + 1), pad_mode="wrap",
-            fetcher=fetcher,
-        )
-        losses, num_examples, grad_norms = [], 0, None
+        epoch_seed = seed + 1000 * epoch + 1
+        carried_loss, num_examples, steps_in_epoch = 0.0, 0, 0
+        if use_grain:
+            batches = CheckpointableBatchIterator(train_dataset, batch_size, shuffle=True,
+                                                  seed=epoch_seed, pad_mode="wrap")
+            if resume is not None:
+                batches.set_state(resume[2])
+                carried_loss = float(resume[3].get("sum_loss", 0.0))
+                num_examples = int(resume[3].get("num_examples", 0))
+                steps_in_epoch = int(resume[3].get("steps", 0))
+        else:
+            batches = iterate_batches(
+                train_dataset, batch_size, shuffle=True,
+                rng=np.random.RandomState(epoch_seed), pad_mode="wrap", fetcher=fetcher,
+            )
+        resume = None
+        losses, grad_norms = [], None
         # where the epoch's wall time goes: the step call returns before the
         # device finishes, so queued work drains at the epoch-end loss fetch
         t_data = t_dispatch = 0.0
@@ -424,8 +585,35 @@ def _run_epochs(
             losses.append(out)
             num_examples += int(mask.sum())
             global_step += 1
+            steps_in_epoch += 1
+            if use_grain and checkpoint_dir:
+                stop = stop_signal["signum"] is not None
+                if guarded and mesh_lib.spans(mesh):
+                    stop = mesh.agree(stop)  # a signal to any rank stops them all
+                if stop or (ckpt_steps and steps_in_epoch % ckpt_steps == 0):
+                    # one save serves the periodic checkpoint and the stop
+                    carried_loss, losses = _fold_losses(carried_loss, losses), []
+                    mp = ckpt.midepoch_checkpoint_path(checkpoint_dir, config)
+                    if writes:
+                        ckpt.save_midepoch_checkpoint(
+                            mp, model, optimizer, lhat, epoch, batches.get_state(),
+                            {"sum_loss": carried_loss, "num_examples": num_examples,
+                             "steps": steps_in_epoch})
+                    if mesh_lib.spans(mesh):
+                        mesh.barrier()
+                    if stop:
+                        raise PreemptionInterrupt(mp)
+        if use_grain and checkpoint_dir and writes:
+            # the epoch completed: drop the mid-epoch file (gated like the
+            # save, which the stop writes without checkpoint_every_steps)
+            mp = ckpt.midepoch_checkpoint_path(checkpoint_dir, config)
+            if os.path.exists(mp):
+                os.remove(mp)
         t0 = time.perf_counter()
-        epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        if use_grain:
+            epoch_loss = _fold_losses(carried_loss, losses)
+        else:
+            epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0
         t_sync = time.perf_counter() - t0
         logger.log(
             {"epoch": epoch, "iter": global_step, "train_loss": epoch_loss / max(num_examples, 1)}

@@ -271,7 +271,9 @@ def test_profile_buckets_put_the_port_kernels_first():
     assert profile_step.bucket("sm90_xmma_fprop_implicit_gemm_f32f32") == "conv (cuDNN)"
     assert profile_step.bucket("void pointwise_mult_and_sum_complex<float2, 8, 4>") == "conv (cuDNN)"
     assert profile_step.bucket("cudnn::bn_fw_tr_1C11_kernel_NCHW") == "batchnorm (cuDNN / torch)"
-    assert profile_step._union_us([(0, 4), (2, 6), (8, 9), (8.5, 8.7)]) == 7
+    from im2im_uq_tpu_torch.utils import profiling
+
+    assert profiling.union_us([(0, 4), (2, 6), (8, 9), (8.5, 8.7)]) == 7
 
 
 def test_gemm_stem_source_cuts_only_the_stem_dispatch():

@@ -46,6 +46,7 @@ from im2im_uq_tpu.interop.torch_export import export_state_dict
 from im2im_uq_tpu.interop.torch_import import port_state_dict
 from im2im_uq_tpu.models import assembly as jasm
 from im2im_uq_tpu.parallel import mesh as jmesh
+from im2im_uq_tpu.scripts import plots as jplots
 from im2im_uq_tpu.utils import config as jconfig
 from im2im_uq_tpu.utils import logging as jlog
 from im2im_uq_tpu.utils import misc as jmisc
@@ -65,6 +66,8 @@ from im2im_uq_tpu_torch.data import volume_sampler as tsampler
 from im2im_uq_tpu_torch.interop.from_jax import state_dict_from_jax
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.parallel import mesh as tmesh
+from im2im_uq_tpu_torch.scripts import plots as tplots
+from im2im_uq_tpu_torch.scripts import router as trouter
 from im2im_uq_tpu_torch.utils import config as tconfig
 from im2im_uq_tpu_torch.utils import logging as tlog
 from im2im_uq_tpu_torch.utils import misc as tmisc
@@ -370,6 +373,72 @@ def test_misc_imports_matplotlib_only_to_plot():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     code = ("import sys, im2im_uq_tpu_torch.utils.misc as m; "
             "assert 'matplotlib' not in sys.modules, 'imported'; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _router_artifacts(tmp_path, torch_pickled: bool):
+    """A results pickle and a loss table as the port's router writes them
+    (``pickle.dump`` of numpy values under the JAX router's keys), or as the
+    reference writes them (``pickle.dump`` of torch tensors, the table by
+    ``torch.save``)."""
+    r = np.random.RandomState(3)
+    results = {"risk": 0.08, "sizes": r.rand(6), "spearman": 0.4,
+               "size-stratified risk": r.rand(4), "mse": 0.01,
+               "spatial_miscoverage": r.rand(8, 8), "lhat": 1.5,
+               "inputs": r.rand(2, 8, 8, 1), "gt": r.rand(2, 8, 8, 1),
+               "predictions": r.rand(2, 8, 8, 1), "lower_edge": r.rand(2, 8, 8, 1),
+               "upper_edge": 1 + r.rand(2, 8, 8, 1)}
+    table = (r.rand(40, 20) > np.linspace(0, 1, 20)).astype(np.float32)
+    cfg = {"output_dir": str(tmp_path), "dataset": "synthetic", "uncertainty_type": "quantiles",
+           "batch_size": 4, "lr": 1e-3, "input_normalization": "standard",
+           "output_normalization": "min-max"}
+    res_path, table_path = trouter.results_filename(cfg), trouter.loss_table_filename(cfg)
+    if torch_pickled:
+        results = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+                   for k, v in results.items()}
+        torch.save(torch.as_tensor(table), table_path)
+    with open(res_path, "wb") as fh:
+        pickle.dump(results, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    if not torch_pickled:
+        with open(table_path, "wb") as fh:
+            pickle.dump(table, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    return res_path, table_path
+
+
+@pytest.mark.parametrize("torch_pickled", [False, True])
+def test_plots_load_router_artifacts_as_the_jax_module(tmp_path, torch_pickled):
+    res_path, table_path = _router_artifacts(tmp_path, torch_pickled)
+    got, want = tplots.load_results(res_path), jplots.load_results(res_path)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+    table = tplots.load_loss_table(table_path)
+    np.testing.assert_array_equal(table, jplots.load_loss_table(table_path))
+    assert table.shape == (40, 20)
+
+
+def test_plots_risks_and_figures_match(tmp_path):
+    res_path, table_path = _router_artifacts(tmp_path, False)
+    table = tplots.load_loss_table(table_path)
+    got = tplots.compute_risks(table, 20, 0.1, 0.1, num_trials=5, rng=np.random.RandomState(4))
+    want = jplots.compute_risks(table, 20, 0.1, 0.1, num_trials=5, rng=np.random.RandomState(4))
+    np.testing.assert_array_equal(got, want)
+    out = tmp_path / "figures"
+    tplots.generate_plots(["a method"], [res_path], [table_path], outdir=str(out), prefix="t",
+                          num_trials=3)
+    for name in ("t-risks.pdf", "t-mse.pdf", "t-spearman.pdf", "t-sizes.pdf",
+                 "t-size-stratified-risk.pdf", "images/1/mixed_output.png",
+                 "spatial_miscoverage/t_spatial_miscoverage_a method.png"):
+        assert (out / name).stat().st_size > 0, name
+
+
+def test_plots_import_no_plotting_library():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = ("import sys, im2im_uq_tpu_torch.scripts.plots as p; "
+            "bad = [m for m in ('matplotlib', 'seaborn', 'pandas', 'PIL') if m in sys.modules]; "
+            "assert not bad, bad; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -495,21 +495,20 @@ class _SmallStream:
     [
         {"mesh": object()},
         {"preprocess": abs, "preprocess_pair": abs},
-        {"config": {"input_pipeline": "grain"}},
+        {"config": {"input_pipeline": "grain"}, "train": _SmallStream()},
         {"config": {"loader_procs": 2}, "train": _SmallStream()},
         {"config": {"precompile_calibration": True}},
     ],
 )
 def test_unported_training_options_raise(kw):
-    """The options that are not ported (``input_pipeline: grain``,
-    ``precompile_calibration``) raise; a mesh is ported
-    (``test_torch_port_parallel.py``), and anything but a
+    """The option that is not ported (``precompile_calibration``) raises; a
+    mesh is ported (``test_torch_port_parallel.py``), and anything but a
     ``parallel.mesh.Mesh`` or None in its place is a TypeError. The
-    on-device hooks and ``loader_procs`` are ported
-    (``test_torch_port_device_transforms.py``,
-    ``test_torch_port_data_extras.py``): what they still refuse raises the
-    JAX package's ValueError, both hooks at once, and worker processes for
-    a stream dataset."""
+    on-device hooks, ``loader_procs`` and ``input_pipeline: grain`` are
+    ported (``test_torch_port_device_transforms.py``,
+    ``test_torch_port_data_extras.py``, ``test_torch_port_grain.py``): what
+    they still refuse raises the JAX package's ValueError, both hooks at
+    once, and worker processes or grain for a stream dataset."""
     kw = dict(kw)
     mesh = kw.pop("mesh", None)
     train = kw.pop("train", _small_ds())
@@ -519,6 +518,8 @@ def test_unported_training_options_raise(kw):
         expected = pytest.raises(ValueError, match="pass preprocess OR preprocess_pair, not both")
     elif "loader_procs" in kw["config"]:
         expected = pytest.raises(ValueError, match="loader_procs requires a map-style dataset")
+    elif "input_pipeline" in kw["config"]:
+        expected = pytest.raises(ValueError, match="grain requires a map-style dataset")
     else:
         expected = pytest.raises(NotImplementedError, match="not yet ported")
     with expected:
