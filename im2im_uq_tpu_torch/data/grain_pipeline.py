@@ -51,6 +51,7 @@ Order = Callable[[int, int], np.ndarray]
 
 _M32 = 0xFFFFFFFF
 _MIN_BLOCK_BITS = 16
+_ROUNDS = 4  # the rounds grain's shuffle passes to index_shuffle
 
 
 def _seed_seq(seed: int, n: int) -> list[int]:
@@ -107,9 +108,9 @@ def shuffle_seed(seed: int) -> int:
     return int(np.random.SeedSequence([int(seed), 1]).generate_state(1, np.uint32)[0])
 
 
-def grain_order(n: int, seed: int, rounds: int = 4) -> np.ndarray:
+def grain_order(n: int, seed: int) -> np.ndarray:
     """Position → element of one epoch of ``n`` elements shuffled by grain's
-    ``index_shuffle(i, n - 1, seed, rounds)`` (``seed`` the shuffle's own,
+    ``index_shuffle(i, n - 1, seed, rounds=4)`` (``seed`` the shuffle's own,
     already derived: :func:`shuffle_seed`).
 
     The cipher is evaluated once over its whole block, then each position's
@@ -119,11 +120,9 @@ def grain_order(n: int, seed: int, rounds: int = 4) -> np.ndarray:
     jump of the value it reached, which doubles its reach each round."""
     if n <= 1:
         return np.zeros(n, np.int64)
-    if rounds < 4 or rounds % 2:
-        raise ValueError("rounds must be even and at least 4")
     bits = math.ceil(math.log2(n - 1))
     bits = max(bits + bits % 2, _MIN_BLOCK_BITS)
-    keys = _seed_seq(int(seed) & _M32, rounds)
+    keys = _seed_seq(int(seed) & _M32, _ROUNDS)
     jump = _simon_encrypt(np.arange(1 << bits, dtype=np.uint64), keys, bits // 2).astype(np.int64)
     done = jump < n
     todo = np.flatnonzero(~done)

@@ -610,10 +610,7 @@ def _run_epochs(
             if os.path.exists(mp):
                 os.remove(mp)
         t0 = time.perf_counter()
-        if use_grain:
-            epoch_loss = _fold_losses(carried_loss, losses)
-        else:
-            epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        epoch_loss = _fold_losses(carried_loss, losses)
         t_sync = time.perf_counter() - t0
         logger.log(
             {"epoch": epoch, "iter": global_step, "train_loss": epoch_loss / max(num_examples, 1)}
