@@ -21,6 +21,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import pytest
 import torch
 from torch import nn
 
@@ -57,6 +58,18 @@ CALIB = dict(UNET, rcps_loss="fraction_missed", alpha=0.2, delta=0.2, num_lambda
              minimum_lambda=0.0, maximum_lambda=3.0, batch_size=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for a test module, as the ranks use; a port test
+    module imports this fixture to apply it. The suite's xdist workers share
+    the cores, and torch's thread pool in each of them oversubscribes them
+    many times over (a grain test took 34x its single-process time so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TorchStandIn(nn.Module):
     """A head output (B, 3, C, H, W) that is an elementwise function of the
     input, bit for bit the JAX stand-in's of ``test_torch_port_router.py``;
@@ -70,6 +83,18 @@ class TorchStandIn(nn.Module):
         return torch.stack([x - torch.sqrt(x.abs() + 0.05), x, x + torch.sqrt(x.abs() + 0.1)], 1)
 
 
+_SAMPLED: dict = {}
+
+
+def _sampled_positions(n: int) -> torch.Tensor:
+    """SAMPLE sorted positions of n drawn from a generator seeded 0, made
+    once per n (a full permutation of a 2.4M-element weight takes 30 ms)."""
+    if n not in _SAMPLED:
+        idx = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+        _SAMPLED[n] = idx[:SAMPLE].sort().values
+    return _SAMPLED[n]
+
+
 def sample(tensors: dict) -> dict:
     """At most SAMPLE elements of each tensor, in f64, at positions drawn
     from a seeded generator (a stride could alias the 3x3 taps): what a
@@ -78,19 +103,22 @@ def sample(tensors: dict) -> dict:
     for k, t in tensors.items():
         flat = t.detach().double().flatten()
         if flat.numel() > SAMPLE:
-            idx = torch.randperm(flat.numel(), generator=torch.Generator().manual_seed(0))
-            flat = flat[idx[:SAMPLE].sort().values]
+            flat = flat[_sampled_positions(flat.numel())]
         out[k] = flat.clone()
     return out
 
 
 def replicas_equal(tensors: dict, mesh) -> bool:
-    """Whether every rank holds rank 0's tensors bit for bit."""
-    same = True
+    """Whether every rank holds rank 0's tensors bit for bit: each dtype's
+    tensors flattened into one, broadcast from rank 0 and compared."""
+    by_dtype: dict = {}
     for t in tensors.values():
-        t0 = t.detach().clone()
+        by_dtype.setdefault(t.dtype, []).append(t.detach().flatten())
+    same = True
+    for flat in (torch.cat(ts) for ts in by_dtype.values()):
+        t0 = flat.clone()
         mesh.broadcast_(t0)
-        same &= bool(torch.equal(t0, t.detach()))
+        same &= bool(torch.equal(t0, flat))
     return not mesh.agree(not same)
 
 
@@ -394,4 +422,8 @@ if __name__ == "__main__":
     name, tmp = sys.argv[1], Path(sys.argv[2])
     distributed.init_distributed(device="cpu", timeout=datetime.timedelta(seconds=90))
     mesh = mesh_lib.data_parallel_mesh("cpu")
-    torch.save(WORKERS[name](mesh, tmp), tmp / f"{name}_rank{mesh.rank}.pt")
+    result = WORKERS[name](mesh, tmp)
+    # the monotonic clock is the machine's, so the test reads the rank's
+    # wall time against the moment it started the ranks
+    result["finished_at"] = time.monotonic()
+    torch.save(result, tmp / f"{name}_rank{mesh.rank}.pt")

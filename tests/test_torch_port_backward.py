@@ -33,6 +33,7 @@ from im2im_uq_tpu.ops import resize as jresize
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.ops import pool as tpool
 from im2im_uq_tpu_torch.ops import upsample as tup
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = {"model": "UNet", "uncertainty_type": "quantiles"}
 

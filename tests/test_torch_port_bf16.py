@@ -87,20 +87,9 @@ from im2im_uq_tpu_torch.ops import conv_probe as tprobe
 from im2im_uq_tpu_torch.ops import pool as tpool
 from im2im_uq_tpu_torch.ops import upsample as tup
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module's small CPU steps: the suite runs
-    in parallel workers on the same cores, and torch's thread pool in each of
-    them oversubscribes the cores many times over (the remat module took 27× its
-    single-process time so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bf16_np(shape, seed: int, scale: float = 1.0) -> np.ndarray:

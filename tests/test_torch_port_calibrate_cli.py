@@ -46,6 +46,7 @@ from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.scripts import calibrate as tcal
 from im2im_uq_tpu_torch.scripts import sweep as tsweep
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 # tests/test_calibrate_cli.py's config, α and δ as there

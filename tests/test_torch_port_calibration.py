@@ -38,6 +38,7 @@ from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.parallel import distributed as tdistributed
 from im2im_uq_tpu_torch.scripts import infer as tinfer
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 CFG = dict(

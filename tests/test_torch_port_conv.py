@@ -35,6 +35,7 @@ from im2im_uq_tpu.ops import pallas_conv_bwd as jpcb
 
 from im2im_uq_tpu_torch.ops import conv as tconv
 from im2im_uq_tpu_torch.ops import conv_bwd as tbwd
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 2e-5
 GRAD_REL_L2 = 1e-4

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from im2im_uq_tpu_torch.ops import conv_bwd
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 SMEM_BLOCK, SMS = 232448, 132
 # (B, Cin, H, W, Cout) of the K5/K6 launches of the batch-32 320x320 UNet

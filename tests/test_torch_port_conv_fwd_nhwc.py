@@ -40,6 +40,7 @@ import torch
 import chip_smoke
 from im2im_uq_tpu_torch.ops import conv as tconv
 from im2im_uq_tpu_torch.ops import conv_bwd
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 SMEM_BLOCK, SMS = 232448, 132

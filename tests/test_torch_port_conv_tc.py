@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from chip_smoke import CONV_TOL, PEAK_BYTES_PER_S, SUM_TOL, conv_bound
 from im2im_uq_tpu_torch.ops import conv, conv_bwd
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 B, C, S = 2, 64, 16
 # K3/K4's case: K = 9 * 512, the depth of the UNet's deepest convs

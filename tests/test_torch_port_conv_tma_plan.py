@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from im2im_uq_tpu_torch.ops import conv_probe
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 SMEM_BLOCK = 232448
 

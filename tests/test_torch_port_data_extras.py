@@ -31,6 +31,7 @@ from im2im_uq_tpu_torch.data.synthetic import SyntheticDataset
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = dict(DEFAULTS, model="UNet", uncertainty_type="quantiles", dataset="synthetic",
            batch_size=4, lr=1e-3, input_normalization="standard",

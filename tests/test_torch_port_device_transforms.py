@@ -48,6 +48,7 @@ from im2im_uq_tpu_torch.interop.from_jax import load_jax_variables
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.full  # compiles two JAX train steps
 

@@ -38,6 +38,7 @@ from im2im_uq_tpu.training import checkpoint as jckpt
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.scripts import export_torch, import_torch
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = {"model": "UNet", "uncertainty_type": "quantiles", "q_lo": 0.05, "q_hi": 0.95,
        "q_lo_weight": 1.0, "q_hi_weight": 1.0, "mse_weight": 1.0, "dataset": "synthetic",

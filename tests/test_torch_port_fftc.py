@@ -24,6 +24,7 @@ from im2im_uq_tpu_torch.data.subsample import create_mask_for_mask_type
 from im2im_uq_tpu_torch.data.transforms import UnetDataTransform, apply_mask, to_real_pair
 from im2im_uq_tpu_torch.ops import fftc as tfftc
 from im2im_uq_tpu_torch.ops import mri_pipeline as tmri
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -61,6 +61,7 @@ from im2im_uq_tpu_torch.models.unet import DoubleConv
 from im2im_uq_tpu_torch.ops import conv as tconv
 from im2im_uq_tpu_torch.ops import conv_bwd as tbwd
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = dict(
     DEFAULTS, model="UNet", uncertainty_type="quantiles", resize_backend="xla",

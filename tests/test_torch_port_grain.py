@@ -50,6 +50,7 @@ from im2im_uq_tpu_torch.interop.from_jax import load_jax_variables  # noqa: E402
 from im2im_uq_tpu_torch.models import assembly as tasm  # noqa: E402
 from im2im_uq_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from im2im_uq_tpu_torch.training import train as ttrain  # noqa: E402
+from _torch_port_ranks import one_intra_op_thread  # noqa: E402,F401  (autouse)
 
 
 @pytest.fixture

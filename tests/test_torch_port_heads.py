@@ -67,6 +67,7 @@ from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.ops import sets as tsets
 from im2im_uq_tpu_torch.scripts import router as trouter
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 HEADS = ("gaussian", "residual_magnitude", "residual_magnitude_l1", "softmax")
 CFG = dict(DEFAULTS, model="UNet", resize_backend="xla", lane_pack=False, dataset="synthetic",

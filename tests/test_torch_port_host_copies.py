@@ -71,6 +71,7 @@ from im2im_uq_tpu_torch.scripts import router as trouter
 from im2im_uq_tpu_torch.utils import config as tconfig
 from im2im_uq_tpu_torch.utils import logging as tlog
 from im2im_uq_tpu_torch.utils import misc as tmisc
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 EXPERIMENT_CONFIGS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("experiments/**/*.yml"))

@@ -19,6 +19,7 @@ import sys
 from pathlib import Path
 
 import im2im_uq_tpu_torch
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -34,6 +34,7 @@ from im2im_uq_tpu.ops import sets as jsets
 from im2im_uq_tpu.ops.pallas_kernels import loss_table_pallas
 
 from im2im_uq_tpu_torch.ops import loss_table as tloss
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 EPS = np.float32(1e-6)  # COLLAPSE_EPS
 INF = np.float32(np.inf)

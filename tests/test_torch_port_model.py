@@ -24,6 +24,7 @@ from im2im_uq_tpu.models import assembly as jasm
 
 from im2im_uq_tpu_torch.interop.from_jax import load_jax_variables
 from im2im_uq_tpu_torch.models import assembly as tasm
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 CFG = {"model": "UNet", "uncertainty_type": "quantiles", "resize_backend": "xla"}

@@ -70,6 +70,7 @@ from im2im_uq_tpu_torch.training import multiseed
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_port_ranks as ranks  # noqa: E402
+from _torch_port_ranks import one_intra_op_thread  # noqa: E402,F401  (autouse)
 
 pytestmark = pytest.mark.full  # spawns interpreters, compiles JAX programs
 

@@ -42,6 +42,7 @@ from im2im_uq_tpu.utils.config import DEFAULTS
 from im2im_uq_tpu_torch.calibration import rcps as trcps
 from im2im_uq_tpu_torch.parallel import distributed as tdist
 from im2im_uq_tpu_torch.scripts import router as trouter
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.full  # spawns interpreters
 

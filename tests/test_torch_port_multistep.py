@@ -41,6 +41,7 @@ from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.parallel.mesh import Mesh
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = {"model": "UNet", "uncertainty_type": "quantiles", "q_lo": 0.05, "q_hi": 0.95,
        "q_lo_weight": 1.0, "q_hi_weight": 1.0, "mse_weight": 1.0, "resize_backend": "xla",

@@ -2,9 +2,11 @@
 process and against the JAX package's 2-device mesh.
 
 Two OS processes, ranks of one gloo group on a free localhost port
-(``_torch_port_ranks.run_ranks``, at most 120 s, children killed on a
-timeout), run the port's entry points over a ``parallel.mesh.Mesh`` on their
-shards; this process runs the same calls without a mesh, and the JAX
+(``_torch_port_ranks.start_ranks`` / ``wait_ranks``, at most 120 s,
+children killed on a timeout), run the port's entry points over a
+``parallel.mesh.Mesh`` on their shards; this process runs the same calls
+without a mesh while they run (each process on one intra-op thread), and
+the JAX
 package's ``make_train_step(..., mesh=data_parallel_mesh(2))`` and
 ``compute_risks_device`` on two of the 8 virtual CPU devices. The UNet is
 the full-width one at 16x16 with the JAX package's init
@@ -72,6 +74,7 @@ import math
 import os
 import re
 import sys
+import time
 from pathlib import Path
 
 import flax.linen as fnn
@@ -98,21 +101,12 @@ from im2im_uq_tpu_torch.scripts import infer as tinfer
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_port_ranks as ranks  # noqa: E402
+from _torch_port_ranks import one_intra_op_thread  # noqa: E402,F401  (autouse)
 
 pytestmark = pytest.mark.full  # spawns interpreters, compiles the JAX steps
 
 F32_CASES = ["xla", "pallas", "pallas_fused"]
 F64_CASES = ["xla_f64", "pallas_fused_f64", "xla_f64_remat_conv", "pallas_fused_f64_remat_full"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread, as the ranks use: the suite's workers share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch():
@@ -169,18 +163,27 @@ def dp(tmp_path_factory):
     batch = _batch()
     torch.save({"weights": weights, "batch": batch, "kspace_batch": _kspace_batch()},
                tmp / "inputs.pt")
-    got = ranks.run_ranks("all", tmp)
-    one = {case: ranks.train_step_once(weights, dict(ranks.UNET, **extra), dtype, batch, None)
-           for case, (extra, dtype) in ranks.TRAIN_CASES.items() if "remat" not in case}
-    one[ranks.KSPACE_CASE] = ranks.train_step_once(weights, ranks.UNET, torch.float64,
-                                                   _kspace_batch(), None,
-                                                   ranks.kspace_preprocess())
-    with jax.enable_x64(True):
-        jax64 = _jax_step(jstate.model, cfg, variables, batch, jnp.float64)
-    bf16 = dict(cfg, compute_dtype="bfloat16")
-    jbf16 = _jax_step(_jax_model(bf16).model, bf16, variables, batch, jnp.float32)
-    return {"ranks": got, "one": one, "jax64": jax64, "jbf16": jbf16, "weights": weights,
-            "tmp": tmp}
+    # the one-process references and the JAX steps are computed while the
+    # ranks run
+    started = time.monotonic()
+    procs = ranks.start_ranks("all", tmp)
+    try:
+        one = {case: ranks.train_step_once(weights, dict(ranks.UNET, **extra), dtype, batch,
+                                           None)
+               for case, (extra, dtype) in ranks.TRAIN_CASES.items() if "remat" not in case}
+        one[ranks.KSPACE_CASE] = ranks.train_step_once(weights, ranks.UNET, torch.float64,
+                                                       _kspace_batch(), None,
+                                                       ranks.kspace_preprocess())
+        one_calibration = ranks.calibration_results(weights, None)
+        with jax.enable_x64(True):
+            jax64 = _jax_step(jstate.model, cfg, variables, batch, jnp.float64)
+        bf16 = dict(cfg, compute_dtype="bfloat16")
+        jbf16 = _jax_step(_jax_model(bf16).model, bf16, variables, batch, jnp.float32)
+    finally:
+        got = ranks.wait_ranks(procs, "all", tmp)
+    return {"ranks": got, "one": one, "one_calibration": one_calibration, "jax64": jax64,
+            "jbf16": jbf16, "weights": weights, "tmp": tmp,
+            "rank_seconds": max(r["finished_at"] for r in got) - started}
 
 
 def _feeds_batchnorm(name: str) -> bool:
@@ -211,7 +214,9 @@ def _params(state: dict) -> dict:
 
 
 @pytest.mark.parametrize("case", list(ranks.TRAIN_CASES) + [ranks.KSPACE_CASE])
-def test_ranks_hold_identical_replicas(dp, case):
+def test_ranks_hold_identical_replicas(dp, case, record_property):
+    # the rank run's wall time, for the junit report: its limit is 120 s
+    record_property("rank_seconds", dp["rank_seconds"])
     r0, r1 = dp["ranks"][0]["train"][case], dp["ranks"][1]["train"][case]
     assert r0["replicas_equal"] and r1["replicas_equal"]
     assert r0["loss"] == r1["loss"]
@@ -287,7 +292,7 @@ def test_bf16_step_is_no_farther_from_f64_than_the_reference(dp, case, ref):
 
 @pytest.fixture(scope="module")
 def one_calibration(dp):
-    return ranks.calibration_results(dp["weights"], None)
+    return dp["one_calibration"]
 
 
 @pytest.mark.parametrize("model", ["standin", "unet"])

@@ -39,6 +39,7 @@ import torch
 from im2im_uq_tpu_torch.ops import conv_probe, moments
 from im2im_uq_tpu_torch.scripts import bench_conv3x3, bench_moments
 from im2im_uq_tpu_torch.utils.timing import time_ms
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 BENCHMARKS = Path(__file__).resolve().parent.parent / "benchmarks"
 MEAN_ATOL, VAR_TOL = 1e-5, 1e-4

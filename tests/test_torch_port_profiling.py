@@ -21,6 +21,7 @@ from im2im_uq_tpu.utils import profiling as jprof
 
 from im2im_uq_tpu_torch.scripts import profile_step
 from im2im_uq_tpu_torch.utils import profiling
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def test_readers_return_none_without_a_trace(tmp_path):

@@ -43,6 +43,7 @@ from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.models import unet as tunet
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = dict(
     DEFAULTS, model="UNet", uncertainty_type="quantiles", resize_backend="xla",
@@ -50,18 +51,6 @@ CFG = dict(
 )
 MODES = ["full", "conv", "bn"]
 BACKENDS = ["xla", "pallas", "pallas_fused"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module's small CPU steps: the suite runs
-    in parallel workers on the same cores, and torch's thread pool in each of
-    them oversubscribes the cores many times over (this module took 27×
-    its single-process time so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(side: int):

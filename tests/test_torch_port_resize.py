@@ -26,6 +26,7 @@ from im2im_uq_tpu.ops import resize as jresize
 
 from im2im_uq_tpu_torch.ops import resize as tresize
 from im2im_uq_tpu_torch.ops import upsample as tup
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _x(shape, seed=0) -> np.ndarray:

@@ -49,6 +49,7 @@ from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.models.resnet import ResNet18
 from im2im_uq_tpu_torch.models.unet import UNet as TUNet
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 HEAD = {"uncertainty_type": "quantiles", "q_lo": 0.05, "q_hi": 0.95, "q_lo_weight": 1.0,

@@ -50,6 +50,7 @@ from im2im_uq_tpu_torch.interop.from_jax import load_jax_variables
 from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.scripts import router as trouter
 from im2im_uq_tpu_torch.training import evaluate as tevaluate
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CONFIG = dict(
     DEFAULTS, dataset="synthetic", num_examples=16, image_size=32,

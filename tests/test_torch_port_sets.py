@@ -24,6 +24,7 @@ from im2im_uq_tpu.ops.pallas_kernels import loss_table_pallas
 
 from im2im_uq_tpu_torch.ops import loss_table as tloss
 from im2im_uq_tpu_torch.ops import sets as tsets
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 HEADS_K = {
     "quantiles": 3, "quantiles_l1": 3, "inn": 3,

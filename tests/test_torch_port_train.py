@@ -62,6 +62,7 @@ from im2im_uq_tpu_torch.scripts import router as trouter
 from im2im_uq_tpu_torch.training import checkpoint as tckpt
 from im2im_uq_tpu_torch.training import train as ttrain
 from im2im_uq_tpu_torch.utils.random import fix_randomness
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = dict(
     DEFAULTS, model="UNet", uncertainty_type="quantiles", resize_backend="xla",

@@ -24,6 +24,7 @@ import torch
 
 import chip_smoke
 from im2im_uq_tpu_torch.ops import upsample
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CSRC = Path(upsample.__file__).resolve().parent.parent / "csrc"
 # (h, w) of K1's planes: the decoder's, chip_smoke's odd shapes, H not

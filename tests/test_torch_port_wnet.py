@@ -50,6 +50,7 @@ from im2im_uq_tpu_torch.models import assembly as tasm
 from im2im_uq_tpu_torch.models import heads as theads
 from im2im_uq_tpu_torch.models.unet import DoubleConv, UpNoSkip, WNet
 from im2im_uq_tpu_torch.training import train as ttrain
+from _torch_port_ranks import one_intra_op_thread  # noqa: F401  (autouse)
 
 CFG = dict(DEFAULTS, model="WNet", uncertainty_type="quantiles", num_inputs=2,
            resize_backend="xla", dataset="synthetic", batch_size=2, lr=1e-3)
