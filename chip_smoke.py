@@ -238,7 +238,17 @@ Phases, one JSON line each on stdout:
               ``training/multiseed.py`` with two seeds a rank, one Adam
               step of batch 32 under ``pallas_fused`` f32 (multiseed: each
               replica against the one-process step of its seed on the same
-              card, launches equal to those steps'). Each line gives the
+              card, launches equal to those steps'). Last
+              ``make_train_multistep`` over the ranks (dp_multistep): over
+              NCCL the three configs of phase 25 at the global batch of 32,
+              each rank's 10 mesh steps captured as one CUDA graph with
+              their collectives, the replay bit for bit 10 eager mesh steps
+              on every rank and every rank the same bits, each port
+              kernel's launches in one replay 10 times an eager mesh
+              step's, ms a step eager and replayed and the peak memory of
+              each; over gloo (one card) the call must raise the
+              ValueError that names NCCL, and the line says that no graph
+              was captured and why. Each line gives the
               gap to one process, whether the bits match, and each rank's
               launches. ``python3 chip_smoke.py --dp-worker DIR`` is a rank;
               ``python3 chip_smoke.py --dp-only`` runs env, build and this
@@ -250,8 +260,8 @@ under the fused config, each head's, WNet's and the softmax router's, the
 bf16 paths, the remat steps, the calibrate CLI and the serving paths of
 the deploy phase, the data_device phase's raw train steps, calibration and
 train_net or router, and in each rank the dp phase's steps, calibration,
-``compute_risks_device``, serving, the artifact, each spatial case and the
-multi-seed step) and read just after it; the ``kernels`` line
+``compute_risks_device``, serving, the artifact, each spatial case, the
+multi-seed step and each multistep capture) and read just after it; the ``kernels`` line
 reports the sum over those paths. Any failure raises and the script exits
 non-zero. The line before the last is ``nvidia-smi``'s name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -3142,6 +3152,8 @@ DP_CPU_RTOL, DP_CPU_ATOL = 1e-4, 2e-6
 DP_TABLE_ATOL = 1e-6
 # how long the ranks may take, and a collective may wait, in seconds
 DP_TIMEOUT_S, DP_COLLECTIVE_S = 400, 300
+# the replays of MULTISTEP_N mesh steps timed in the dp phase's multistep
+DP_TIMED_REPLAYS = 3
 # the kernels each rank's DP step must launch under pallas_fused, beside
 # K1f, K1b and K7
 DP_FUSED_KERNELS = {"pallas_fused": ["conv3x3", "conv3x3_bn_act", "wgrad3x3", "dgrad3x3"],
@@ -3313,17 +3325,17 @@ def _port_buckets(kernels: list) -> collections.Counter:
                                if b.endswith("(port)"))
 
 
-def _profiled(fn, *args, sessions: int = MULTISTEP_SESSIONS) -> tuple:
+def _profiled(fn, *args, sessions: int = MULTISTEP_SESSIONS, device=DEVICE) -> tuple:
     """``fn(*args)`` once in each of ``sessions`` ``torch.profiler`` sessions
     → (the last result, the port's launches per bucket, the most of each
     over the sessions, and every session's). CUPTI drops a few kernel
     records at a session's ends (on the card: the first kernel or two of a
     session after an earlier one, or the last step of a replay), never adds
-    one, so each session pads the call with PROFILE_PAD small kernels and a
-    synchronized pause on both sides, and the most over the sessions is
-    the count."""
+    one, so each session pads the call with PROFILE_PAD small kernels on
+    ``device`` and a synchronized pause on both sides, and the most over
+    the sessions is the count."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    pad = torch.zeros(1, device=DEVICE)
+    pad = torch.zeros(1, device=device)
 
     def padding():
         for _ in range(PROFILE_PAD):
@@ -3723,6 +3735,8 @@ def dp_worker(tmp: Path) -> int:
     out["spatial"] = _dp_spatial(tmp, mesh)
     out["multiseed"] = _dp_multiseed(config, batch, mesh)
     count(out["multiseed"]["launches"])
+    out["multistep"] = _dp_multistep(config, batch, mesh)
+    count(out["multistep"]["launches"])
     for res in out["spatial"].values():
         count(res["launches"])
     out["launches"] = launches
@@ -3731,6 +3745,117 @@ def dp_worker(tmp: Path) -> int:
     mesh.barrier()
     torch.distributed.destroy_process_group()
     return 0
+
+
+def _same_on_every_rank(tensors: dict, mesh) -> bool:
+    """Whether every rank holds rank 0's ``tensors`` bit for bit (each
+    dtype's flattened into one and broadcast from rank 0)."""
+    by_dtype: dict = {}
+    for t in tensors.values():
+        by_dtype.setdefault(t.dtype, []).append(t.detach().flatten())
+    same = True
+    for flat in (torch.cat(ts) for ts in by_dtype.values()):
+        first = flat.clone()
+        mesh.broadcast_(first)
+        same &= bool(torch.equal(first, flat))
+    return not mesh.agree(not same)
+
+
+def _dp_multistep(config: dict, batch: tuple, mesh) -> dict:
+    """dp_multistep: ``make_train_multistep`` over the mesh. Over NCCL, each
+    MULTISTEP_CONFIGS config as ``phase_multistep`` runs it, with this
+    rank's slice of the global batch and deterministic cuDNN: the replay's
+    final state and last loss against MULTISTEP_N eager capturable mesh
+    steps from the same start, whether every rank holds the same bits, the
+    port's launches in one replay and in one eager step (``_profiled``), ms
+    a step eager and replayed, peak memory (the capture with its first
+    replay, and the eager steps). Over gloo (two ranks on one card) the
+    call must raise the ValueError that names NCCL: no graph is captured.
+    → results, with the capture's launches."""
+    backend = torch.distributed.get_backend(mesh.group)
+    out = {"backend": backend, "configs": {}, "launches": {k: 0 for k in KERNELS}}
+    if backend != "nccl":
+        cfg = dict(config, **MULTISTEP_CONFIGS[0][1])
+        st = add_uncertainty(build_trunk(cfg), cfg, device=mesh.device)
+        opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"], capturable=True)
+        try:
+            train.make_train_multistep(st.model, head_loss_pe_fn(st.uncertainty_type), cfg, opt,
+                                       MULTISTEP_N, mesh)
+            out["refusal"] = None
+        except ValueError as exc:
+            out["refusal"] = str(exc)
+        return out
+    tensors = train.put_batch(*mesh_lib.put_batch(mesh, *batch), mesh.device)
+    for tag, over in MULTISTEP_CONFIGS:
+        _release(mesh)
+        cfg = dict(config, **over)
+        st = add_uncertainty(build_trunk(cfg), cfg, device=mesh.device,
+                             generator=torch.Generator(device=mesh.device).manual_seed(23))
+        mesh_lib.replicate_tree(mesh, st.model)
+        init = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        loss_fn = head_loss_pe_fn(st.uncertainty_type)
+        with deterministic_cudnn():
+            opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"], capturable=True)
+            multistep = train.make_train_multistep(st.model, loss_fn, cfg, opt, MULTISTEP_N,
+                                                   mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            graph_loss = multistep(*tensors)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            peak_mib = torch.cuda.max_memory_allocated() / 2**20
+            counts = read_counts()
+            graph_state = _train_state(st.model, opt)
+            graph_state["last_loss"] = graph_loss
+            replicas_equal = _same_on_every_rank(graph_state, mesh)
+            _, graph_counts, graph_sessions = _profiled(multistep, *tensors,
+                                                        device=mesh.device)
+            # the ranks start the timed replays together: a replay's first
+            # collective waits for the last rank to arrive
+            mesh.barrier()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(DP_TIMED_REPLAYS + 1)]
+            events[0].record()
+            for e in events[1:]:
+                multistep(*tensors)
+                e.record()
+            events[-1].synchronize()
+            graph_ms = [a.elapsed_time(b) / MULTISTEP_N for a, b in zip(events, events[1:])]
+            del multistep, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            st.model.load_state_dict(init)
+            opt = torch.optim.Adam(st.model.parameters(), lr=cfg["lr"], capturable=True)
+            step = train.make_train_step(st.model, loss_fn, cfg, opt, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, eager_counts, eager_sessions = _profiled(step, *tensors, device=mesh.device)
+            mesh.barrier()
+            losses, eager_ms = timed_steps(step, tensors, MULTISTEP_N - MULTISTEP_SESSIONS)
+            eager_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+            eager_state = _train_state(st.model, opt)
+            eager_state["last_loss"] = torch.tensor(losses[-1], dtype=torch.float32,
+                                                    device=mesh.device)
+            same = (set(graph_state) == set(eager_state)
+                    and all(torch.equal(graph_state[k], eager_state[k]) for k in eager_state))
+            diff, worst = (0.0, "") if same else _largest_diff(graph_state, eager_state)
+        out["configs"][tag] = {
+            "bit_identical": same, "max_abs_diff": diff, "worst": worst,
+            "replicas_equal": replicas_equal, "last_loss": float(graph_loss),
+            "eager_last_loss": losses[-1], "capture_s": capture_s, "peak_mib": peak_mib,
+            "eager_peak_mib": eager_peak_mib, "graph_ms": graph_ms, "eager_ms": eager_ms,
+            "eager_launches": dict(eager_counts), "replay_launches": dict(graph_counts),
+            "eager_sessions": eager_sessions, "replay_sessions": graph_sessions,
+            "captured_counts": _nonzero(counts),
+        }
+        for name in KERNELS:
+            out["launches"][name] += counts[name]
+        del st, opt, step
+    del tensors
+    _release(mesh)
+    return out
 
 
 def dp_ranks() -> int:
@@ -4046,6 +4171,58 @@ def _check_multiseed(ranks: list, smi: str) -> None:
                          + DP_FUSED_KERNELS["pallas_fused"])
 
 
+def _check_dp_multistep(ranks: list, smi: str) -> None:
+    """The dp_multistep lines and checks: over NCCL each config's replay bit
+    for bit its eager mesh steps on every rank, the same bits on every
+    rank, each port kernel MULTISTEP_N times an eager step's launches in
+    one replay; over gloo the NCCL refusal on every rank."""
+    ms = [r["multistep"] for r in ranks]
+    if ms[0]["backend"] != "nccl":
+        emit("dp_multistep", ranks=len(ranks), backend=ms[0]["backend"], captured=False,
+             reason="the ranks share one card over gloo, whose collectives on CUDA tensors go "
+                    "through the host and cannot be captured in a CUDA graph; "
+                    "make_train_multistep refuses it",
+             refusal=[m["refusal"] for m in ms], card=smi)
+        if any(m["refusal"] is None or "NCCL" not in m["refusal"] for m in ms):
+            raise AssertionError(f"dp_multistep: gloo ranks on CUDA were not refused: {ms}")
+        return
+    for tag, over in MULTISTEP_CONFIGS:
+        per = [m["configs"][tag] for m in ms]
+        res = per[0]
+        emit("dp_multistep", config=tag, ranks=len(ranks), backend=ms[0]["backend"],
+             captured=True, steps=MULTISTEP_N, global_batch=CONFIG["batch_size"], image=IMAGE,
+             eager_ms=_spread(res["eager_ms"]), graph_ms=_spread(res["graph_ms"]),
+             dispatch_ms=float(np.median(res["eager_ms"]) - np.median(res["graph_ms"])),
+             eager_ms_per_rank=[_spread(p["eager_ms"]) for p in per],
+             graph_ms_per_rank=[_spread(p["graph_ms"]) for p in per],
+             bit_identical=[p["bit_identical"] for p in per],
+             max_abs_diff=[p["max_abs_diff"] for p in per], worst=[p["worst"] for p in per],
+             replicas_equal=[p["replicas_equal"] for p in per],
+             last_loss=[p["last_loss"] for p in per],
+             capture_s=[p["capture_s"] for p in per], peak_mib=[p["peak_mib"] for p in per],
+             eager_peak_mib=[p["eager_peak_mib"] for p in per],
+             eager_launches=res["eager_launches"], replay_launches=res["replay_launches"],
+             replay_launches_per_rank=[p["replay_launches"] for p in per],
+             eager_sessions=res["eager_sessions"], replay_sessions=res["replay_sessions"],
+             captured_counts=res["captured_counts"], card=smi)
+        for r, p in enumerate(per):
+            if not p["bit_identical"]:
+                raise AssertionError(f"dp_multistep {tag} rank {r}: the replay is not the eager "
+                                     f"mesh steps bit for bit: {p['max_abs_diff']} at "
+                                     f"{p['worst']}, last loss {p['last_loss']} against "
+                                     f"{p['eager_last_loss']}")
+            if not p["replicas_equal"]:
+                raise AssertionError(f"dp_multistep {tag}: rank {r} holds other bits than rank 0")
+            eager, replay = (collections.Counter(p[k]) for k in ("eager_launches",
+                                                                  "replay_launches"))
+            wrong = {b: (eager[b], replay[b]) for b in set(eager) | set(replay)
+                     if replay[b] != MULTISTEP_N * eager[b]}
+            missing = [b for b in MULTISTEP_PORT_BUCKETS[tag] if eager[b] <= 0]
+            if missing or wrong:
+                raise AssertionError(f"dp_multistep {tag} rank {r}: kernels missing {missing}, "
+                                     f"replay launches not {MULTISTEP_N}x eager: {wrong}")
+
+
 def phase_dp(config: dict, calib, serve, smi: str) -> dict:
     """Phase 24: the dp phase's ranks (module docstring), their lines and
     checks → the launches of every rank's paths."""
@@ -4140,6 +4317,7 @@ def phase_dp(config: dict, calib, serve, smi: str) -> dict:
     _check_dp_artifact(ranks, exports, smi)
     _check_spatial(ranks, smi)
     _check_multiseed(ranks, smi)
+    _check_dp_multistep(ranks, smi)
     emit("dp", ranks=n, backend=r0["backend"], seconds=wall, card=smi,
          cards="one, shared by the ranks" if r0["device"] == ranks[1]["device"] else "one a rank")
     return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}

@@ -66,12 +66,13 @@ epoch's loss is then summed one step at a time in float64, so a resumed run
 reports the uninterrupted run's ``train_loss`` bit for bit.
 
 :func:`make_train_multistep` runs N steps of the train step on one batch
-that stays on the device, in one host dispatch: a CUDA graph on the card.
+that stays on the device, in one host dispatch: a CUDA graph on the card,
+over a mesh of several ranks too (one graph a rank, NCCL's collectives
+captured in it; see the function).
 
 Unlike the JAX engine, which returns new arrays, training updates the
 caller's model in place: the returned ``UQState`` holds the same module.
-Not ported, and refused when asked for: ``precompile_calibration``, and
-``make_train_multistep`` over a mesh of several ranks.
+Not ported, and refused when asked for: ``precompile_calibration``.
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from im2im_uq_tpu_torch.data.core import ProcessPoolFetcher, iterate_batches
 from im2im_uq_tpu_torch.data.grain_pipeline import CheckpointableBatchIterator
@@ -260,7 +262,11 @@ def make_train_multistep(
     host dispatch: (x, y, mask) → the last step's loss (float32). The
     counterpart of the JAX ``make_train_multistep`` (its ``fori_loop`` over
     ``make_train_step``'s body); each step is :func:`make_train_step`'s
-    (without ``watch_gradients``' norms, as the JAX loop drops them).
+    (without ``watch_gradients``' norms, as the JAX loop drops them). Over a
+    ``mesh`` of several ranks, x, y and mask are this rank's slice of the
+    global batch and each step is the mesh step: BatchNorm's sums, the mask
+    count, the gradients (one all-reduce per dtype) and the loss summed over
+    the ranks; the loss is the global one, the same on every rank.
 
     On the card, the first call captures the ``num_steps`` steps in one
     ``torch.cuda.CUDAGraph`` over static copies of x, y and mask, then every
@@ -274,19 +280,43 @@ def make_train_multistep(
     on the device); a graph that does not capture raises. Every later call
     needs x, y and mask of the first call's shapes and dtypes.
 
-    On the CPU: a plain loop of the same step. Over a mesh of several ranks
-    (NCCL inside a graph) it is not yet ported and raises.
+    Over a mesh the graph holds the steps' NCCL collectives, and every rank
+    captures the same ones in the same order (the step issues them in a
+    fixed order and syncs nothing with the host). torch creates NCCL's
+    communicator at the first collective, which a capture cannot do: the
+    warm-up step issues every collective of the step first (the forward's
+    and the backward's BatchNorm sums, the mask count, the gradients, the
+    loss). That is all torch 2.11 needed on four H100s: the backward's
+    all-reduces, issued on autograd's thread onto the forward's (the
+    capturing) stream, are captured like the forward's, under the default
+    capture mode, with ProcessGroupNCCL's watchdog and
+    ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` left at their defaults; the replay
+    is the eager mesh steps bit for bit on every rank, with no NCCL
+    algorithm pinned. After the capture the ranks agree, by one eager
+    all-reduce, that each of them captured: a rank whose capture failed
+    makes every rank raise instead of leaving the others to wait in a
+    replay. gloo's collectives on CUDA tensors go through the host and
+    cannot be captured: a mesh of CUDA ranks under gloo raises
+    ``ValueError``.
+
+    On the CPU: a plain loop of the same step (of the mesh step over a
+    mesh, under gloo).
     """
-    if mesh_lib.spans(mesh):
-        raise NotImplementedError(
-            "make_train_multistep over a mesh of several ranks is not yet ported"
-        )
     if num_steps < 1:
         raise ValueError("num_steps must be at least 1")
-    hyper = {k: v for k, v in hyper.items() if k != "watch_gradients"}
-    step = make_train_step(model, loss_pe_fn, hyper, optimizer, None, preprocess,
-                           preprocess_pair)
+    multi = mesh_lib.spans(mesh)
     device = next(model.parameters()).device
+    if multi and "cuda" in (device.type, mesh.device.type):
+        backend = dist.get_backend(mesh.group)
+        if backend != "nccl":
+            raise ValueError(
+                f"make_train_multistep over a mesh of CUDA ranks needs NCCL, not {backend}: "
+                f"{backend}'s collectives on CUDA tensors go through the host and cannot be "
+                "captured in a CUDA graph"
+            )
+    hyper = {k: v for k, v in hyper.items() if k != "watch_gradients"}
+    step = make_train_step(model, loss_pe_fn, hyper, optimizer, mesh, preprocess,
+                           preprocess_pair)
 
     if device.type != "cuda":
         def loop(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -318,9 +348,20 @@ def make_train_multistep(
                     t.zero_()  # state the warm-up created: a fresh Adam's
         optimizer.zero_grad(set_to_none=True)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(num_steps):
-                loss = step(*static)
+        failure = None
+        try:
+            with torch.cuda.graph(g):
+                for _ in range(num_steps):
+                    loss = step(*static)
+        except Exception as exc:  # every rank learns of it below
+            if not multi:
+                raise
+            failure = exc
+        if multi and mesh.agree(failure is not None):
+            raise RuntimeError(
+                f"rank {mesh.rank}: the CUDA graph of the mesh steps was not captured on every "
+                "rank" + ("" if failure is None else f": {failure!r}")
+            ) from failure
         graph.update(graph=g, static=static, loss=loss)
 
     def multistep(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

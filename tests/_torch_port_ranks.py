@@ -372,7 +372,94 @@ def worker_multigpu(mesh, tmp: Path) -> dict:
     return out
 
 
-WORKERS = {"all": worker_all, "multigpu": worker_multigpu, "multigpu_one": worker_multigpu}
+# ------------------------------------------ make_train_multistep over a mesh
+
+# the multistep cases: (config overrides, the model's dtype, the optimizer),
+# K steps each; Adam's rate is tests/test_torch_port_multistep.py's
+MULTISTEP_K = 3
+MULTISTEP_CASES = {
+    "xla_f64_sgd": ({}, torch.float64, "sgd"),
+    "pallas_fused_f64_sgd": ({"conv_backend": "pallas_fused"}, torch.float64, "sgd"),
+    "xla_f32_adam": ({}, torch.float32, "adam"),
+}
+MULTISTEP_LR = {"sgd": LR, "adam": 1e-3}
+# how long the multistep ranks may take, in seconds
+MULTISTEP_TIMEOUT = 120.0
+
+
+def multistep_run(weights: dict, case: str, batch: tuple, mesh,
+                  sequential: bool = False) -> tuple[torch.Tensor, dict]:
+    """MULTISTEP_K steps of ``case`` from ``weights`` on this rank's slice of
+    ``batch`` (all of it without a mesh): one ``make_train_multistep`` call,
+    or (``sequential``) as many calls of ``make_train_step`` → the last
+    loss, and every tensor of the model's state dict and of the optimizer's
+    state after them."""
+    from im2im_uq_tpu_torch.models import assembly as tasm
+    from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
+    from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+    from im2im_uq_tpu_torch.training import train as ttrain
+
+    extra, dtype, opt_name = MULTISTEP_CASES[case]
+    cfg = dict(UNET, **extra)
+    st = tasm.add_uncertainty(tasm.build_trunk(cfg), cfg, device="cpu")
+    st.model.load_state_dict(weights)
+    st.model.to(dtype)
+    make_opt = torch.optim.SGD if opt_name == "sgd" else torch.optim.Adam
+    opt = make_opt(st.model.parameters(), lr=MULTISTEP_LR[opt_name])
+    loss_pe = head_loss_pe_fn(cfg["uncertainty_type"])
+    tensors = [t.to(dtype) for t in ttrain.put_batch(*mesh_lib.put_batch(mesh, *batch),
+                                                     torch.device("cpu"))]
+    if sequential:
+        step = ttrain.make_train_step(st.model, loss_pe, cfg, opt, mesh)
+        for _ in range(MULTISTEP_K):
+            loss = step(*tensors)
+    else:
+        loss = ttrain.make_train_multistep(st.model, loss_pe, cfg, opt, MULTISTEP_K, mesh)(*tensors)
+    state = {k: v.clone() for k, v in st.model.state_dict().items()}
+    for i, s in opt.state_dict()["state"].items():
+        state.update({f"opt.{i}.{n}": v.clone() for n, v in s.items()})
+    return loss, state
+
+
+def worker_multistep(mesh, tmp: Path) -> dict:
+    """Each MULTISTEP_CASES case over ``mesh``: whether the multistep is the
+    sequential steps bit for bit, whether the ranks hold the same bits, the
+    loss and a sample of the state; and the message of the refusal of a
+    mesh of CUDA ranks under this gloo group (no card needed: it is
+    refused before any tensor moves)."""
+    from im2im_uq_tpu_torch.models.heads import head_loss_pe_fn
+    from im2im_uq_tpu_torch.parallel import mesh as mesh_lib
+    from im2im_uq_tpu_torch.training import train as ttrain
+
+    inp = torch.load(tmp / "inputs.pt", weights_only=False)
+    out = {}
+    for case in MULTISTEP_CASES:
+        loss, state = multistep_run(inp["weights"], case, inp["batch"], mesh)
+        seq_loss, seq_state = multistep_run(inp["weights"], case, inp["batch"], mesh,
+                                            sequential=True)
+        out[case] = {
+            "loss": float(loss), "loss_dtype": str(loss.dtype),
+            "equal_to_sequential": (torch.equal(loss, seq_loss.float())
+                                    and state.keys() == seq_state.keys()
+                                    and all(torch.equal(v, seq_state[k])
+                                            for k, v in state.items())),
+            "replicas_equal": replicas_equal({"loss": loss, **state}, mesh),
+            "state": sample(state),
+        }
+    cuda_ranks = mesh_lib.Mesh(mesh.group, mesh.size, mesh.rank, torch.device("cuda"))
+    model = TorchStandIn()
+    try:
+        ttrain.make_train_multistep(model, head_loss_pe_fn("quantiles"), UNET,
+                                    torch.optim.SGD(model.parameters(), lr=LR), MULTISTEP_K,
+                                    cuda_ranks)
+        out["gloo_on_cuda"] = None
+    except ValueError as exc:
+        out["gloo_on_cuda"] = str(exc)
+    return out
+
+
+WORKERS = {"all": worker_all, "multigpu": worker_multigpu, "multigpu_one": worker_multigpu,
+           "multistep": worker_multistep}
 
 
 def start_ranks(worker: str, tmp: Path, n: int = 2) -> list:

@@ -6,9 +6,8 @@ Two OS processes, ranks of one gloo group on a free localhost port
 children killed on a timeout), run the port's entry points over a
 ``parallel.mesh.Mesh`` on their shards; this process runs the same calls
 without a mesh while they run (each process on one intra-op thread), and
-the JAX
-package's ``make_train_step(..., mesh=data_parallel_mesh(2))`` and
-``compute_risks_device`` on two of the 8 virtual CPU devices. The UNet is
+the JAX package's ``make_train_step(..., mesh=data_parallel_mesh(2))``
+and ``compute_risks_device`` on two of the 8 virtual CPU devices. The UNet is
 the full-width one at 16x16 with the JAX package's init
 (``interop/from_jax.state_dict_from_jax``); a full-width result leaves a
 rank as a sample of 4096 elements of every tensor at seeded positions (all
