@@ -66,15 +66,17 @@ Phases, one JSON line each on stdout:
    probes     P1 (per-channel moments) and P2-P5 (bias-free NHWC 3x3
               conv), the ports of the Pallas probes of ``benchmarks/``,
               against their plain versions in f32 and bf16 at the probes'
-              default shape, at the shapes their CLIs run (which must take
-              the bf16 TMA path) and at odd shapes (ragged tiles, Cin and
-              Cout 8, 24 and 200, several N slices; Cin 3 and 5, Cout 7 on
-              the cp.async path), each run twice, bit for bit; each line
-              names its path; kernel, plain, library and bound times in
-              both dtypes.
+              default shape (which must take the f32 TMA path), at the
+              shapes their CLIs run (which must take the bf16 TMA path)
+              and at odd shapes (ragged tiles, Cin and Cout 4 to 200,
+              several N slices; Cin 3 and 5, Cout 6 and 7 on the cp.async
+              path), each run twice, bit for bit; each line names its
+              path; kernel, plain, library and bound times in both dtypes,
+              and in f32 the cp.async path's time beside the TMA path's
+              (``probes_f32`` lines).
    probe_cli  the probes' CLIs (``scripts.bench_moments`` and
-              ``scripts.bench_conv3x3`` at Cin 64, 128 and 96), which must
-              launch P1-P5.
+              ``scripts.bench_conv3x3`` at Cin 64, 128 and 96, and its f32
+              ``--check``), which must launch P1-P5 in both dtypes.
 5. calibrate  the full-width UNet + quantile head (random weights from a
               seed) calibrated on 128 synthetic 320x320 images, L=1000.
 6. serve      save the calibrated checkpoint, run ``scripts/infer.main`` on
@@ -406,8 +408,15 @@ KERNELS = {
     "conv3x3_db": conv_probe.conv3x3_db,
     "conv3x3_l1": conv_probe.conv3x3_l1,
     "conv3x3_c64": conv_probe.conv3x3_c64,
+    # P2-P5's float32 launches, counted apart
+    "conv3x3_single_f32": conv_probe.conv3x3_single.f32,
+    "conv3x3_db_f32": conv_probe.conv3x3_db.f32,
+    "conv3x3_l1_f32": conv_probe.conv3x3_l1.f32,
+    "conv3x3_c64_f32": conv_probe.conv3x3_c64.f32,
 }
-PROBE_KERNELS = ["moments", "conv3x3_single", "conv3x3_db", "conv3x3_l1", "conv3x3_c64"]
+PROBE_CONV_KERNELS = ["conv3x3_single", "conv3x3_db", "conv3x3_l1", "conv3x3_c64"]
+PROBE_KERNELS = (["moments"] + PROBE_CONV_KERNELS
+                 + [f"{name}_f32" for name in PROBE_CONV_KERNELS])
 DEFAULT_PATH_KERNELS = ["upsample2x", "upsample2x_bwd", "loss_table", "maxpool2x2_bwd"]
 CONV_KERNELS = ["conv3x3", "conv3x3_bn_act", "wgrad3x3", "dgrad3x3"]
 CONV_PHASES = dict(zip(CONV_KERNELS, ["k3", "k4", "k5", "k6"]))
@@ -502,7 +511,10 @@ MOMENT_SUM_TOL, MOMENT_MEAN_ATOL, MOMENT_VAR_TOL = 1e-5, 1e-5, 1e-4
 # the bf16 TMA path: H and W past whole tiles (13 and 70 against tiles of
 # 4 or 8 rows x 64 pixels), Cin and Cout 8, 24 and 200 at batch 2, several
 # N slices (Cout 200 and 40), every N width the plan picks (16, 32, 64, 96,
-# 128), and images of one row or one column, smaller than a TMA box
+# 128), and images of one row or one column, smaller than a TMA box; last,
+# cases of the f32 TMA path: Cin and Cout 4 and 12 (multiples of 4 that
+# bf16 sends to the cp.async path), Cout 96 (three N slices of 32) over
+# three row tiles of 4, Cout 6 (f32's cp.async path)
 CONV_PROBE_ODD = [("conv3x3_single", (1, 13, 17, 128, 128)), ("conv3x3_db", (2, 13, 17, 128, 64)),
                   ("conv3x3_l1", (2, 13, 17, 3, 32)), ("conv3x3_l1", (1, 13, 16, 96, 96)),
                   ("conv3x3_l1", (1, 5, 9, 5, 7)), ("conv3x3_c64", (1, 13, 21, 64, 40)),
@@ -511,7 +523,9 @@ CONV_PROBE_ODD = [("conv3x3_single", (1, 13, 17, 128, 128)), ("conv3x3_db", (2, 
                   ("conv3x3_single", (2, 11, 70, 128, 200)), ("conv3x3_db", (2, 9, 70, 96, 24)),
                   ("conv3x3_c64", (2, 13, 70, 64, 8)), ("conv3x3_c64", (2, 13, 70, 64, 128)),
                   ("conv3x3_l1", (1, 1, 1, 8, 16)), ("conv3x3_single", (1, 1, 300, 128, 8)),
-                  ("conv3x3_l1", (2, 300, 1, 16, 8))]
+                  ("conv3x3_l1", (2, 300, 1, 16, 8)), ("conv3x3_l1", (2, 13, 70, 4, 12)),
+                  ("conv3x3_l1", (1, 9, 33, 12, 4)), ("conv3x3_c64", (2, 9, 130, 64, 96)),
+                  ("conv3x3_db", (1, 13, 17, 128, 6))]
 # the shapes at which the probe CLIs (bench_conv3x3.main, bf16) run each
 # wrapper: the main path's
 CONV_PROBE_CLI = {"conv3x3_single": (32, 320, 320, 128, 128), "conv3x3_db": (32, 320, 320, 128, 128),
@@ -1609,7 +1623,10 @@ def _conv_probe_case(name: str, shape: tuple, dtype: torch.dtype, gen: torch.Gen
     ``conv_probe.bf16_tolerance``: one bf16 ulp of the plain value plus the
     f32 sums' worst-case difference between two orders, 2·K·2^-24·Σ|x||w|
     (K = 9·Cin), which only matters where the sum cancels to near zero; the
-    same bits twice."""
+    same bits twice. Timed: the wrapper, the plain version and ``F.conv2d``;
+    in f32 also the ``cp.async`` path (``conv_probe.cp_async``, checked the
+    same way), in turns with the wrapper (wrapper, cp.async, cp.async,
+    wrapper) → ``cp_async_ms``, and the direct conv's 3xTF32 floor."""
     b, h, w, cin, cout = shape
     x = torch.randn((b, h, w, cin), generator=gen, device="cuda").to(dtype)
     k = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
@@ -1634,11 +1651,23 @@ def _conv_probe_case(name: str, shape: tuple, dtype: torch.dtype, gen: torch.Gen
         x_lib = x.permute(0, 3, 1, 2)  # NCHW channels_last: the same memory
         w_lib = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         fields["ms"] = time_ms(lambda: fn(x, k), 10)
+        if dtype == torch.float32:
+            old = conv_probe.cp_async(fn, x, k)
+            old_err = (old - want).abs()
+            if (old_err / tol).max().item() > 1.0:
+                raise AssertionError(f"{name} {shape}: the cp.async path disagrees")
+            fields["cp_async_max_abs_err"] = old_err.max().item()
+            cp_ms = [time_ms(lambda: conv_probe.cp_async(fn, x, k), 10) for _ in range(2)]
+            fields["ms"] = (fields["ms"] + time_ms(lambda: fn(x, k), 10)) / 2
+            fields["cp_async_ms"] = sum(cp_ms) / 2
+            del old, old_err
         fields["plain_ms"] = time_ms(lambda: conv_probe.conv3x3_nobias_plain(x, k), 3)
         fields["library_ms"] = time_ms(lambda: F.conv2d(x_lib, w_lib, padding=1), 10)
         peak = PEAK_F32_TC_FLOPS if dtype == torch.float32 else PEAK_BF16_TC_FLOPS
         nbytes = (x.numel() + k.numel() + got.numel()) * x.element_size()
-        fields["bound_ms"], fields["bound_by"], _ = conv_bound((b, cin, h, w, cout), nbytes, peak)
+        fields["bound_ms"], fields["bound_by"], direct = conv_bound((b, cin, h, w, cout), nbytes,
+                                                                    peak)
+        fields["direct_floor_ms"] = 1e3 * direct / peak
     emit("probes", **fields)
     del x, k, got, again, want, diff, tol
     return fields
@@ -1651,9 +1680,11 @@ def phase_probes() -> dict:
     P1 at the probe's x (PROBE_SHAPE in NHWC) and MOMENT_ODD_SHAPES; P2-P5
     at PROBE_SHAPE, at the shapes their CLI runs them (CONV_PROBE_CLI) and
     at CONV_PROBE_ODD; every case in f32 and bf16. Timed: PROBE_SHAPE in
-    both dtypes, the CLI shapes in bf16 (the CLI's dtype). → the ``kernels``
-    line's rows: P1 summed over one call in each dtype at PROBE_SHAPE (what
-    one pass of its CLI runs), P2-P5 at their CLI shape in bf16."""
+    both dtypes, the CLI shapes in bf16 (the CLI's dtype). P2-P5 must run
+    the TMA path in bf16 at their CLI shape and in f32 at PROBE_SHAPE. →
+    the ``kernels`` line's rows: P1 summed over one call in each dtype at
+    PROBE_SHAPE (what one pass of its CLI runs), P2-P5 at their CLI shape in
+    bf16 and at PROBE_SHAPE in f32 (``*_f32``)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, cin, h, w, cout = PROBE_SHAPE
     results = {}
@@ -1669,7 +1700,7 @@ def phase_probes() -> dict:
                 add_bound(p1, 3 * b * h * w * cin, size * b * h * w * cin + 8 * cin)
     results["moments"] = close_bound(p1)
     for dtype in (torch.float32, torch.bfloat16):
-        for name in PROBE_KERNELS[1:]:
+        for name in PROBE_CONV_KERNELS:
             cases = [(b, h, w, cin, cout)] + [s for n, s in CONV_PROBE_ODD if n == name]
             if dtype == torch.bfloat16 and CONV_PROBE_CLI[name] not in cases:
                 cases.append(CONV_PROBE_CLI[name])
@@ -1682,13 +1713,24 @@ def phase_probes() -> dict:
                         raise AssertionError(f"{name} at its CLI shape ran {f['path']}, not tma")
                     results[name] = {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                        "library_ms", "bound_ms", "bound_by")}
+                if dtype == torch.float32 and shape == (b, h, w, cin, cout):
+                    if f["path"] != "tma":
+                        raise AssertionError(f"{name} f32 at {shape} ran {f['path']}, not tma")
+                    results[f"{name}_f32"] = {k: f[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    emit("probes_f32", kernel=name, shape=list(shape), ms=f["ms"],
+                         cp_async_ms=f["cp_async_ms"], library_ms=f["library_ms"],
+                         bound_ms=f["bound_ms"], direct_floor_ms=f["direct_floor_ms"],
+                         speedup_over_cp_async=f["cp_async_ms"] / f["ms"],
+                         card=torch.cuda.get_device_name(0))
     return results
 
 
 def phase_probe_cli() -> dict:
     """The probes' CLIs as a user runs them on the card: ``bench_moments``
-    (f32 and bf16 at the probe's x) and ``bench_conv3x3`` at its default
+    (f32 and bf16 at the probe's x), ``bench_conv3x3`` at its default
     (bf16, Cin = Cout = 64: P5), at Cin 128 (P2 and P3) and at Cin 96 (P4),
+    and its ``--check`` (P2-P5 in f32 at Cin 64, the probe's parity mode),
     each of which holds its kernels to a reference itself. → launches."""
     reset_counts()
     out = io.StringIO()
@@ -1696,7 +1738,7 @@ def phase_probe_cli() -> dict:
     with contextlib.redirect_stdout(out):
         rcs = [bench_moments.main([]), bench_conv3x3.main([]),
                bench_conv3x3.main(["32", "320", "128", "128"]),
-               bench_conv3x3.main(["32", "320", "96", "96"])]
+               bench_conv3x3.main(["32", "320", "96", "96"]), bench_conv3x3.main(["--check"])]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -4442,6 +4484,10 @@ def main() -> int:
         "conv3x3_db": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),
         "conv3x3_l1": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:196"),
         "conv3x3_c64": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:293"),
+        "conv3x3_single_f32": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:51"),
+        "conv3x3_db_f32": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:122"),
+        "conv3x3_l1_f32": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:196"),
+        "conv3x3_c64_f32": ("conv3x3_nhwc.cu", "benchmarks/bench_pallas_conv.py:293"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": f"im2im_uq_tpu_torch/csrc/{src}",

@@ -109,11 +109,11 @@ _SIGNATURES = {
     # P2-P5: (x, kernel, y, b, h, w, cin, cout, variant, dtype, vec_x, vec_w,
     #         device, stream)
     "im2im_conv3x3_nhwc": ([_P] * 3 + [ctypes.c_int] * 10 + [_P], ctypes.c_int),
-    # P2-P5's bf16 path on wgmma with TMA: (x, kernel, y, wpack, b, h, w, cin,
-    #         cout, bn, groups, stages, device, stream)
-    "im2im_conv3x3_nhwc_tma": ([_P] * 4 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
-    # bytes of its packed weights: (cin, cout, bn, groups)
-    "im2im_conv3x3_nhwc_tma_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # P2-P5's path on wgmma with TMA: (x, kernel, y, wpack, b, h, w, cin, cout,
+    #         bn, groups, stages, dtype, device, stream)
+    "im2im_conv3x3_nhwc_tma": ([_P] * 4 + [ctypes.c_int] * 10 + [_P], ctypes.c_int),
+    # bytes of its packed weights: (cin, cout, bn, groups, dtype)
+    "im2im_conv3x3_nhwc_tma_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "im2im_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,12 +1,16 @@
 // P2-P5: the 3x3 same-padding convolution without bias, NHWC input, HWIO
-// kernel, float32 or bfloat16, for sm_90a, on the tensor cores, by two
-// paths:
-//   the TMA path (namespace tma, below): bfloat16 where Cin and Cout are
-//     multiples of 8 (TMA's 16-byte strides) and the weights of one slice
-//     of output channels fit a block (ops/conv_probe.tma_plan): one
-//     persistent wgmma kernel that all four wrappers share;
-//   the cp.async path: every other shape and all of float32, one implicit
-//     GEMM on mma.sync with four launch configurations.
+// kernel, float32 or bfloat16, for sm_90a, on the tensor cores, by three
+// kernels (ops/conv_probe.uses_tma and tma_plan choose, before the launch):
+//   the TMA path in bfloat16 (namespace tma, below): Cin and Cout
+//     multiples of 8 (TMA's 16-byte strides) where the weights of one slice
+//     of output channels fit a block: one persistent wgmma kernel that all
+//     four wrappers share;
+//   the TMA path in float32 (namespace tma, below): Cin and Cout multiples
+//     of 4, one persistent wgmma kernel in 3xTF32 that all four share, its
+//     weights streamed through the ring chunk by chunk;
+//   the cp.async path: every other shape (Cin or Cout off those multiples,
+//     bfloat16 weights too large for a block, unaligned tensors), one
+//     implicit GEMM on mma.sync with four launch configurations.
 //
 // Replaces the TPU kernels of benchmarks/bench_pallas_conv.py (the probes of
 // a hand-written conv against XLA's):
@@ -21,11 +25,14 @@
 // nearest even, as the probes' `.astype` does). The GEMM: M = output
 // pixels, N = Cout, K = 9 Cin.
 //
-// What bounds it: bytes at the probes' default (32, 320, 320, 64 -> 64):
-// x, y and w each moved once take 0.25 ms in bfloat16 at 3.35 TB/s; the
-// 13.4 GMAC at 989 TFLOP/s dense bfloat16 take 0.027 ms (one multiply-add
-// per output and channel pair, the Winograd count; a direct conv's nine
-// take 0.245 ms, as long as the bytes).
+// What bounds it, at the probes' default (32, 320, 320, 64 -> 64): bytes.
+// x, y and w each moved once take 0.25 ms in bfloat16 and 0.50 ms in
+// float32 at 3.35 TB/s; the 13.4 GMAC of one multiply-add per output and
+// channel pair (the Winograd count) take 0.027 ms at 989 TFLOP/s dense
+// bfloat16 and 0.163 ms at 165 TFLOP/s of 3xTF32 (TF32's 495 over its
+// three passes). A direct conv does nine times that, 120.8 GMAC: 0.245 ms
+// in bfloat16, as long as the bytes, and 1.464 ms in 3xTF32, the floor of
+// any direct float32 design on the tensor cores.
 //
 // The cp.async path. A block owns a tile of 8 x 16 output pixels (one m16
 // fragment per tile row) x 64 output channels and walks K in chunks of kKc channels
@@ -71,6 +78,7 @@
 #include "mma_tf32.cuh"
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -485,8 +493,9 @@ __host__ __device__ constexpr int rows_for(int bn) { return bn <= 64 ? 8 : 4; }
 __host__ __device__ constexpr int box_bytes(int th) { return (th + 2) * kHc * 16; }
 __host__ __device__ constexpr int plane_bytes(int th) { return (box_bytes(th) + 127) / 128 * 128; }
 
+template <typename T>
 struct Geo {
-  __nv_bfloat16* y;
+  T* y;
   int b, h, w, cin, cout;
   int groups, stages, nch, ntn;  // 8-channel groups a chunk, ring stages, chunks, N slices
   int tiles_y, tiles_x, tiles;
@@ -562,7 +571,7 @@ __global__ void pack_weights_kernel(const __nv_bfloat16* __restrict__ w,
 template <int kBn>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
-                       const __nv_bfloat16* __restrict__ wpack, Geo g) {
+                       const __nv_bfloat16* __restrict__ wpack, Geo<__nv_bfloat16> g) {
   constexpr int kTh = rows_for(kBn);
   constexpr int kMi = kTh / kConsumers;  // output rows (m64 instances) a consumer
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -691,8 +700,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int kBn>
-cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo g, int device,
-                   cudaStream_t s) {
+cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo<__nv_bfloat16> g,
+                   int device, cudaStream_t s) {
   constexpr int kTh = rows_for(kBn);
   const int kc = 8 * g.groups;
   g.nch = (g.cin + kc - 1) / kc;
@@ -738,6 +747,292 @@ cudaError_t launch(const void* x, const void* w, void* y, void* wpack, Geo g, in
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The float32 path on wgmma with TMA, in 3xTF32 (Cin % 4 == 0, Cout % 4 ==
+// 0; ops/conv_probe.tma_plan picks it and bn): the bfloat16 kernel's
+// producer warp, ring and persistent tiles, with A from registers and the
+// weights streamed. P2-P5 share it.
+//
+// A block owns one slice of kBn output channels (blockIdx.x % ntn) and
+// walks output tiles of kTh32 = 4 rows x 64 pixels, each in chunks of 8
+// input channels x 9 taps. A, the activations: a chunk's haloed tile, 6
+// rows x 66 pixels x 8 channels, lands by TMA as one box [row][col][8 f32]
+// (a tensor map over x as (Cin, W, H, B), the frame and the channels past
+// Cin zero-filled). A tap moves A by whole 32-byte pixels, off the layouts
+// wgmma reads from shared memory, and 3xTF32 needs A's hi and lo besides:
+// each lane loads its fragment of mma.m16n8k8's A layout at the tap's
+// offset, splits it in registers (mma_tf32.cuh's split) and feeds
+// wgmma.m64nNk8 with A from registers, as K3's float32 core does
+// (conv3x3_tc.cuh). The k-step's channels are permuted so that one 8-byte
+// load gives a lane both of its columns: A's column j < 4 (a0, a1) is
+// channel 2 j, column j + 4 (a2, a3) channel 2 j + 1, and the weights' row
+// kh * 4 + k4 is channel 2 k4 + kh; a warp's load is 8 pixels x 32 bytes,
+// one contiguous 256-byte run, free of bank conflicts. The A registers of
+// taps t and t + 1 are double-buffered: tap t overwrites buffer t % 2 once
+// the products of tap t - 2 are done (wgmma.wait_group 1).
+// B, the weights: tf32 B must be K-major and HWIO is N-major, so
+// pack_weights_f32_kernel writes each tap's hi and lo tiles once per call
+// in wgmma's K-major no-swizzle layout (core matrices of 8 n x 4 k, 16
+// bytes a row: LBO = 128 bytes between K-adjacent, SBO = 256 between
+// N-adjacent ones), and each chunk's tiles (576 kBn bytes) land in its
+// stage beside its box, by bulk copies on the same mbarrier. A slice's hi
+// and lo (9 x Cin x kBn x 8 bytes: 294,912 at Cin 64, bn 64) outgrow a
+// block; where a slice of 32 fits, keeping it resident was no faster on an
+// H100 than streaming it (PERF.md), so every shape streams.
+// The products: per tap a consumer issues lo*hi, then hi*lo, then hi*hi,
+// each over both of its rows, into a partial that the chunk's first
+// product overwrites (27 products of depth 8, K3's chunk); once the chunk's
+// products are done the partial is added to the tile's sums in float32:
+// the tensor core's own accumulation drops low bits (K3's finding). Warps
+// 0-7 are two consumer warpgroups, 2 output rows (m64 x kBn each) apiece,
+// at most 128 sums and partials a thread (the 168 registers a thread of a
+// block of three warpgroups); warp 8 is the producer, one thread that keeps
+// a ring of stages in flight (full / empty mbarriers). The epilogue stores
+// each lane's channel pairs, 8 bytes each (4 lanes: one 32-byte sector a
+// row), predicated past the image and Cout; the next tile's copies are
+// already in flight. A fixed tile order and no atomics: the same bits every
+// run.
+
+constexpr int kTh32 = 4;                          // output rows of a float32 tile
+constexpr int kMi32 = kTh32 / kConsumers;         // rows (m64 instances) a consumer
+constexpr int kBox32 = (kTh32 + 2) * kHc * 8 * 4;  // bytes of a chunk's box: 12,672
+static_assert(kBox32 % 128 == 0, "a stage's weights follow its box 128-byte aligned");
+
+// bytes of one tap's hi (or lo) tile, and of a chunk's 9 x 2 of them
+__host__ __device__ constexpr int wtile32_bytes(int bn) { return bn * 8 * 4; }
+__host__ __device__ constexpr int wchunk32_bytes(int bn) { return 18 * wtile32_bytes(bn); }
+
+// wpack[slice][chunk][tap][hi, lo][n group][k half][8 n][4 k] from HWIO w
+// (3, 3, cin, cout): row (kh, k4) of a chunk's tile is its channel 2 k4 +
+// kh, 0 past Cin and Cout, split as tc::split does.
+__global__ void pack_weights_f32_kernel(const float* __restrict__ w, float* __restrict__ out,
+                                        int cin, int cout, int bn, int nch, int64_t total) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    int64_t e = i;
+    const int k4 = static_cast<int>(e % 4);
+    e /= 4;
+    const int n8 = static_cast<int>(e % 8);
+    e /= 8;
+    const int kh = static_cast<int>(e % 2);
+    e /= 2;
+    const int ng = static_cast<int>(e % (bn / 8));
+    e /= bn / 8;
+    const int part = static_cast<int>(e % 2);
+    e /= 2;
+    const int tap = static_cast<int>(e % 9);
+    e /= 9;
+    const int c = static_cast<int>(e % nch);
+    const int ns = static_cast<int>(e / nch);
+    const int k = c * 8 + 2 * k4 + kh, n = ns * bn + ng * 8 + n8;
+    const float v =
+        k < cin && n < cout ? w[(static_cast<int64_t>(tap) * cin + k) * cout + n] : 0.0f;
+    const tc::Split sp = tc::split(v);
+    out[i] = __uint_as_float(part == 0 ? sp.hi : sp.lo);
+  }
+}
+
+// *p = (v0, v1) where `on` (p 8-byte aligned)
+__device__ __forceinline__ void store2_if(float* p, float v0, float v1, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "f"(v0), "f"(v1), "r"(static_cast<int>(on))
+      : "memory");
+}
+
+template <int kBn>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_tma_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const float* __restrict__ wpack, Geo<float> g) {
+  constexpr int kWtile = wtile32_bytes(kBn), kWchunk = wchunk32_bytes(kBn);
+  constexpr int kStage = kBox32 + kWchunk;
+  // stage s at s * kStage: the chunk's box, then its weights
+  extern __shared__ __align__(1024) unsigned char ring[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + g.stages * kStage);
+  uint64_t* empty = full + g.stages;
+  const int ns = blockIdx.x % g.ntn;
+  const int first = blockIdx.x / g.ntn, step = gridDim.x / g.ntn;
+  // warp-uniform, as in the bfloat16 kernel
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kConsumers);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();  // the only block-wide barrier: the producer warp leaves below
+
+  const unsigned char* wslice =
+      reinterpret_cast<const unsigned char*>(wpack) + static_cast<int64_t>(ns) * g.nch * kWchunk;
+  const int per_img = g.tiles_y * g.tiles_x;
+  if (warp == 4 * kConsumers) {
+    if (lane != 0) return;
+    int q = 0;
+    for (int t = first; t < g.tiles; t += step) {
+      const int b = t / per_img, r = t - b * per_img;
+      const int y0 = (r / g.tiles_x) * kTh32, x0 = (r % g.tiles_x) * kTw;
+      for (int c = 0; c < g.nch; ++c, ++q) {
+        const int s = q % g.stages, use = q / g.stages;
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        unsigned char* st = ring + s * kStage;
+        mbar_expect_tx(full + s, kStage);
+        tma_load_4d(st, &xmap, c * 8, x0 - 1, y0 - 1, b, full + s);
+        for (int off = 0; off < kWchunk; off += kPiece)
+          bulk_load(st + kBox32 + off, wslice + static_cast<int64_t>(c) * kWchunk + off,
+                    kWchunk - off < kPiece ? kWchunk - off : kPiece, full + s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  // the lane's A in a box at tap (0, 0): pixel 16 wq + gid of the
+  // consumer's first row, channels 2 tig and 2 tig + 1
+  const int aoff = ((wg * kMi32) * kHc + 16 * wq + gid) * 32 + 8 * tig;
+  float acc[kMi32][kBn / 2], pt[kMi32][kBn / 2];
+  uint32_t ah[2][kMi32][4], al[2][kMi32][4];
+#pragma unroll
+  for (int mi = 0; mi < kMi32; ++mi)
+#pragma unroll
+    for (int r = 0; r < kBn / 2; ++r) acc[mi][r] = pt[mi][r] = 0.0f;
+  int q = 0;
+  for (int t = first; t < g.tiles; t += step) {
+    for (int c = 0; c < g.nch; ++c, ++q) {
+      const int s = q % g.stages;
+      mbar_wait(full + s, (q / g.stages) & 1);
+      const unsigned char* st = ring + s * kStage;
+      const unsigned char* wc = st + kBox32;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int buf = tap & 1;
+        if (tap >= 2) {
+          tc::wgmma_wait<1>();  // the products of tap - 2, which read buffer buf
+#pragma unroll
+          for (int mi = 0; mi < kMi32; ++mi)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              tc::keep(ah[buf][mi][v]);
+              tc::keep(al[buf][mi][v]);
+            }
+        }
+        const unsigned char* ap = st + aoff + ((tap / 3) * kHc + tap % 3) * 32;
+#pragma unroll
+        for (int mi = 0; mi < kMi32; ++mi) {
+          // pixels gid and gid + 8 of the consumer's row mi: (a0, a2), (a1, a3)
+          const float2 u0 = *reinterpret_cast<const float2*>(ap + mi * kHc * 32);
+          const float2 u1 = *reinterpret_cast<const float2*>(ap + (mi * kHc + 8) * 32);
+          const float v[4] = {u0.x, u1.x, u0.y, u1.y};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const tc::Split sp = tc::split(v[r]);
+            ah[buf][mi][r] = sp.hi;
+            al[buf][mi][r] = sp.lo;
+          }
+        }
+        tc::wgmma_fence();
+        const uint64_t dh = tc::wgmma_desc(wc + 2 * tap * kWtile, 128, 256);
+        const uint64_t dl = tc::wgmma_desc(wc + (2 * tap + 1) * kWtile, 128, 256);
+        // 3xTF32, the small terms first; the chunk's first product overwrites
+#pragma unroll
+        for (int mi = 0; mi < kMi32; ++mi) tc::WgmmaTf32<kBn>::run(pt[mi], al[buf][mi], dh, tap);
+#pragma unroll
+        for (int mi = 0; mi < kMi32; ++mi) tc::WgmmaTf32<kBn>::run(pt[mi], ah[buf][mi], dl, 1);
+#pragma unroll
+        for (int mi = 0; mi < kMi32; ++mi) tc::WgmmaTf32<kBn>::run(pt[mi], ah[buf][mi], dh, 1);
+        tc::wgmma_commit();
+      }
+      tc::wgmma_wait<0>();
+      mbar_arrive_if(empty + s, lane == 0);  // the stage's box and weights are read
+#pragma unroll
+      for (int mi = 0; mi < kMi32; ++mi) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          tc::keep(ah[0][mi][v]);
+          tc::keep(al[0][mi][v]);
+          tc::keep(ah[1][mi][v]);
+          tc::keep(al[1][mi][v]);
+        }
+#pragma unroll
+        for (int r = 0; r < kBn / 2; ++r) {
+          tc::keep(pt[mi][r]);
+          acc[mi][r] += pt[mi][r];
+        }
+      }
+    }
+
+    const int b = t / per_img, r = t - b * per_img;
+    const int y0 = (r / g.tiles_x) * kTh32, x0 = (r % g.tiles_x) * kTw;
+#pragma unroll
+    for (int mi = 0; mi < kMi32; ++mi) {
+      const int yy = y0 + wg * kMi32 + mi;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int xx = x0 + 16 * wq + gid + 8 * hf;
+        const bool in = yy < g.h && xx < g.w;
+        float* yp = g.y + ((static_cast<int64_t>(b) * g.h + yy) * g.w + xx) * g.cout + ns * kBn;
+#pragma unroll
+        for (int j = 0; j < kBn / 8; ++j) {
+          const int n = 8 * j + 2 * tig;
+          store2_if(yp + n, acc[mi][4 * j + 2 * hf], acc[mi][4 * j + 2 * hf + 1],
+                    in && ns * kBn + n < g.cout);
+          acc[mi][4 * j + 2 * hf] = acc[mi][4 * j + 2 * hf + 1] = 0.0f;
+        }
+      }
+    }
+  }
+}
+
+template <int kBn>
+cudaError_t launch_f32(const void* x, const void* w, void* y, void* wpack, Geo<float> g,
+                       int device, cudaStream_t s) {
+  constexpr int kWchunk = wchunk32_bytes(kBn);
+  g.nch = (g.cin + 7) / 8;
+  g.ntn = (g.cout + kBn - 1) / kBn;
+  g.tiles_y = (g.h + kTh32 - 1) / kTh32;
+  g.tiles_x = (g.w + kTw - 1) / kTw;
+  const int64_t tiles = static_cast<int64_t>(g.b) * g.tiles_y * g.tiles_x;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  g.tiles = static_cast<int>(tiles);
+  const int64_t bytes = static_cast<int64_t>(g.stages) * (kBox32 + kWchunk) + 2 * g.stages * 8;
+  if (bytes > 232448) return cudaErrorInvalidValue;
+
+  CUtensorMap xmap;
+  cudaError_t err = nhwc_map(&xmap, x, g.b, g.h, g.w, g.cin, kHc, kTh32 + 2, 8,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != cudaSuccess) return err;
+
+  const int64_t total = static_cast<int64_t>(g.ntn) * g.nch * kWchunk / 4;
+  const int64_t pblocks = (total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096;
+  pack_weights_f32_kernel<<<static_cast<unsigned>(pblocks), 256, 0, s>>>(
+      static_cast<const float*>(w), static_cast<float*>(wpack), g.cin, g.cout, kBn, g.nch,
+      total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kernel = conv3x3_tma_f32_kernel<kBn>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // one block per SM, the slices of a tile side by side (blockIdx % ntn)
+  int64_t per_slice = sms / g.ntn;
+  if (per_slice < 1) per_slice = 1;
+  if (per_slice > g.tiles) per_slice = g.tiles;
+  const int64_t blocks = per_slice * g.ntn;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  g.y = static_cast<float*>(y);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<int>(bytes), s>>>(
+      xmap, static_cast<const float*>(wpack), g);
+  return cudaGetLastError();
+}
+
 }  // namespace tma
 
 }  // namespace
@@ -773,27 +1068,52 @@ extern "C" int im2im_conv3x3_nhwc(const void* x, const void* kernel, void* y, in
 }
 
 // Bytes of the packed weights that im2im_conv3x3_nhwc_tma needs as scratch
-// for the plan (bn, groups): every N slice's chunks of groups x 8 channels.
-extern "C" long long im2im_conv3x3_nhwc_tma_scratch(int cin, int cout, int bn, int groups) {
+// for the plan (bn, groups) in dtype (0 = float32, 1 = bfloat16): every N
+// slice's chunks of groups x 8 channels, in bfloat16 or as float32's tf32
+// hi and lo. Minus a cudaError_t value for a dtype it does not know.
+extern "C" long long im2im_conv3x3_nhwc_tma_scratch(int cin, int cout, int bn, int groups,
+                                                    int dtype) {
+  if (dtype != 0 && dtype != 1) return -static_cast<long long>(cudaErrorInvalidValue);
   const long long kc = 8LL * groups;
-  return ((cout + bn - 1) / bn) * ((cin + kc - 1) / kc) * 9 * kc * bn * 2;
+  return ((cout + bn - 1) / bn) * ((cin + kc - 1) / kc) * 9 * kc * bn * (dtype == 0 ? 8 : 2);
 }
 
-// The bfloat16 path on wgmma with TMA: x (b, h, w, cin), kernel (3, 3,
-// cin, cout), y (b, h, w, cout), all bfloat16, contiguous and 16-byte
-// aligned, Cin % 8 == 0 and Cout % 8 == 0; wpack: the scratch above. The
-// plan (bn in 16, 32, 64, 96, 128; groups of 8 channels a chunk, even;
-// stages) comes from ops/conv_probe.tma_plan. Returns a cudaError_t value.
+// The path on wgmma with TMA: x (b, h, w, cin), kernel (3, 3, cin, cout), y
+// (b, h, w, cout), all of dtype (0 = float32, 1 = bfloat16), contiguous, x
+// and wpack 16-byte aligned; wpack: the scratch above. The plan (bn, chunks
+// of groups x 8 channels, ring stages) comes from ops/conv_probe.tma_plan:
+// bfloat16 takes Cin % 8 == 0 and Cout % 8 == 0, bn in 16, 32, 64, 96,
+// 128 and an even groups; float32 takes Cin % 4 == 0 and Cout % 4 == 0, bn
+// in 32, 64 and groups 1. Returns a cudaError_t value.
 extern "C" int im2im_conv3x3_nhwc_tma(const void* x, const void* kernel, void* y, void* wpack,
                                       int b, int h, int w, int cin, int cout, int bn,
-                                      int groups, int stages, int device, void* stream) {
+                                      int groups, int stages, int dtype, int device,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cin % 8 != 0 || cout % 8 != 0 ||
-      groups < 2 || groups % 2 != 0 || stages < 1 ||
+  const int align = dtype == 0 ? 4 : 8;  // channels of 16 bytes
+  if ((dtype != 0 && dtype != 1) || b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 ||
+      cin % align != 0 || cout % align != 0 || stages < 1 ||
+      (dtype == 0 ? groups != 1 : groups < 2 || groups % 2 != 0) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wpack)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  tma::Geo g{};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    tma::Geo<float> g{};
+    g.b = b;
+    g.h = h;
+    g.w = w;
+    g.cin = cin;
+    g.cout = cout;
+    g.groups = groups;
+    g.stages = stages;
+    switch (bn) {
+      case 32: return static_cast<int>(tma::launch_f32<32>(x, kernel, y, wpack, g, device, s));
+      case 64: return static_cast<int>(tma::launch_f32<64>(x, kernel, y, wpack, g, device, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  tma::Geo<__nv_bfloat16> g{};
   g.b = b;
   g.h = h;
   g.w = w;
@@ -801,7 +1121,6 @@ extern "C" int im2im_conv3x3_nhwc_tma(const void* x, const void* kernel, void* y
   g.cout = cout;
   g.groups = groups;
   g.stages = stages;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 16: return static_cast<int>(tma::launch<16>(x, kernel, y, wpack, g, device, s));
     case 32: return static_cast<int>(tma::launch<32>(x, kernel, y, wpack, g, device, s));

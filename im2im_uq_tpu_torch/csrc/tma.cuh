@@ -1,6 +1,6 @@
 // TMA and mbarrier helpers for the wgmma kernels fed by TMA, for
-// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu) and P2-P5's bf16 path
-// (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
+// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu) and P2-P5's TMA path in both
+// dtypes (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime, so the library
 // links no -lcuda.
 
@@ -121,19 +121,23 @@ inline EncodeTiled encode_tiled() {
 // rows of one image, zero outside the tensor: bc = 8, or 64 with the
 // 128-byte swizzle (16-byte chunk j of a box row lands at chunk j ^ (bits
 // 7-9 of its shared-memory address), the layout wgmma reads as swizzled).
+// With type FLOAT32: a float32 tensor, c a multiple of 4, boxes of bc = 8
+// channels (32 bytes a pixel), no swizzle.
 inline cudaError_t nhwc_map(CUtensorMap* map, const void* base, int b, int h, int w, int c,
-                            int bw, int bh, int bc = 8) {
+                            int bw, int bh, int bc = 8,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  const cuuint64_t row = static_cast<cuuint64_t>(c) * 2;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(c) * size;
   const cuuint64_t strides[3] = {row, row * w, row * w * h};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bw),
                              static_cast<cuuint32_t>(bh), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  if (encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
              bc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

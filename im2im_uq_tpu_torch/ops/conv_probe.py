@@ -11,12 +11,15 @@ one wrapper each:
 Each takes x (B, H, W, Cin) float32 or bfloat16 and a kernel (3, 3, Cin,
 Cout) of the same dtype and returns (B, H, W, Cout) in x's dtype: the nine
 shifted products accumulated in float32, rounded once to x's dtype. On a
-CUDA tensor each launches ``csrc/conv3x3_nhwc.cu``: in bfloat16, where
-:func:`tma_plan` takes the channels (Cin and Cout multiples of 8) and the
-tensors are 16-byte aligned (:func:`uses_tma`), the one persistent
-``wgmma`` kernel fed by TMA that all four share; otherwise its own instance
-of the ``cp.async`` / ``mma.sync`` GEMM (no TF32: float32 runs in 3xTF32 on
-the tensor cores). On a CPU tensor each runs :func:`conv3x3_nobias_plain`;
+CUDA tensor each launches ``csrc/conv3x3_nhwc.cu``: where :func:`tma_plan`
+takes the channels (bfloat16: Cin and Cout multiples of 8 and one slice's
+weights resident in a block; float32: multiples of 4) and the tensors are
+16-byte aligned (:func:`uses_tma`), the one persistent ``wgmma`` kernel fed
+by TMA of that dtype that all four share; otherwise its own instance of the
+``cp.async`` / ``mma.sync`` GEMM. The path is chosen before the launch, and
+a failed launch raises. No TF32: float32 runs in 3xTF32 on the tensor cores
+on both paths. Each wrapper counts its float32 launches apart, on
+``wrapper.f32``. On a CPU tensor each runs :func:`conv3x3_nobias_plain`;
 any other device raises. The TPU's tiling
 gates (H % 8, W % 8 or 16, W even) do not carry over: any H, W ≥ 1. P2 and
 P3 take a Cin that fills whole chunks (a multiple of 32 in bfloat16, 16 in
@@ -26,6 +29,7 @@ float32), as the probes' own dispatch gives them Cin % 128 == 0; P4 takes any.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
 import torch
@@ -43,6 +47,7 @@ __all__ = [
     "conv3x3_l1",
     "conv3x3_nobias_plain",
     "conv3x3_single",
+    "cp_async",
     "takes",
     "tma_plan",
     "uses_tma",
@@ -60,13 +65,21 @@ _TMA_TILE_W = 64
 _SMEM_BLOCK = 232448  # bytes of shared memory a block may use on an H100
 _SMEM_RESERVED = 1024  # the ring's mbarriers, with room to spare
 _TMA_MAX_STAGES = 4
+# The float32 path on wgmma with TMA (the same namespace), in 3xTF32: tiles
+# of 4 rows x 64 pixels, chunks of one 8-channel box (32 bytes a pixel), the
+# chunk's weights as tf32 hi and lo (8 bytes a weight) streamed through the
+# ring beside its box
+_TMA_F32_BNS = (64, 32)
+_TMA_F32_ROWS = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class TmaPlan:
     """The TMA path's sizes for one (Cin, Cout): bn output channels a block
     (``ntn`` slices), ``rows`` output rows a tile, chunks of ``groups`` x 8
-    input channels, a ring of ``stages`` chunks, ``smem`` bytes a block."""
+    input channels, a ring of ``stages`` chunks, ``smem`` bytes a block. In
+    bfloat16 the slice's weights stay in shared memory; in float32 each
+    chunk's weights pass through the ring with its activations."""
 
     bn: int
     rows: int
@@ -86,17 +99,20 @@ def _tma_plane(rows: int) -> int:
     return -(-(rows + 2) * (_TMA_TILE_W + 2) * 16 // 128) * 128
 
 
-def tma_plan(cin: int, cout: int) -> Optional[TmaPlan]:
-    """The TMA path's plan for a bfloat16 conv of Cin → Cout, or None where
-    the path does not take it: TMA's 16-byte strides need Cin % 8 == 0 and
-    Cout % 8 == 0, and one slice's weights (9·Cin'·bn·2 bytes, Cin' padded
-    to whole chunks) and a ring of at least two stages must fit a block.
+def tma_plan(cin: int, cout: int, dtype: torch.dtype = torch.bfloat16) -> Optional[TmaPlan]:
+    """The TMA path's plan for a conv of Cin → Cout in ``dtype``, or None
+    where the path does not take it (float32: :func:`_tma_plan_f32`).
 
-    For each bn the chunk is the largest of 64, 32, 16 channels (not past
-    Cin rounded up to 16) that leaves room for three stages, else 16
-    channels with two or more; up to four stages. Among the bn that fit,
-    the least padded N (ntn·bn) wins, then the widest bn."""
-    if cin <= 0 or cout <= 0 or cin % 8 or cout % 8:
+    bfloat16: TMA's 16-byte strides need Cin % 8 == 0 and Cout % 8 == 0,
+    and one slice's weights (9·Cin'·bn·2 bytes, Cin' padded to whole
+    chunks) and a ring of at least two stages must fit a block. For each bn
+    the chunk is the largest of 64, 32, 16 channels (not past Cin rounded
+    up to 16) that leaves room for three stages, else 16 channels with two
+    or more; up to four stages. Among the bn that fit, the least padded N
+    (ntn·bn) wins, then the widest bn."""
+    if dtype == torch.float32:
+        return _tma_plan_f32(cin, cout)
+    if dtype != torch.bfloat16 or cin <= 0 or cout <= 0 or cin % 8 or cout % 8:
         return None
     best = None
     for bn in _TMA_BNS:
@@ -119,13 +135,31 @@ def tma_plan(cin: int, cout: int) -> Optional[TmaPlan]:
     return best
 
 
+def _tma_plan_f32(cin: int, cout: int) -> Optional[TmaPlan]:
+    """The float32 TMA path's plan: Cin % 4 == 0 and Cout % 4 == 0 (TMA's
+    16-byte strides), else None.
+
+    Tiles of 4 rows (two m64 rows a consumer warpgroup, whose sums and
+    partials, 2·bn a thread, stay within the 168 registers of a block of
+    three warpgroups), chunks of 8 channels, and a ring of up to four
+    stages, each a chunk's box ((4 + 2) x 66 pixels x 32 bytes) and its
+    weights' hi and lo (9·8·bn·8 bytes): that fits a block at any Cin. bn
+    is 64 or 32, whichever pads N least, 64 on a tie."""
+    if cin <= 0 or cout <= 0 or cin % 4 or cout % 4:
+        return None
+    bn = min(_TMA_F32_BNS, key=lambda n: -(-cout // n) * n)
+    stage = (_TMA_F32_ROWS + 2) * (_TMA_TILE_W + 2) * 32 + 9 * 8 * bn * 8
+    stages = min(_TMA_MAX_STAGES, (_SMEM_BLOCK - _SMEM_RESERVED) // stage)
+    return TmaPlan(bn, _TMA_F32_ROWS, 1, stages, -(-cout // bn), stages * stage + 2 * stages * 8)
+
+
 def uses_tma(x: torch.Tensor, kernel: torch.Tensor) -> bool:
-    """Whether a CUDA call on these tensors takes the TMA path (bfloat16,
-    a plan for its channels, 16-byte aligned x and kernel); any other runs
+    """Whether a CUDA call on these tensors takes the TMA path of its dtype
+    (a plan for its channels, 16-byte aligned x and kernel); any other runs
     the cp.async path (``mma.sync`` in bf16, 3xTF32 in f32)."""
-    return (x.dtype == torch.bfloat16 and kernel.dtype == torch.bfloat16
+    return (x.dtype == kernel.dtype and x.dtype in _KERNEL_DTYPES
             and x.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0
-            and tma_plan(x.shape[-1], kernel.shape[-1]) is not None)
+            and tma_plan(x.shape[-1], kernel.shape[-1], x.dtype) is not None)
 
 
 def conv3x3_nobias_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -194,22 +228,56 @@ def _launch(wrapper, variant: int, x: torch.Tensor, kernel: torch.Tensor) -> tor
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if uses_tma(x, kernel):
-        plan = tma_plan(cin, cout)
-        wpack = torch.empty(lib.im2im_conv3x3_nhwc_tma_scratch(cin, cout, plan.bn, plan.groups),
-                            dtype=torch.uint8, device=x.device)
-        err = lib.im2im_conv3x3_nhwc_tma(
-            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), wpack.data_ptr(), b, h, w, cin, cout,
-            plan.bn, plan.groups, plan.stages, x.device.index, stream,
-        )
+        err = _launch_tma(tma_plan(cin, cout, x.dtype), x, kernel, y, lib, stream)
     else:
-        size = x.element_size()
-        vec_x = (cin * size) % 16 == 0 and x.data_ptr() % 16 == 0
-        vec_w = (cout * size) % 16 == 0 and kernel.data_ptr() % 16 == 0
-        err = lib.im2im_conv3x3_nhwc(
-            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), b, h, w, cin, cout, variant,
-            _KERNEL_DTYPES[x.dtype], int(vec_x), int(vec_w), x.device.index, stream,
-        )
-    wrapper.launches += 1
+        err = _launch_cp_async(variant, x, kernel, y, lib, stream)
+    (wrapper.f32 if x.dtype == torch.float32 else wrapper).launches += 1
+    _build.check(err, name)
+    return y
+
+
+def _launch_tma(plan: TmaPlan, x: torch.Tensor, kernel: torch.Tensor, y: torch.Tensor, lib,
+                stream: int) -> int:
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    dtype = _KERNEL_DTYPES[x.dtype]
+    scratch = lib.im2im_conv3x3_nhwc_tma_scratch(cin, cout, plan.bn, plan.groups, dtype)
+    wpack = torch.empty(scratch, dtype=torch.uint8, device=x.device)
+    return lib.im2im_conv3x3_nhwc_tma(
+        x.data_ptr(), kernel.data_ptr(), y.data_ptr(), wpack.data_ptr(), b, h, w, cin, cout,
+        plan.bn, plan.groups, plan.stages, dtype, x.device.index, stream,
+    )
+
+
+def _launch_cp_async(variant: int, x: torch.Tensor, kernel: torch.Tensor, y: torch.Tensor, lib,
+                     stream: int) -> int:
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    size = x.element_size()
+    vec_x = (cin * size) % 16 == 0 and x.data_ptr() % 16 == 0
+    vec_w = (cout * size) % 16 == 0 and kernel.data_ptr() % 16 == 0
+    return lib.im2im_conv3x3_nhwc(
+        x.data_ptr(), kernel.data_ptr(), y.data_ptr(), b, h, w, cin, cout, variant,
+        _KERNEL_DTYPES[x.dtype], int(vec_x), int(vec_w), x.device.index, stream,
+    )
+
+
+def cp_async(wrapper, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The ``cp.async`` / ``mma.sync`` kernel of ``wrapper`` (one of
+    :data:`VARIANTS`) on CUDA tensors whatever :func:`uses_tma` says,
+    counted on no wrapper: the path that a wrapper takes where no plan does,
+    run on the TMA path's shapes to compare the two (``chip_smoke.py``'s
+    probes phase)."""
+    name = f"{wrapper.__name__} (cp.async)"
+    _check(name, x, kernel)
+    if x.device.type != "cuda" or x.dtype not in _KERNEL_DTYPES or kernel.dtype != x.dtype:
+        raise ValueError(f"{name} runs float32 or bfloat16 CUDA tensors, not {x.dtype} on "
+                         f"{x.device}")
+    x, kernel = x.contiguous(), kernel.contiguous()
+    y = torch.empty((*x.shape[:3], kernel.shape[-1]), dtype=x.dtype, device=x.device)
+    variant = list(VARIANTS.values()).index(wrapper)
+    err = _launch_cp_async(variant, x, kernel, y, _build.library(),
+                           torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     return y
 
@@ -254,7 +322,12 @@ def conv3x3_c64(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 # the wrappers by probe, in the order of bench_pallas_conv.py
 VARIANTS = {"P2": conv3x3_single, "P3": conv3x3_db, "P4": conv3x3_l1, "P5": conv3x3_c64}
-conv3x3_single.launches = 0  # P2 kernel launches since the last reset
-conv3x3_db.launches = 0  # P3 kernel launches since the last reset
-conv3x3_l1.launches = 0  # P4 kernel launches since the last reset
-conv3x3_c64.launches = 0  # P5 kernel launches since the last reset
+conv3x3_single.launches = 0  # P2 kernel launches since the last reset (bf16)
+conv3x3_db.launches = 0  # P3 kernel launches since the last reset (bf16)
+conv3x3_l1.launches = 0  # P4 kernel launches since the last reset (bf16)
+conv3x3_c64.launches = 0  # P5 kernel launches since the last reset (bf16)
+# the launches of the float32 instances, counted apart
+conv3x3_single.f32 = types.SimpleNamespace(launches=0)
+conv3x3_db.f32 = types.SimpleNamespace(launches=0)
+conv3x3_l1.f32 = types.SimpleNamespace(launches=0)
+conv3x3_c64.f32 = types.SimpleNamespace(launches=0)
