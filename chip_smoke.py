@@ -46,7 +46,15 @@ Phases, one JSON line each on stdout:
               bit; kernel, plain, library and bound times at the main-path
               shapes, summed per step; then one conv_shape line per
               main-path shape with the K3-K6 times side by side (the stem
-              marked).
+              marked). Each k5 line names its path: every main-path shape
+              but the stem, and K5_TMA_ODD_SHAPES, must take the f32 TMA
+              path (``csrc/wgrad3x3_tma.cu``, counted on ``wgrad3x3.tma``);
+              there the mma.sync kernel (``conv_bwd.wgrad3x3_mma_sync``) is
+              held to the same bars and timed in turns with it
+              (``mma_sync_ms``); a k5_step line sums the step's launches on
+              the TMA path (ms, mma.sync, library, bound, the 3xTF32 direct
+              floor). The fused train step must launch K5 14 times a step,
+              13 of them on the TMA path.
    conv3x3_bf16, conv3x3_bn_act_bf16
               the bf16 instances of K3 and K4 against their plain versions
               at every conv launch of the bf16 paths (the ``pallas`` train
@@ -398,6 +406,9 @@ KERNELS = {
     "conv3x3_bf16": conv.conv3x3.bf16,
     "conv3x3_bn_act_bf16": conv.conv3x3_bn_act.bf16,
     "wgrad3x3": conv_bwd.wgrad3x3,
+    # the f32 K5 launches on wgmma with TMA (csrc/wgrad3x3_tma.cu), also
+    # counted on wgrad3x3
+    "wgrad3x3_tma": conv_bwd.wgrad3x3.tma,
     "dgrad3x3": conv_bwd.dgrad3x3,
     "wgrad3x3_bf16": conv_bwd.wgrad3x3.bf16,
     "dgrad3x3_bf16": conv_bwd.dgrad3x3.bf16,
@@ -447,6 +458,11 @@ F64_GRADCHECK_HEADS = ["gaussian"]
 # (B, Cin, H, W, Cout): Cin 1, 3 and 64, 1x1, 5x7 and 13x17, batch 1
 CONV_ODD_SHAPES = [(2, 1, 1, 1, 8), (1, 3, 5, 7, 16), (2, 64, 13, 17, 24), (1, 1, 13, 17, 64),
                    (1, 64, 5, 7, 64), (1, 128, 160, 160, 128)]
+# K5's cases beyond those, on its f32 TMA path (csrc/wgrad3x3_tma.cu): a
+# 20-wide image in chunks of 24 columns with Cout 24 (one ragged N tile),
+# W 44 in chunks of 48 with 27 row groups over two M tiles and Cout 72 over
+# two N tiles, Cin 16 at W 12 over strips of 16
+K5_TMA_ODD_SHAPES = [(2, 32, 13, 20, 24), (1, 48, 9, 44, 72), (3, 16, 7, 12, 8)]
 # Bars of a conv kernel against its plain version, on the relative L2
 # error and on max|error| / max|plain|: both sum in f32 in another order,
 # over 9*Cin terms (K3, K4's y, K6's dx: 3e-5) or over B*H*W terms (K5,
@@ -1081,6 +1097,37 @@ def conv_bound(shape: tuple, nbytes: float,
     return ms, by, direct
 
 
+def k5_path(shape: tuple, c: dict, tma_launches: int, want_tma: bool) -> str:
+    """The path an f32 K5 case took ("tma" or "mma_sync"), from
+    ``conv_bwd.wgrad_f32_uses_tma`` and the two runs' launches on
+    ``wgrad3x3.tma``; raise where the two disagree, or where a main-path
+    or K5_TMA_ODD_SHAPES case (``want_tma``) missed the TMA path."""
+    path = "tma" if conv_bwd.wgrad_f32_uses_tma(c["x"], c["g"]) else "mma_sync"
+    if tma_launches != (2 if path == "tma" else 0):
+        raise AssertionError(f"k5 {shape}: path {path} but {tma_launches} launches on "
+                             "wgrad3x3.tma in two runs")
+    if want_tma and path != "tma":
+        raise AssertionError(f"k5 {shape}: a shape of the TMA path ran {path}")
+    return path
+
+
+def k5_mma_sync(fields: dict, c: dict, prologue: bool, run, want: tuple, bars: list) -> None:
+    """K5's mma.sync kernel (``conv_bwd.wgrad3x3_mma_sync``) at a main-path
+    shape: within the same bars of the plain version ``want``, and timed in
+    turns with the TMA path's ``run`` (TMA, mma.sync, mma.sync, TMA; the
+    TMA time timed first is in ``fields["ms"]``) → mma_sync_ms, its errors,
+    and ms averaged over both turns."""
+    def old():
+        return conv_bwd.wgrad3x3_mma_sync(c["x"], c["g"], c["scale"], c["shift"], prologue)
+    errs = [_conv_errors(a, b_) for a, b_ in zip(old(), want)]
+    if any(max(e[1], e[2]) > bar for e, bar in zip(errs, bars)):
+        raise AssertionError(f"k5 {fields['shape']}: the mma.sync path disagrees: {errs}")
+    fields["mma_sync_max_abs_err"] = [e[0] for e in errs]
+    fields["mma_sync_ms"] = (time_ms(old, 5) + time_ms(old, 5)) / 2
+    fields["ms"] = (fields["ms"] + time_ms(run, 5)) / 2
+    fields["card"] = torch.cuda.get_device_name(0)
+
+
 def phase_conv_kernels() -> dict:
     """K3-K6 against their plain versions on the card, with TF32 off.
 
@@ -1106,13 +1153,17 @@ def phase_conv_kernels() -> dict:
         wnet = [c for c in dict.fromkeys(conv_sites("pallas_fused", WNET_DOUBLE_CONVS)[kernel])
                 if c not in main]
         prologues = [False] if kernel == "conv3x3" else [True, False]
-        cases = main + wnet + [(shape, p) for shape in CONV_ODD_SHAPES for p in prologues]
+        odd = CONV_ODD_SHAPES + (K5_TMA_ODD_SHAPES if kernel == "wgrad3x3" else [])
+        cases = main + wnet + [(shape, p) for shape in odd for p in prologues]
         sums = {backend: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
                 for backend in counts}
+        tma_sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "mma_sync_ms": 0.0, "floor_ms": 0.0, "launches_per_step": 0}
         for (shape, prologue) in cases:
             b, cin, h, w, cout = shape
             c = _conv_case(b, cin, h, w, cout, gen)
             run, plain, library, bars, nbytes = _conv_calls(kernel, c, prologue)
+            tma0 = conv_bwd.wgrad3x3.tma.launches
             got, again, want = run(), run(), plain()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
@@ -1121,6 +1172,11 @@ def phase_conv_kernels() -> dict:
             fields = {"shape": list(shape), "prologue": prologue,
                       "max_abs_err": [e[0] for e in errs], "rel_l2_err": [e[1] for e in errs],
                       "rel_max_err": [e[2] for e in errs], "bars": bars, "bit_identical": True}
+            if kernel == "wgrad3x3":
+                # every main-path shape but the stem's must take the TMA path
+                fields["path"] = k5_path(shape, c, conv_bwd.wgrad3x3.tma.launches - tma0,
+                                         ((shape, prologue) in main and cin > 1)
+                                         or shape in K5_TMA_ODD_SHAPES)
             if kernel == "conv3x3_bn_act":
                 y_eval, _ = conv.conv3x3_bn_act_fwd(c["x"], c["w"], c["bias"], c["scale"],
                                                     c["shift"], prologue, False)
@@ -1134,6 +1190,8 @@ def phase_conv_kernels() -> dict:
                 fields["launches_per_step"] = {k: n[(shape, prologue)] for k, n in counts.items()
                                                if n[(shape, prologue)]}
                 fields["ms"] = time_ms(run, 5)
+                if kernel == "wgrad3x3" and fields["path"] == "tma":
+                    k5_mma_sync(fields, c, prologue, run, want, bars)
                 fields["plain_ms"] = time_ms(plain, 2)
                 fields["library_ms"] = time_ms(library, 5)
                 fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
@@ -1146,9 +1204,24 @@ def phase_conv_kernels() -> dict:
                     for k in ("ms", "plain_ms", "library_ms"):
                         result[k] += n * fields[k]
                     add_bound(result, direct / 9, nbytes, n, PEAK_F32_TC_FLOPS)
+                n = fields["launches_per_step"].get("pallas_fused", 0)
+                if kernel == "wgrad3x3" and fields["path"] == "tma" and n:
+                    tma_sums["max_abs_err"] = max(tma_sums["max_abs_err"], *fields["max_abs_err"])
+                    for k in ("ms", "plain_ms", "library_ms", "mma_sync_ms"):
+                        tma_sums[k] += n * fields[k]
+                    tma_sums["floor_ms"] += n * fields["direct_flop_ms"]
+                    tma_sums["launches_per_step"] += n
+                    add_bound(tma_sums, direct / 9, nbytes, n, PEAK_F32_TC_FLOPS)
             emit(CONV_PHASES[kernel], **fields)
             del c, got, again, want
         results[kernel] = close_bound(sums["pallas_fused"])
+        if kernel == "wgrad3x3":
+            close_bound(tma_sums)
+            emit("k5_step", card=torch.cuda.get_device_name(0), **tma_sums,
+                 speedup_over_mma_sync=tma_sums["mma_sync_ms"] / tma_sums["ms"],
+                 over_library=tma_sums["ms"] / tma_sums["library_ms"])
+            results["wgrad3x3_tma"] = {k: tma_sums[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if "pallas" in sums:
             emit("k3_pallas_step", launches_per_step=sum(counts["pallas"].values()),
                  **close_bound(sums["pallas"]))
@@ -2136,6 +2209,18 @@ def _against_default(phase: str, cfg: dict, config: dict, init: dict, batch,
                              f"{stat_err[worst_s]}, eval {eval_err}")
 
 
+def require_k5_per_step(phase: str, counts: dict, steps: int) -> None:
+    """K5's f32 launches in ``steps`` pallas_fused UNet train steps at batch
+    32, 320x320: one per K4 (``conv_sites``), on the TMA path wherever
+    ``conv_bwd.wgrad_f32_plan`` takes the shape (all but the stem's)."""
+    sites = conv_sites("pallas_fused")["wgrad3x3"]
+    want = len(sites), sum(conv_bwd.wgrad_f32_plan(b, ci, co, h, w) is not None
+                           for (b, ci, h, w, co), _ in sites)
+    got = counts["wgrad3x3"] / steps, counts["wgrad3x3_tma"] / steps
+    if got != want:
+        raise AssertionError(f"{phase}: K5 launches a step (all, TMA path) {got}, want {want}")
+
+
 def phase_fused(config: dict, calib, serve) -> dict:
     """The model under ``conv_backend: pallas_fused`` at 320x320, batch 32:
     ``make_train_step`` from seed-5 weights (every first gradient finite
@@ -2169,6 +2254,7 @@ def phase_fused(config: dict, calib, serve) -> dict:
     require_launches("fused_train", train_counts,
                      ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + CONV_KERNELS)
     steps = WARMUP_STEPS + TIMED_STEPS
+    require_k5_per_step("fused_train", train_counts, steps)
     median_ms = float(np.median(step_ms))
     emit("fused_train", conv_backend="pallas_fused", batch=bs, image=IMAGE, steps=steps,
          median_step_ms=median_ms, imgs_per_sec=1e3 * bs / median_ms, step_ms=step_ms,
@@ -4474,6 +4560,7 @@ def main() -> int:
         "conv3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:190"),
         "conv3x3_bn_act_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:234"),
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
+        "wgrad3x3_tma": ("wgrad3x3_tma.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
         "wgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),

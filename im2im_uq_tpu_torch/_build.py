@@ -82,6 +82,10 @@ _SIGNATURES = {
     "im2im_wgrad3x3": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
     # floats of K5's split-K scratch: (b, cin, cout, h, w)
     "im2im_wgrad3x3_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # K5 in f32 on wgmma with TMA: (x, g, scale, shift, part, dw, db, b, cin,
+    #      cout, h, w, prologue, tw, stages, per_slice, slices, device, stream)
+    "im2im_wgrad3x3_tma": ([_P] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 2 + [_P], ctypes.c_int),
     # K6 in f32: (g, weight, x, scale, shift, dx, part, red, b, cin, cout, h, w,
     #      prologue, device, stream)
     "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),

@@ -1,6 +1,6 @@
 // TMA and mbarrier helpers for the wgmma kernels fed by TMA, for
-// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu) and P2-P5's TMA path in both
-// dtypes (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
+// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu), K5 in float32 (wgrad3x3_tma.cu)
+// and P2-P5's TMA path in both dtypes (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime, so the library
 // links no -lcuda.
 
@@ -147,20 +147,24 @@ inline cudaError_t nhwc_map(CUtensorMap* map, const void* base, int b, int h, in
 
 // The tensor map of a bf16 NCHW tensor (b, c, h, w), w a multiple of 8 and
 // the base 16-byte aligned, in boxes of bw columns x bh rows x bc channels
-// of one image (bw a multiple of 8).
+// of one image (bw a multiple of 8), zero outside the tensor. With type
+// FLOAT32: a float32 tensor, w and bw multiples of 4 (K5's float32 path,
+// wgrad3x3_tma.cu).
 inline cudaError_t nchw_map(CUtensorMap* map, const void* base, int b, int c, int h, int w,
-                            int bw, int bh, int bc) {
+                            int bw, int bh, int bc,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(b)};
-  const cuuint64_t row = static_cast<cuuint64_t>(w) * 2;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(w) * size;
   const cuuint64_t strides[3] = {row, row * h, row * h * c};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
                              static_cast<cuuint32_t>(bc), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  if (encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;

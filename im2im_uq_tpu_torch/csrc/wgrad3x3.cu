@@ -1,5 +1,10 @@
 // K5: the weight and bias gradients of K4, NCHW, float32, for sm_90a (its
-// bfloat16 instance is conv3x3_bf16.cu's).
+// bfloat16 instance is conv3x3_bf16.cu's): the stem (Cin = 1) and every
+// shape that ops/conv_bwd.wgrad_f32_plan does not take (Cin off the
+// multiples of 16, W off the multiples of 4, unaligned tensors). The rest
+// runs wgrad3x3_tma.cu's kernel on Hopper's wgmma fed by TMA (2.4x faster
+// over the batch-32 320x320 step on an H100, PERF.md); this one stays
+// callable on any shape for comparisons (conv_bwd.wgrad3x3_mma_sync).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `wgrad3x3_pallas_raw` (`_wgrad_kernel`).

@@ -11,9 +11,17 @@ Counterpart of ``im2im_uq_tpu/ops/pallas_conv_bwd.py``:
   ``scale`` and ``shift``.
 
 Layout NCHW; weights and dW in ``nn.Conv2d``'s (Cout, Cin, 3, 3). On a CUDA
-tensor each wrapper launches its kernel (``csrc/wgrad3x3.cu``,
-``csrc/dgrad3x3.cu``); on a CPU tensor it runs its plain version; any other
-device raises. x, g and the weight are float32 or bfloat16 (the TPU kernels'
+tensor each wrapper launches its kernel (``csrc/wgrad3x3_tma.cu`` or
+``csrc/wgrad3x3.cu``, ``csrc/dgrad3x3.cu``); on a CPU tensor it runs its
+plain version; any other device raises. K5 in float32 runs ``wgmma`` in
+3xTF32 fed by TMA (``csrc/wgrad3x3_tma.cu``) wherever :func:`wgrad_f32_plan`
+takes the shape and the tensors are 16-byte aligned
+(:func:`wgrad_f32_uses_tma`); the stem (Cin = 1) and the other shapes run
+the ``mma.sync`` / ``cp.async`` kernel of ``csrc/wgrad3x3.cu``, which
+:func:`wgrad3x3_mma_sync` also runs on any float32 CUDA shape, for
+comparisons. The route is chosen before the launch; a failed launch raises.
+The float32 launches on the TMA path count on ``wgrad3x3.tma`` besides
+``wgrad3x3.launches``. x, g and the weight are float32 or bfloat16 (the TPU kernels'
 dtypes, ``pallas_conv_bwd.py:51-63``); scale, shift, dW, db and the
 reductions float32; dx in x's dtype. In bf16 the products are exact bf16 ×
 bf16 products summed in float32: K5's activation is rounded to bf16 before
@@ -56,8 +64,8 @@ __all__ = [
     "TilePlan", "WgradPlan", "activation_nhwc", "activation_plain", "conv_plan", "cotangent_nhwc",
     "cotangent_plain", "dgrad3x3", "dgrad3x3_nhwc", "dgrad3x3_nhwc_plain", "dgrad3x3_plain",
     "dgrad_plan", "from_nhwc", "padded_channels",
-    "stem_slices", "to_nhwc", "wgrad3x3", "wgrad3x3_nhwc", "wgrad3x3_nhwc_plain",
-    "wgrad3x3_plain", "wgrad_plan",
+    "stem_slices", "to_nhwc", "WgradF32Plan", "wgrad3x3", "wgrad3x3_mma_sync", "wgrad3x3_nhwc",
+    "wgrad3x3_nhwc_plain", "wgrad3x3_plain", "wgrad_f32_plan", "wgrad_f32_uses_tma", "wgrad_plan",
 ]
 
 # a block's shared memory and the SMs of an H100 (the plans' defaults)
@@ -68,6 +76,18 @@ K5_DEPTH = 2048
 
 # the dtype codes of the C entry points
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K5's float32 path on wgmma with TMA (csrc/wgrad3x3_tma.cu): blocks of 64
+# output channels x 16 row groups of (tap, 16 input channels), reading at
+# most 3 groups of 16 channels of the activation; a ring of 5 to 8 stages
+# (a chunk reads the activation rows of the two events before it and a
+# consumer drains its partial every stages - 4 chunks, so at its wait the
+# stages - 2 events before it may be unreleased: 5 keeps the producer
+# ahead); the time of a chunk of one column (µs, at about 70% of the
+# 3xTF32 rate on an H100) and a warm-up event's share of a chunk's, for
+# the split-K plan
+K5F_BN, K5F_ROW_GROUPS, K5F_SLOTS = 64, 16, 3
+K5F_MIN_STAGES, K5F_MAX_STAGES = 5, 8
+K5F_US_PER_COLUMN, K5F_WARM_UP = 0.04, 0.25
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -340,6 +360,101 @@ def wgrad_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> W
                      stage_bytes=stage, smem=stages * stage + 16 * stages)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgradF32Plan:
+    """K5 in float32 on ``wgmma`` with TMA at one shape (``csrc/wgrad3x3_tma.cu``):
+    chunks of one row of ``tw`` columns (``chunks`` in all, strips of tw
+    columns walked row by row), a ring of ``stages`` of ``stage_bytes``
+    (the chunk's g as tf32 hi and lo, one row of 3 x 16 channels of the
+    activation, HC = tw + 12 columns from the strip's x0 - 4: a TMA box
+    starts on 16 bytes), ``smem`` bytes a block; ``mtiles`` x
+    ``ntiles`` tiles of 256 (tap, channel) rows x 64 output channels, each
+    split into ``slices`` runs of ``per_slice`` chunks."""
+
+    tw: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    mtiles: int
+    ntiles: int
+    chunks: int
+    per_slice: int
+    slices: int
+
+    @property
+    def hc(self) -> int:
+        return self.tw + 12
+
+    @property
+    def blocks(self) -> int:
+        return self.slices * self.mtiles * self.ntiles
+
+
+def k5f_stage_bytes(tw: int) -> int:
+    """Bytes of a stage of K5's float32 ring: g's hi and lo (tw / 4 boxes of
+    64 channels x 4 pixels each) and a row of 3 x 16 channels x (tw + 12)
+    columns of the activation, 1024-byte aligned."""
+    return _round_up(2 * (tw // 4) * K5F_BN * 16 + K5F_SLOTS * 64 * (tw + 12), 1024)
+
+
+def k5f_smem(tw: int, stages: int) -> int:
+    """A block's shared memory: the ring and three mbarriers a stage."""
+    return stages * (k5f_stage_bytes(tw) + 24)
+
+
+def _k5f_stages(tw: int) -> int:
+    return min(K5F_MAX_STAGES, SMEM_BYTES // (k5f_stage_bytes(tw) + 24))
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_f32_plan(b: int, cin: int, cout: int, h: int, w: int,
+                   sms: int = SMS) -> Optional[WgradF32Plan]:
+    """The plan of K5 in float32 on ``wgmma`` with TMA, or None where that
+    path does not take the shape: Cin a multiple of 16 (the rows' channel
+    groups; so never the stem) and W of 4 (TMA's 16-byte row strides).
+
+    The chunk's width tw: a multiple of 8 whose ring holds 5 stages (up to
+    56), the one that computes the fewest columns over a row's strips
+    (the padding past W included), each strip's 12 frame columns counted
+    a quarter (they are loaded, not computed); the widest on a tie. Split K:
+    the number of slices whose estimated time is least, counting whole
+    waves of blocks (one a SM), a slice's chunks and warm-ups, and the
+    partial sums written and read back; the fewest on a tie."""
+    if min(b, cout, h, w) <= 0 or cin < 16 or cin % 16 or w % 4:
+        return None
+    widths = [tw for tw in range(8, min(_round_up(w, 8), 128) + 1, 8)
+              if _k5f_stages(tw) >= K5F_MIN_STAGES]
+    tw = min(widths, key=lambda t: (-(-w // t) * (t + 3), -t))
+    stages = _k5f_stages(tw)
+    mtiles = -(-9 * (cin // 16) // K5F_ROW_GROUPS)
+    ntiles = -(-cout // K5F_BN)
+    tiles = mtiles * ntiles
+    chunks = b * -(-w // tw) * h
+    partial_us = cout * (9 * cin + 1) * 4 * 3 / 3.35e6  # a slice's: written, read, summed
+    best = None
+    for want in range(1, min(chunks, max(16, 16 * sms // tiles)) + 1):
+        per_slice = -(-chunks // want)
+        slices = -(-chunks // per_slice)
+        events = per_slice + 2 * K5F_WARM_UP * (-(-per_slice // h) + 1)
+        cost = (-(-tiles * slices // sms) * events * tw * K5F_US_PER_COLUMN
+                + slices * partial_us)
+        if best is None or cost < best[0]:
+            best = (cost, per_slice, slices)
+    _, per_slice, slices = best
+    return WgradF32Plan(tw=tw, stages=stages, stage_bytes=k5f_stage_bytes(tw),
+                        smem=k5f_smem(tw, stages), mtiles=mtiles, ntiles=ntiles, chunks=chunks,
+                        per_slice=per_slice, slices=slices)
+
+
+def wgrad_f32_uses_tma(x: torch.Tensor, g: torch.Tensor) -> bool:
+    """Whether a float32 K5 call on these tensors takes the TMA path: a plan
+    for its shape (:func:`wgrad_f32_plan`) and x and g 16-byte aligned;
+    any other runs the ``mma.sync`` kernel."""
+    b, cin, h, w = x.shape
+    return (x.dtype == g.dtype == torch.float32 and x.data_ptr() % 16 == 0
+            and g.data_ptr() % 16 == 0 and wgrad_f32_plan(b, cin, g.shape[1], h, w) is not None)
+
+
 @functools.lru_cache(maxsize=256)
 def stem_slices(npx: int, sms: int = SMS) -> tuple[int, int]:
     """(pixels a block, blocks) of K5's stem: four blocks per SM."""
@@ -518,31 +633,83 @@ def _launch_dgrad_nhwc(gp, x, weight, scale, shift, prologue: bool):
     return dx, red
 
 
-def _launch_wgrad(x, g, scale, shift, prologue: bool):
-    check_tensors("wgrad3x3", x.device, x=x, g=g)
-    check_tensors("wgrad3x3", x.device, scale=scale if prologue else None,
+def _check_wgrad(kernel: str, x, g, scale, shift, prologue: bool) -> None:
+    check_tensors(kernel, x.device, x=x, g=g)
+    check_tensors(kernel, x.device, scale=scale if prologue else None,
                   shift=shift if prologue else None)
     if x.ndim != 4 or g.ndim != 4 or x.shape[0] != g.shape[0] or x.shape[2:] != g.shape[2:]:
-        raise ValueError(f"wgrad3x3: input {tuple(x.shape)} and cotangent {tuple(g.shape)} "
+        raise ValueError(f"{kernel}: input {tuple(x.shape)} and cotangent {tuple(g.shape)} "
                          "are not one NCHW conv's")
+    if prologue:
+        check_prologue(kernel, scale, shift, x.shape[1])
+
+
+def _wgrad_outputs(x, g):
+    cout = g.shape[1]
+    return (torch.empty((cout, x.shape[1], 3, 3), dtype=torch.float32, device=x.device),
+            torch.empty((cout,), dtype=torch.float32, device=x.device))
+
+
+def _wgrad_mma_sync(x, g, scale, shift, prologue: bool, dw, db) -> int:
     b, cin, h, w = x.shape
     cout = g.shape[1]
-    if prologue:
-        check_prologue("wgrad3x3", scale, shift, cin)
-    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)
-    db = torch.empty((cout,), dtype=torch.float32, device=x.device)
-    if dw.numel() == 0 or x.numel() == 0:
-        return dw.zero_(), db.zero_()
     lib = _build.library()
     scratch = torch.empty((lib.im2im_wgrad3x3_scratch(b, cin, cout, h, w),),
                           dtype=torch.float32, device=x.device)
-    err = lib.im2im_wgrad3x3(
+    return lib.im2im_wgrad3x3(
         x.data_ptr(), g.data_ptr(), scale.data_ptr() if prologue else None,
         shift.data_ptr() if prologue else None, scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
         b, cin, cout, h, w, int(prologue), x.device.index, stream_of(x),
     )
+
+
+def _wgrad_tma(plan: WgradF32Plan, x, g, scale, shift, prologue: bool, dw, db) -> int:
+    b, cin, h, w = x.shape
+    cout = g.shape[1]
+    part = torch.empty((plan.slices * (cout * cin * 9 + cout),), dtype=torch.float32,
+                       device=x.device)
+    return _build.library().im2im_wgrad3x3_tma(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr() if prologue else None,
+        shift.data_ptr() if prologue else None, part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        b, cin, cout, h, w, int(prologue), plan.tw, plan.stages, plan.per_slice, plan.slices,
+        x.device.index, stream_of(x),
+    )
+
+
+def _launch_wgrad(x, g, scale, shift, prologue: bool):
+    _check_wgrad("wgrad3x3", x, g, scale, shift, prologue)
+    dw, db = _wgrad_outputs(x, g)
+    if dw.numel() == 0 or x.numel() == 0:
+        return dw.zero_(), db.zero_()
+    if wgrad_f32_uses_tma(x, g):
+        b, cin, h, w = x.shape
+        plan = wgrad_f32_plan(b, cin, g.shape[1], h, w, sm_count(x.device.index))
+        err = _wgrad_tma(plan, x, g, scale, shift, prologue, dw, db)
+        wgrad3x3.tma.launches += 1
+    else:
+        err = _wgrad_mma_sync(x, g, scale, shift, prologue, dw, db)
     wgrad3x3.launches += 1
     _build.check(err, "wgrad3x3")
+    return dw, db
+
+
+def wgrad3x3_mma_sync(
+    x: torch.Tensor, g: torch.Tensor, scale: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], prologue: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's ``mma.sync`` / ``cp.async`` kernel (``csrc/wgrad3x3.cu``) on
+    float32 CUDA tensors whatever :func:`wgrad_f32_uses_tma` says, counted
+    on no wrapper: the path of the stem and of the shapes off the plan, run
+    on the TMA path's shapes to compare the two (``chip_smoke.py``'s k5
+    phase). Raises off CUDA: it has no plain version."""
+    kernel = "wgrad3x3 (mma.sync)"
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{kernel} runs float32 CUDA tensors, not {x.dtype} on {x.device}")
+    _check_wgrad(kernel, x, g, scale, shift, prologue)
+    dw, db = _wgrad_outputs(x, g)
+    if dw.numel() == 0 or x.numel() == 0:
+        return dw.zero_(), db.zero_()
+    _build.check(_wgrad_mma_sync(x, g, scale, shift, prologue, dw, db), kernel)
     return dw, db
 
 
@@ -678,6 +845,8 @@ def dgrad3x3_nhwc(
 
 
 wgrad3x3.launches = 0  # K5 kernel launches since the last reset (f32)
+# the f32 launches on the TMA path (csrc/wgrad3x3_tma.cu), also counted above
+wgrad3x3.tma = types.SimpleNamespace(launches=0)
 dgrad3x3.launches = 0  # K6 kernel launches since the last reset (f32)
 # the launches of the bf16 instances, counted apart
 wgrad3x3.bf16 = types.SimpleNamespace(launches=0)

@@ -52,10 +52,11 @@ BUCKETS = [
     # f32: conv3x3_fwd_kernel; bf16: conv3x3_fwd_wgmma_kernel (K6's body with
     # the forward's epilogue); the stem, conv3x3_fwd_stem_kernel
     ("K3/K4 conv3x3 (port)", ("conv3x3_fwd",)),
-    # f32: wgrad3x3_tc_kernel; bf16: k5::wgrad_kernel and its stem (demangled
-    # or mangled names)
-    ("K5 wgrad3x3 (port)", ("wgrad3x3_tc_kernel", "k5::wgrad", "2k512wgrad_kernel",
-                            "2k517wgrad_stem_kernel")),
+    # f32: wgrad3x3_tma_kernel and, for the stem and the shapes off its plan,
+    # wgrad3x3_tc_kernel; bf16: k5::wgrad_kernel and its stem (demangled or
+    # mangled names)
+    ("K5 wgrad3x3 (port)", ("wgrad3x3_tma_kernel", "wgrad3x3_tc_kernel", "k5::wgrad",
+                            "2k512wgrad_kernel", "2k517wgrad_stem_kernel")),
     ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel", "k6::dgrad_kernel", "2k612dgrad_kernel")),
     # the bf16 GEMMs' operands: the NHWC activation (K3/K4's and K5's) and
     # cotangent passes, the packed weights of K3/K4 and K6
