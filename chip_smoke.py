@@ -53,8 +53,14 @@ Phases, one JSON line each on stdout:
               held to the same bars and timed in turns with it
               (``mma_sync_ms``); a k5_step line sums the step's launches on
               the TMA path (ms, mma.sync, library, bound, the 3xTF32 direct
-              floor). The fused train step must launch K5 14 times a step,
-              13 of them on the TMA path.
+              floor). Each k6 line names its path likewise: every main-path
+              shape and K6_TMA_ODD_SHAPES must take K6's f32 TMA path
+              (``csrc/dgrad3x3_tma.cu``, counted on ``dgrad3x3.tma``), beside
+              which the cp.async kernel (``conv_bwd.dgrad3x3_cp_async``) is
+              held to the bars and timed in turns (``cp_async_ms``); a
+              k6_step line sums the step's 13 launches. The fused train
+              step must launch K5 14 times a step, 13 of them on the TMA
+              path, and K6 13 times, all on its TMA path.
    conv3x3_bf16, conv3x3_bn_act_bf16
               the bf16 instances of K3 and K4 against their plain versions
               at every conv launch of the bf16 paths (the ``pallas`` train
@@ -410,6 +416,9 @@ KERNELS = {
     # counted on wgrad3x3
     "wgrad3x3_tma": conv_bwd.wgrad3x3.tma,
     "dgrad3x3": conv_bwd.dgrad3x3,
+    # the f32 K6 launches on wgmma with TMA (csrc/dgrad3x3_tma.cu), also
+    # counted on dgrad3x3
+    "dgrad3x3_tma": conv_bwd.dgrad3x3.tma,
     "wgrad3x3_bf16": conv_bwd.wgrad3x3.bf16,
     "dgrad3x3_bf16": conv_bwd.dgrad3x3.bf16,
     "cotangent_nhwc": conv_bwd.cotangent_nhwc,
@@ -463,6 +472,14 @@ CONV_ODD_SHAPES = [(2, 1, 1, 1, 8), (1, 3, 5, 7, 16), (2, 64, 13, 17, 24), (1, 1
 # W 44 in chunks of 48 with 27 row groups over two M tiles and Cout 72 over
 # two N tiles, Cin 16 at W 12 over strips of 16
 K5_TMA_ODD_SHAPES = [(2, 32, 13, 20, 24), (1, 48, 9, 44, 72), (3, 16, 7, 12, 8)]
+# K6's cases on its f32 TMA path (csrc/dgrad3x3_tma.cu), Cin at the plan's
+# smallest multiple (64) but in one: W 20 in tiles of 13 x 12 (the second
+# 8 columns wide) over 3 chunks of Cout 24; H 21 in tiles of 12 x 20 (the
+# last 9 rows: a short last box); a 1 x 4 image, smaller than its box;
+# three N slices of Cin 192 with Cout 40 in 5 chunks; tiles of 16 x 16
+# over a 30 x 28 image (the last ones 14 rows and 12 columns)
+K6_TMA_ODD_SHAPES = [(2, 64, 13, 20, 24), (3, 64, 21, 40, 16), (1, 64, 1, 4, 8),
+                     (2, 192, 17, 36, 40), (2, 64, 30, 28, 8)]
 # Bars of a conv kernel against its plain version, on the relative L2
 # error and on max|error| / max|plain|: both sum in f32 in another order,
 # over 9*Cin terms (K3, K4's y, K6's dx: 3e-5) or over B*H*W terms (K5,
@@ -1061,10 +1078,13 @@ def _conv_calls(kernel: str, c: dict, prologue: bool):
                 lambda: torch.nn.grad.conv2d_weight(a, w.shape, g, padding=1),
                 [SUM_TOL, SUM_TOL],
                 n * (x.numel() + g.numel() + w.numel() + bias.numel() + 2 * sc.numel()))
+    # x is read for the mask, and scale, shift and the two sums moved, only
+    # with the prologue
     return (lambda: conv_bwd.dgrad3x3(g, x, w, sc, sh, prologue),
             lambda: conv_bwd.dgrad3x3_plain(g, x, w, sc, sh, prologue),
             lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=1), [CONV_TOL, SUM_TOL],
-            n * (g.numel() + w.numel() + 2 * x.numel() + 4 * sc.numel()))
+            n * (g.numel() + w.numel() + (2 if prologue else 1) * x.numel()
+                 + (4 * sc.numel() if prologue else 0)))
 
 
 def _conv_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
@@ -1097,33 +1117,53 @@ def conv_bound(shape: tuple, nbytes: float,
     return ms, by, direct
 
 
-def k5_path(shape: tuple, c: dict, tma_launches: int, want_tma: bool) -> str:
-    """The path an f32 K5 case took ("tma" or "mma_sync"), from
-    ``conv_bwd.wgrad_f32_uses_tma`` and the two runs' launches on
-    ``wgrad3x3.tma``; raise where the two disagree, or where a main-path
-    or K5_TMA_ODD_SHAPES case (``want_tma``) missed the TMA path."""
-    path = "tma" if conv_bwd.wgrad_f32_uses_tma(c["x"], c["g"]) else "mma_sync"
+# K5 and K6 in f32, each beside its TMA path: the name of its older kernel
+# in the k5 / k6 lines, that kernel's call on a case, the odd shapes that
+# must take the TMA path, and whether a case takes the TMA path
+OLD_F32_PATHS = {
+    "wgrad3x3": ("mma_sync", lambda c, p: conv_bwd.wgrad3x3_mma_sync(
+        c["x"], c["g"], c["scale"], c["shift"], p), K5_TMA_ODD_SHAPES,
+        lambda c: conv_bwd.wgrad_f32_uses_tma(c["x"], c["g"])),
+    "dgrad3x3": ("cp_async", lambda c, p: conv_bwd.dgrad3x3_cp_async(
+        c["g"], c["x"], c["w"], c["scale"], c["shift"], p), K6_TMA_ODD_SHAPES,
+        lambda c: conv_bwd.dgrad_f32_uses_tma(c["g"], c["x"])),
+}
+
+
+def f32_path(kernel: str, shape: tuple, c: dict, tma_launches: int, want_tma: bool) -> str:
+    """The path an f32 K5 or K6 case took ("tma", or its older kernel's
+    name), from its ``OLD_F32_PATHS`` predicate (``conv_bwd.*_uses_tma``)
+    and the two runs' launches on ``wgrad3x3.tma`` / ``dgrad3x3.tma``; raise
+    where the two disagree, or where a case that must take the TMA path
+    (``want_tma``) missed it."""
+    phase = CONV_PHASES[kernel]
+    old, _, _, uses_tma = OLD_F32_PATHS[kernel]
+    path = "tma" if uses_tma(c) else old
     if tma_launches != (2 if path == "tma" else 0):
-        raise AssertionError(f"k5 {shape}: path {path} but {tma_launches} launches on "
-                             "wgrad3x3.tma in two runs")
+        raise AssertionError(f"{phase} {shape}: path {path} but {tma_launches} launches on "
+                             f"{kernel}.tma in two runs")
     if want_tma and path != "tma":
-        raise AssertionError(f"k5 {shape}: a shape of the TMA path ran {path}")
+        raise AssertionError(f"{phase} {shape}: a shape of the TMA path ran {path}")
     return path
 
 
-def k5_mma_sync(fields: dict, c: dict, prologue: bool, run, want: tuple, bars: list) -> None:
-    """K5's mma.sync kernel (``conv_bwd.wgrad3x3_mma_sync``) at a main-path
-    shape: within the same bars of the plain version ``want``, and timed in
-    turns with the TMA path's ``run`` (TMA, mma.sync, mma.sync, TMA; the
-    TMA time timed first is in ``fields["ms"]``) → mma_sync_ms, its errors,
-    and ms averaged over both turns."""
+def old_f32_path(kernel: str, fields: dict, c: dict, prologue: bool, run, want: tuple,
+                 bars: list) -> None:
+    """K5's mma.sync or K6's cp.async kernel at a main-path shape: within
+    the same bars of the plain version ``want``, and timed in turns with the
+    TMA path's ``run`` (TMA, old, old, TMA; the TMA time timed first is in
+    ``fields["ms"]``) → ``<old>_ms``, its errors, and ms averaged over both
+    turns."""
+    name, call, _, _ = OLD_F32_PATHS[kernel]
+
     def old():
-        return conv_bwd.wgrad3x3_mma_sync(c["x"], c["g"], c["scale"], c["shift"], prologue)
+        return call(c, prologue)
     errs = [_conv_errors(a, b_) for a, b_ in zip(old(), want)]
     if any(max(e[1], e[2]) > bar for e, bar in zip(errs, bars)):
-        raise AssertionError(f"k5 {fields['shape']}: the mma.sync path disagrees: {errs}")
-    fields["mma_sync_max_abs_err"] = [e[0] for e in errs]
-    fields["mma_sync_ms"] = (time_ms(old, 5) + time_ms(old, 5)) / 2
+        raise AssertionError(f"{CONV_PHASES[kernel]} {fields['shape']}: the {name} path "
+                             f"disagrees: {errs}")
+    fields[f"{name}_max_abs_err"] = [e[0] for e in errs]
+    fields[f"{name}_ms"] = (time_ms(old, 5) + time_ms(old, 5)) / 2
     fields["ms"] = (fields["ms"] + time_ms(run, 5)) / 2
     fields["card"] = torch.cuda.get_device_name(0)
 
@@ -1153,17 +1193,18 @@ def phase_conv_kernels() -> dict:
         wnet = [c for c in dict.fromkeys(conv_sites("pallas_fused", WNET_DOUBLE_CONVS)[kernel])
                 if c not in main]
         prologues = [False] if kernel == "conv3x3" else [True, False]
-        odd = CONV_ODD_SHAPES + (K5_TMA_ODD_SHAPES if kernel == "wgrad3x3" else [])
+        old_name, _, odd_tma, _ = OLD_F32_PATHS.get(kernel, (None, None, [], None))
+        odd = CONV_ODD_SHAPES + odd_tma
         cases = main + wnet + [(shape, p) for shape in odd for p in prologues]
         sums = {backend: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
                 for backend in counts}
         tma_sums = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                    "mma_sync_ms": 0.0, "floor_ms": 0.0, "launches_per_step": 0}
+                    f"{old_name}_ms": 0.0, "floor_ms": 0.0, "launches_per_step": 0}
         for (shape, prologue) in cases:
             b, cin, h, w, cout = shape
             c = _conv_case(b, cin, h, w, cout, gen)
             run, plain, library, bars, nbytes = _conv_calls(kernel, c, prologue)
-            tma0 = conv_bwd.wgrad3x3.tma.launches
+            tma0 = KERNELS[f"{kernel}_tma"].launches if old_name else 0
             got, again, want = run(), run(), plain()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
@@ -1172,11 +1213,12 @@ def phase_conv_kernels() -> dict:
             fields = {"shape": list(shape), "prologue": prologue,
                       "max_abs_err": [e[0] for e in errs], "rel_l2_err": [e[1] for e in errs],
                       "rel_max_err": [e[2] for e in errs], "bars": bars, "bit_identical": True}
-            if kernel == "wgrad3x3":
-                # every main-path shape but the stem's must take the TMA path
-                fields["path"] = k5_path(shape, c, conv_bwd.wgrad3x3.tma.launches - tma0,
-                                         ((shape, prologue) in main and cin > 1)
-                                         or shape in K5_TMA_ODD_SHAPES)
+            if old_name:
+                # every main-path shape but K5's stem must take the TMA path
+                tma_launches = KERNELS[f"{kernel}_tma"].launches - tma0
+                fields["path"] = f32_path(kernel, shape, c, tma_launches,
+                                          ((shape, prologue) in main and cin > 1)
+                                          or shape in odd_tma)
             if kernel == "conv3x3_bn_act":
                 y_eval, _ = conv.conv3x3_bn_act_fwd(c["x"], c["w"], c["bias"], c["scale"],
                                                     c["shift"], prologue, False)
@@ -1190,8 +1232,8 @@ def phase_conv_kernels() -> dict:
                 fields["launches_per_step"] = {k: n[(shape, prologue)] for k, n in counts.items()
                                                if n[(shape, prologue)]}
                 fields["ms"] = time_ms(run, 5)
-                if kernel == "wgrad3x3" and fields["path"] == "tma":
-                    k5_mma_sync(fields, c, prologue, run, want, bars)
+                if old_name and fields["path"] == "tma":
+                    old_f32_path(kernel, fields, c, prologue, run, want, bars)
                 fields["plain_ms"] = time_ms(plain, 2)
                 fields["library_ms"] = time_ms(library, 5)
                 fields["bound_ms"], fields["bound_by"], direct = conv_bound(shape, nbytes)
@@ -1205,9 +1247,9 @@ def phase_conv_kernels() -> dict:
                         result[k] += n * fields[k]
                     add_bound(result, direct / 9, nbytes, n, PEAK_F32_TC_FLOPS)
                 n = fields["launches_per_step"].get("pallas_fused", 0)
-                if kernel == "wgrad3x3" and fields["path"] == "tma" and n:
+                if old_name and fields["path"] == "tma" and n:
                     tma_sums["max_abs_err"] = max(tma_sums["max_abs_err"], *fields["max_abs_err"])
-                    for k in ("ms", "plain_ms", "library_ms", "mma_sync_ms"):
+                    for k in ("ms", "plain_ms", "library_ms", f"{old_name}_ms"):
                         tma_sums[k] += n * fields[k]
                     tma_sums["floor_ms"] += n * fields["direct_flop_ms"]
                     tma_sums["launches_per_step"] += n
@@ -1215,12 +1257,12 @@ def phase_conv_kernels() -> dict:
             emit(CONV_PHASES[kernel], **fields)
             del c, got, again, want
         results[kernel] = close_bound(sums["pallas_fused"])
-        if kernel == "wgrad3x3":
+        if old_name:
             close_bound(tma_sums)
-            emit("k5_step", card=torch.cuda.get_device_name(0), **tma_sums,
-                 speedup_over_mma_sync=tma_sums["mma_sync_ms"] / tma_sums["ms"],
+            emit(f"{CONV_PHASES[kernel]}_step", card=torch.cuda.get_device_name(0), **tma_sums,
+                 **{f"speedup_over_{old_name}": tma_sums[f"{old_name}_ms"] / tma_sums["ms"]},
                  over_library=tma_sums["ms"] / tma_sums["library_ms"])
-            results["wgrad3x3_tma"] = {k: tma_sums[k] for k in (
+            results[f"{kernel}_tma"] = {k: tma_sums[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if "pallas" in sums:
             emit("k3_pallas_step", launches_per_step=sum(counts["pallas"].values()),
@@ -2209,16 +2251,20 @@ def _against_default(phase: str, cfg: dict, config: dict, init: dict, batch,
                              f"{stat_err[worst_s]}, eval {eval_err}")
 
 
-def require_k5_per_step(phase: str, counts: dict, steps: int) -> None:
-    """K5's f32 launches in ``steps`` pallas_fused UNet train steps at batch
-    32, 320x320: one per K4 (``conv_sites``), on the TMA path wherever
-    ``conv_bwd.wgrad_f32_plan`` takes the shape (all but the stem's)."""
-    sites = conv_sites("pallas_fused")["wgrad3x3"]
-    want = len(sites), sum(conv_bwd.wgrad_f32_plan(b, ci, co, h, w) is not None
-                           for (b, ci, h, w, co), _ in sites)
-    got = counts["wgrad3x3"] / steps, counts["wgrad3x3_tma"] / steps
-    if got != want:
-        raise AssertionError(f"{phase}: K5 launches a step (all, TMA path) {got}, want {want}")
+def require_tma_per_step(phase: str, counts: dict, steps: int) -> None:
+    """K5's and K6's f32 launches in ``steps`` pallas_fused UNet train steps
+    at batch 32, 320x320: one per K4 (K6: but the stem's, ``conv_sites``),
+    on the TMA path wherever ``conv_bwd.wgrad_f32_plan`` /
+    ``dgrad_f32_plan`` takes the shape (K5: all but the stem's; K6: all)."""
+    for kernel, plan in (("wgrad3x3", conv_bwd.wgrad_f32_plan),
+                         ("dgrad3x3", conv_bwd.dgrad_f32_plan)):
+        sites = conv_sites("pallas_fused")[kernel]
+        want = len(sites), sum(plan(b, ci, co, h, w) is not None
+                               for (b, ci, h, w, co), _ in sites)
+        got = counts[kernel] / steps, counts[f"{kernel}_tma"] / steps
+        if got != want:
+            raise AssertionError(f"{phase}: {CONV_PHASES[kernel]} launches a step (all, TMA "
+                                 f"path) {got}, want {want}")
 
 
 def phase_fused(config: dict, calib, serve) -> dict:
@@ -2254,7 +2300,7 @@ def phase_fused(config: dict, calib, serve) -> dict:
     require_launches("fused_train", train_counts,
                      ["upsample2x", "upsample2x_bwd", "maxpool2x2_bwd"] + CONV_KERNELS)
     steps = WARMUP_STEPS + TIMED_STEPS
-    require_k5_per_step("fused_train", train_counts, steps)
+    require_tma_per_step("fused_train", train_counts, steps)
     median_ms = float(np.median(step_ms))
     emit("fused_train", conv_backend="pallas_fused", batch=bs, image=IMAGE, steps=steps,
          median_step_ms=median_ms, imgs_per_sec=1e3 * bs / median_ms, step_ms=step_ms,
@@ -4562,6 +4608,7 @@ def main() -> int:
         "wgrad3x3": ("wgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "wgrad3x3_tma": ("wgrad3x3_tma.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3": ("dgrad3x3.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
+        "dgrad3x3_tma": ("dgrad3x3_tma.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
         "wgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:191"),
         "dgrad3x3_bf16": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv_bwd.py:315"),
         "cotangent_nhwc": ("conv3x3_bf16.cu", "im2im_uq_tpu/ops/pallas_conv.py:371"),

@@ -91,6 +91,12 @@ _SIGNATURES = {
     "im2im_dgrad3x3": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
     # floats of K6's reduction scratch: (b, cin, h, w)
     "im2im_dgrad3x3_scratch": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    # K6 in f32 on wgmma with TMA: (g, weight, x, scale, shift, dx, wpack, part,
+    #      red, b, cin, cout, h, w, prologue, th, tw, hc, rows, stages,
+    #      per_slice, device, stream)
+    "im2im_dgrad3x3_tma": ([_P] * 9 + [ctypes.c_int] * 13 + [_P], ctypes.c_int),
+    # floats of its packed weights: (cin, cout)
+    "im2im_dgrad3x3_tma_scratch": ([ctypes.c_int] * 2, ctypes.c_longlong),
     # the bf16 NHWC passes (mode 0: K5's activation, 1: the cotangent): (in, y,
     #  gst, scale, shift, out, b, c, cp, h, w, mode, device, stream)
     "im2im_nhwc_pass": ([_P] * 6 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),

@@ -1,5 +1,8 @@
 // K6: the input gradient of K4, NCHW, float32, for sm_90a (its bfloat16
-// instance is conv3x3_bf16.cu's).
+// instance is conv3x3_bf16.cu's), for the shapes off the plan of
+// dgrad3x3_tma.cu (ops/conv_bwd.dgrad_f32_plan: Cin not a multiple of 64,
+// W not of 4, unaligned tensors), which runs the rest; also callable on any
+// float32 shape for comparisons (conv_bwd.dgrad3x3_cp_async).
 //
 // Replaces the TPU kernel im2im_uq_tpu/ops/pallas_conv_bwd.py
 // `dgrad3x3_pallas_raw` (`_dgrad_kernel`).

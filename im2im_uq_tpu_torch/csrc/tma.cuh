@@ -1,6 +1,7 @@
 // TMA and mbarrier helpers for the wgmma kernels fed by TMA, for
-// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu), K5 in float32 (wgrad3x3_tma.cu)
-// and P2-P5's TMA path in both dtypes (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
+// sm_90a: K3-K6 in bf16 (conv3x3_bf16.cu), K5 and K6 in float32
+// (wgrad3x3_tma.cu, dgrad3x3_tma.cu) and P2-P5's TMA path in both dtypes
+// (conv3x3_nhwc.cu). The tensor maps are encoded through libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime, so the library
 // links no -lcuda.
 
@@ -98,6 +99,24 @@ __device__ __forceinline__ void consumers_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
+// the register budgets of the float32 kernels' roles (wgrad3x3_tma.cu,
+// dgrad3x3_tma.cu): a producer warpgroup gives up registers, the two
+// consumer warpgroups take them
+__device__ __forceinline__ void setmaxnreg_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void setmaxnreg_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+// *p = v where `on`, predicated inside the instruction (no memory clobber:
+// an epilogue's loads may be issued ahead of its stores)
+__device__ __forceinline__ void store_if(float* p, float v, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+      "f"(v), "r"(static_cast<int>(on)));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -148,8 +167,8 @@ inline cudaError_t nhwc_map(CUtensorMap* map, const void* base, int b, int h, in
 // The tensor map of a bf16 NCHW tensor (b, c, h, w), w a multiple of 8 and
 // the base 16-byte aligned, in boxes of bw columns x bh rows x bc channels
 // of one image (bw a multiple of 8), zero outside the tensor. With type
-// FLOAT32: a float32 tensor, w and bw multiples of 4 (K5's float32 path,
-// wgrad3x3_tma.cu).
+// FLOAT32: a float32 tensor, w and bw multiples of 4 (K5's and K6's
+// float32 paths, wgrad3x3_tma.cu and dgrad3x3_tma.cu).
 inline cudaError_t nchw_map(CUtensorMap* map, const void* base, int b, int c, int h, int w,
                             int bw, int bh, int bc,
                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {

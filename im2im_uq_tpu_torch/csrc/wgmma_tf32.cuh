@@ -1,6 +1,7 @@
 // wgmma.m64nNk8 with TF32 operands and float32 accumulation, A from
 // registers, for sm_90a: WgmmaTf32<N>, the N widths that the float32 path
-// of the NHWC probe conv (conv3x3_nhwc.cu, namespace tma) instantiates.
+// of the NHWC probe conv (conv3x3_nhwc.cu, namespace tma), K5's
+// (wgrad3x3_tma.cu) and K6's (dgrad3x3_tma.cu) instantiate.
 // A per warp w of the warpgroup: rows 16 w .. 16 w + 15 of the m64 tile in
 // the layout of mma.m16n8k8's A (mma_tf32.cuh); B from shared memory
 // through a K-major descriptor (TF32 has no transposed B); d holds the

@@ -177,13 +177,6 @@ struct Walk {
   }
 };
 
-__device__ __forceinline__ void setmaxnreg_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-__device__ __forceinline__ void setmaxnreg_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
-
 // Warp 0, one thread: the TMA loads of every event into the ring.
 __device__ __forceinline__ void produce(const CUtensorMap* xmap, const CUtensorMap* gmap,
                                        const Geo& g, unsigned char* smem, uint64_t* full,

@@ -12,16 +12,21 @@ Counterpart of ``im2im_uq_tpu/ops/pallas_conv_bwd.py``:
 
 Layout NCHW; weights and dW in ``nn.Conv2d``'s (Cout, Cin, 3, 3). On a CUDA
 tensor each wrapper launches its kernel (``csrc/wgrad3x3_tma.cu`` or
-``csrc/wgrad3x3.cu``, ``csrc/dgrad3x3.cu``); on a CPU tensor it runs its
-plain version; any other device raises. K5 in float32 runs ``wgmma`` in
-3xTF32 fed by TMA (``csrc/wgrad3x3_tma.cu``) wherever :func:`wgrad_f32_plan`
-takes the shape and the tensors are 16-byte aligned
-(:func:`wgrad_f32_uses_tma`); the stem (Cin = 1) and the other shapes run
-the ``mma.sync`` / ``cp.async`` kernel of ``csrc/wgrad3x3.cu``, which
-:func:`wgrad3x3_mma_sync` also runs on any float32 CUDA shape, for
-comparisons. The route is chosen before the launch; a failed launch raises.
-The float32 launches on the TMA path count on ``wgrad3x3.tma`` besides
-``wgrad3x3.launches``. x, g and the weight are float32 or bfloat16 (the TPU kernels'
+``csrc/wgrad3x3.cu``, ``csrc/dgrad3x3_tma.cu`` or ``csrc/dgrad3x3.cu``); on
+a CPU tensor it runs its plain version; any other device raises. K5 in
+float32 runs ``wgmma`` in 3xTF32 fed by TMA (``csrc/wgrad3x3_tma.cu``)
+wherever :func:`wgrad_f32_plan` takes the shape and the tensors are 16-byte
+aligned (:func:`wgrad_f32_uses_tma`); the stem (Cin = 1) and the other
+shapes run the ``mma.sync`` / ``cp.async`` kernel of ``csrc/wgrad3x3.cu``,
+which :func:`wgrad3x3_mma_sync` also runs on any float32 CUDA shape, for
+comparisons. K6 in float32 likewise runs its own ``wgmma`` kernel in
+3xTF32 fed by TMA (``csrc/dgrad3x3_tma.cu``) wherever :func:`dgrad_f32_plan`
+takes the shape (:func:`dgrad_f32_uses_tma`), and ``csrc/dgrad3x3.cu``'s
+``cp.async``-fed kernel elsewhere, also callable as
+:func:`dgrad3x3_cp_async`. The route is chosen before the launch; a failed
+launch raises. The float32 launches on the TMA paths count on
+``wgrad3x3.tma`` and ``dgrad3x3.tma`` besides ``wgrad3x3.launches`` and
+``dgrad3x3.launches``. x, g and the weight are float32 or bfloat16 (the TPU kernels'
 dtypes, ``pallas_conv_bwd.py:51-63``); scale, shift, dW, db and the
 reductions float32; dx in x's dtype. In bf16 the products are exact bf16 ×
 bf16 products summed in float32: K5's activation is rounded to bf16 before
@@ -61,8 +66,9 @@ import torch.nn.functional as F
 from im2im_uq_tpu_torch import _build
 
 __all__ = [
-    "TilePlan", "WgradPlan", "activation_nhwc", "activation_plain", "conv_plan", "cotangent_nhwc",
-    "cotangent_plain", "dgrad3x3", "dgrad3x3_nhwc", "dgrad3x3_nhwc_plain", "dgrad3x3_plain",
+    "DgradF32Plan", "TilePlan", "WgradPlan", "activation_nhwc", "activation_plain", "conv_plan",
+    "cotangent_nhwc", "cotangent_plain", "dgrad3x3", "dgrad3x3_cp_async", "dgrad3x3_nhwc",
+    "dgrad3x3_nhwc_plain", "dgrad3x3_plain", "dgrad_f32_plan", "dgrad_f32_uses_tma",
     "dgrad_plan", "from_nhwc", "padded_channels",
     "stem_slices", "to_nhwc", "WgradF32Plan", "wgrad3x3", "wgrad3x3_mma_sync", "wgrad3x3_nhwc",
     "wgrad3x3_nhwc_plain", "wgrad3x3_plain", "wgrad_f32_plan", "wgrad_f32_uses_tma", "wgrad_plan",
@@ -88,6 +94,15 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 K5F_BN, K5F_ROW_GROUPS, K5F_SLOTS = 64, 16, 3
 K5F_MIN_STAGES, K5F_MAX_STAGES = 5, 8
 K5F_US_PER_COLUMN, K5F_WARM_UP = 0.04, 0.25
+# K6's float32 path on wgmma with TMA (csrc/dgrad3x3_tma.cu): blocks of 64
+# input channels x tiles of at most 256 pixels, chunks of 8 output channels
+# x 9 taps (their weights' tf32 hi and lo: 36,864 bytes a stage beside the
+# cotangent's box: at most 85 KB, so two always fit), the consumer warps'
+# reduction slots, a ring of up to 4 stages
+K6F_BN, K6F_KC, K6F_TILE_PX = 64, 8, 256
+K6F_WCHUNK = 18 * K6F_BN * K6F_KC * 4
+K6F_RED_BYTES = 8 * K6F_BN * 2 * 4
+K6F_MAX_STAGES = 4
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -455,6 +470,90 @@ def wgrad_f32_uses_tma(x: torch.Tensor, g: torch.Tensor) -> bool:
             and g.data_ptr() % 16 == 0 and wgrad_f32_plan(b, cin, g.shape[1], h, w) is not None)
 
 
+@dataclasses.dataclass(frozen=True)
+class DgradF32Plan:
+    """K6 in float32 on ``wgmma`` with TMA at one shape
+    (``csrc/dgrad3x3_tma.cu``): output tiles of ``th`` x ``tw`` pixels
+    (``tiles`` in all), the cotangent's box of 8 channels x ``rows`` x ``hc``
+    columns from (x0 - 4, y0 - 1) (``box_bytes``), a ring of ``stages`` of
+    ``stage_bytes`` (the box, then a chunk's packed weights), ``smem`` bytes
+    a block; ``ntn`` slices of 64 input channels, each walked by
+    ``per_slice`` persistent blocks."""
+
+    th: int
+    tw: int
+    hc: int
+    rows: int
+    stages: int
+    box_bytes: int
+    stage_bytes: int
+    smem: int
+    ntn: int
+    tiles: int
+    per_slice: int
+
+    @property
+    def blocks(self) -> int:
+        return self.per_slice * self.ntn
+
+
+def k6f_box(th: int, tw: int) -> Optional[tuple[int, int]]:
+    """(hc, rows) of K6's float32 box for tiles of th x tw: hc = tw + 8 or
+    tw + 12 columns (a multiple of 4: 16-byte TMA rows from x0 - 4, past x0 +
+    tw; at most 256, TMA's box) and rows >= th + 2, whose channel plane
+    rows·hc is an odd multiple of 8 floats (a lane's 4 channels 8 banks
+    apart); tw + 8 where tw is not a multiple of 8 (the 8 pixels of a load
+    then cross a tile row, and stay 8 apart in the banks only if the row's
+    jump is 8). The smallest plane, or None where no box fits."""
+    best = None
+    for hc in (tw + 8, tw + 12):
+        if (tw % 8 and hc != tw + 8) or hc > 256:
+            continue
+        for rows in range(th + 2, th + 6):
+            if rows * hc % 16 == 8 and (best is None or rows * hc < best[0]):
+                best = (rows * hc, hc, rows)
+    return None if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=256)
+def dgrad_f32_plan(b: int, cin: int, cout: int, h: int, w: int,
+                   sms: int = SMS) -> Optional[DgradF32Plan]:
+    """The plan of K6 in float32 on ``wgmma`` with TMA, or None where that
+    path does not take the shape: Cin a multiple of 64 (the blocks' N
+    slices) and W of 4 (TMA's 16-byte row strides).
+
+    The tile: tw a multiple of 4 up to W (and 248) whose box fits
+    (:func:`k6f_box`), th = the rows of 256 pixels (at most H); the one with
+    the fewest tiles, the smallest box on a tie. As many stages as fit, up
+    to 4; one persistent block per SM, the slices side by side."""
+    if min(b, cout, h, w) <= 0 or cin <= 0 or cin % K6F_BN or w % 4:
+        return None
+    best = None
+    for tw in range(4, min(_round_up(w, 4), 248) + 1, 4):
+        th = min(h, K6F_TILE_PX // tw)
+        box = k6f_box(th, tw)
+        tiles = b * -(-h // th) * -(-w // tw)
+        if box is not None and (best is None or (tiles, box[0] * box[1]) < best[0]):
+            best = ((tiles, box[0] * box[1]), th, tw) + box
+    (tiles, _), th, tw, hc, rows = best
+    box = K6F_KC * rows * hc * 4
+    stage = _round_up(box, 128) + K6F_WCHUNK  # the box, then a chunk's packed weights
+    stages = min(K6F_MAX_STAGES, (SMEM_BYTES - K6F_RED_BYTES) // (stage + 16))
+    ntn = cin // K6F_BN
+    return DgradF32Plan(th=th, tw=tw, hc=hc, rows=rows, stages=stages, box_bytes=box,
+                        stage_bytes=stage, smem=stages * (stage + 16) + K6F_RED_BYTES, ntn=ntn,
+                        tiles=tiles, per_slice=max(1, min(tiles, sms // ntn)))
+
+
+def dgrad_f32_uses_tma(g: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether a float32 K6 call on these tensors takes the TMA path: a plan
+    for its shape (:func:`dgrad_f32_plan`) and g and x 16-byte aligned; any
+    other runs ``csrc/dgrad3x3.cu``'s kernel."""
+    b, cin, h, w = x.shape
+    return (x.dtype == g.dtype == torch.float32 and x.data_ptr() % 16 == 0
+            and g.data_ptr() % 16 == 0 and dgrad_f32_plan(b, cin, g.shape[1], h, w) is not None)
+
+
 @functools.lru_cache(maxsize=256)
 def stem_slices(npx: int, sms: int = SMS) -> tuple[int, int]:
     """(pixels a block, blocks) of K5's stem: four blocks per SM."""
@@ -713,36 +812,94 @@ def wgrad3x3_mma_sync(
     return dw, db
 
 
-def _launch_dgrad(g, x, weight, scale, shift, prologue: bool):
-    check_tensors("dgrad3x3", g.device, g=g, x=x, weight=weight)
-    check_tensors("dgrad3x3", g.device, scale=scale if prologue else None,
+def _check_dgrad(kernel: str, g, x, weight, scale, shift, prologue: bool) -> None:
+    check_tensors(kernel, g.device, g=g, x=x, weight=weight)
+    check_tensors(kernel, g.device, scale=scale if prologue else None,
                   shift=shift if prologue else None)
     if g.ndim != 4 or x.ndim != 4 or x.shape[0] != g.shape[0] or x.shape[2:] != g.shape[2:]:
-        raise ValueError(f"dgrad3x3: input {tuple(x.shape)} and cotangent {tuple(g.shape)} "
+        raise ValueError(f"{kernel}: input {tuple(x.shape)} and cotangent {tuple(g.shape)} "
                          "are not one NCHW conv's")
-    b, cin, h, w = x.shape
-    cout = g.shape[1]
+    cout, cin = g.shape[1], x.shape[1]
     if tuple(weight.shape) != (cout, cin, 3, 3):
-        raise ValueError(f"dgrad3x3: weight {tuple(weight.shape)} is not ({cout}, {cin}, 3, 3)")
+        raise ValueError(f"{kernel}: weight {tuple(weight.shape)} is not ({cout}, {cin}, 3, 3)")
     if prologue:
-        check_prologue("dgrad3x3", scale, shift, cin)
-    dx = torch.empty_like(x)
-    red = torch.zeros((2, cin), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return dx, red
-    if cout == 0:
-        return dx.zero_(), red
+        check_prologue(kernel, scale, shift, cin)
+
+
+def _dgrad_outputs(x):
+    return (torch.empty_like(x),
+            torch.zeros((2, x.shape[1]), dtype=torch.float32, device=x.device))
+
+
+def _dgrad_cp_async(g, x, weight, scale, shift, prologue: bool, dx, red) -> int:
+    b, cin, h, w = x.shape
     lib = _build.library()
     scratch = (torch.empty((lib.im2im_dgrad3x3_scratch(b, cin, h, w),), dtype=torch.float32,
                            device=x.device) if prologue else None)
-    err = lib.im2im_dgrad3x3(
+    return lib.im2im_dgrad3x3(
         g.data_ptr(), weight.data_ptr(), x.data_ptr(),
         scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
         dx.data_ptr(), scratch.data_ptr() if prologue else None, red.data_ptr(),
-        b, cin, cout, h, w, int(prologue), x.device.index, stream_of(x),
+        b, cin, g.shape[1], h, w, int(prologue), x.device.index, stream_of(x),
     )
+
+
+def _dgrad_tma(plan: DgradF32Plan, g, x, weight, scale, shift, prologue: bool, dx, red) -> int:
+    b, cin, h, w = x.shape
+    cout = g.shape[1]
+    lib = _build.library()
+    wpack = torch.empty((lib.im2im_dgrad3x3_tma_scratch(cin, cout),), dtype=torch.float32,
+                        device=x.device)
+    part = (torch.empty((plan.per_slice * 2 * cin,), dtype=torch.float32, device=x.device)
+            if prologue else None)
+    return lib.im2im_dgrad3x3_tma(
+        g.data_ptr(), weight.data_ptr(), x.data_ptr(),
+        scale.data_ptr() if prologue else None, shift.data_ptr() if prologue else None,
+        dx.data_ptr(), wpack.data_ptr(), part.data_ptr() if prologue else None, red.data_ptr(),
+        b, cin, cout, h, w, int(prologue), plan.th, plan.tw, plan.hc, plan.rows, plan.stages,
+        plan.per_slice, x.device.index, stream_of(x),
+    )
+
+
+def _launch_dgrad(g, x, weight, scale, shift, prologue: bool):
+    _check_dgrad("dgrad3x3", g, x, weight, scale, shift, prologue)
+    dx, red = _dgrad_outputs(x)
+    if x.numel() == 0:
+        return dx, red
+    if g.shape[1] == 0:
+        return dx.zero_(), red
+    if dgrad_f32_uses_tma(g, x):
+        b, cin, h, w = x.shape
+        plan = dgrad_f32_plan(b, cin, g.shape[1], h, w, sm_count(x.device.index))
+        err = _dgrad_tma(plan, g, x, weight, scale, shift, prologue, dx, red)
+        dgrad3x3.tma.launches += 1
+    else:
+        err = _dgrad_cp_async(g, x, weight, scale, shift, prologue, dx, red)
     dgrad3x3.launches += 1
     _build.check(err, "dgrad3x3")
+    return dx, red
+
+
+def dgrad3x3_cp_async(
+    g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+    scale: Optional[torch.Tensor], shift: Optional[torch.Tensor], prologue: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's ``cp.async``-fed kernel on K3/K4's ``m64n32`` core
+    (``csrc/dgrad3x3.cu``) on float32 CUDA tensors whatever
+    :func:`dgrad_f32_uses_tma` says, counted on no wrapper: the path of the
+    shapes off the plan, run on the TMA path's shapes to compare the two
+    (``chip_smoke.py``'s k6 phase). Raises off CUDA: it has no plain
+    version."""
+    kernel = "dgrad3x3 (cp.async)"
+    if g.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{kernel} runs float32 CUDA tensors, not {x.dtype} on {g.device}")
+    _check_dgrad(kernel, g, x, weight, scale, shift, prologue)
+    dx, red = _dgrad_outputs(x)
+    if x.numel() == 0:
+        return dx, red
+    if g.shape[1] == 0:
+        return dx.zero_(), red
+    _build.check(_dgrad_cp_async(g, x, weight, scale, shift, prologue, dx, red), kernel)
     return dx, red
 
 
@@ -848,6 +1005,8 @@ wgrad3x3.launches = 0  # K5 kernel launches since the last reset (f32)
 # the f32 launches on the TMA path (csrc/wgrad3x3_tma.cu), also counted above
 wgrad3x3.tma = types.SimpleNamespace(launches=0)
 dgrad3x3.launches = 0  # K6 kernel launches since the last reset (f32)
+# the f32 launches on the TMA path (csrc/dgrad3x3_tma.cu), also counted above
+dgrad3x3.tma = types.SimpleNamespace(launches=0)
 # the launches of the bf16 instances, counted apart
 wgrad3x3.bf16 = types.SimpleNamespace(launches=0)
 dgrad3x3.bf16 = types.SimpleNamespace(launches=0)

@@ -11,7 +11,9 @@ wall time per step (host clock around the synchronized
 steps), the device-busy time (the union of the kernels' intervals), the
 idle share, and the kernel time per step in the buckets of
 ``utils/profiling.py`` (the port's kernels by name; cuDNN's convolutions;
-BatchNorm; Adam; copies; the rest) with the ten largest kernels. Needs a CUDA device; it does not fall back to the CPU.
+BatchNorm; Adam; copies; the rest) with the ten largest kernels and every
+kernel of a port bucket ("(port)") by name. Needs a CUDA device; it does
+not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ def profile_backend(conv_backend: str, compute_dtype: str = "float32") -> dict:
     by_name: dict[str, float] = {}
     for name, a, b in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3 / STEPS
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     busy_ms = profiling.union_ms(kernels)
     kernel_ms = split["total_ms"]
     return {
@@ -76,7 +79,8 @@ def profile_backend(conv_backend: str, compute_dtype: str = "float32") -> dict:
         "kernel_ms_per_step": kernel_ms,
         "buckets_ms_per_step": by_bucket,
         "bucket_shares": {k: v / kernel_ms for k, v in by_bucket.items()},
-        "top_kernels_ms_per_step": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
+        "top_kernels_ms_per_step": dict(ranked[:10]),
+        "port_kernels_ms_per_step": {k: v for k, v in ranked if bucket(k).endswith("(port)")},
     }
 
 

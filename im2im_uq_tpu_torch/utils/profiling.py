@@ -57,7 +57,10 @@ BUCKETS = [
     # mangled names)
     ("K5 wgrad3x3 (port)", ("wgrad3x3_tma_kernel", "wgrad3x3_tc_kernel", "k5::wgrad",
                             "2k512wgrad_kernel", "2k517wgrad_stem_kernel")),
-    ("K6 dgrad3x3 (port)", ("dgrad3x3_tc_kernel", "k6::dgrad_kernel", "2k612dgrad_kernel")),
+    # f32: dgrad3x3_tma_kernel and its weight pack, and for the shapes off
+    # its plan dgrad3x3_tc_kernel; bf16: k6::dgrad_kernel
+    ("K6 dgrad3x3 (port)", ("dgrad3x3_tma_kernel", "k6f::pack_weights", "3k6f19pack_weights",
+                            "dgrad3x3_tc_kernel", "k6::dgrad_kernel", "2k612dgrad_kernel")),
     # the bf16 GEMMs' operands: the NHWC activation (K3/K4's and K5's) and
     # cotangent passes, the packed weights of K3/K4 and K6
     ("bf16 packing (port)", ("nhwc_kernel", "pack_weights_k6")),

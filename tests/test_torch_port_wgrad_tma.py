@@ -96,7 +96,7 @@ def test_plan_widths_at_the_step_levels():
 
 
 def test_the_fused_step_runs_13_of_its_14_k5_launches_on_the_tma_path():
-    """``chip_smoke.require_k5_per_step``'s count: one K5 a K4 of the f32
+    """``chip_smoke.require_tma_per_step``'s K5 count: one K5 a K4 of the f32
     pallas_fused step at batch 32, 320x320, every one but the stem's on
     the plan."""
     import chip_smoke
